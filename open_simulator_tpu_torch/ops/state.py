@@ -1,0 +1,97 @@
+"""Host -> device state plumbing: numpy tables -> tuples of torch tensors.
+
+The whole cluster ships to the device once; what comes back per batch is the
+placement vector, the failure-reason rows and the allocation takes. Every
+field keeps the dtype and shape of the JAX package's NodeStatic/Carry/PodRow.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from .encode import Encoder, NodeTable, PodBatch, anti_table_size, round_up
+from .kernels import Carry, NodeStatic, PodRow
+
+
+def _t(arr, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def anti_topo_array(enc: Encoder) -> np.ndarray:
+    """i32[AT] topo-key index per registered required-anti-affinity term."""
+    arr = np.full(anti_table_size(enc), -1, np.int32)
+    for t, (k_idx, _sel) in enumerate(enc.anti_terms):
+        arr[t] = k_idx
+    return arr
+
+
+def node_static_from_table(
+    enc: Encoder, table: NodeTable, device=DEFAULT_DEVICE
+) -> NodeStatic:
+    dev = resolve_device(device)
+    D = round_up(len(enc.domains) + 1, 4)
+    domain_key = np.full(D, -1, np.int32)
+    for did_minus1, k_idx in enumerate(enc.domain_topo):
+        domain_key[did_minus1 + 1] = k_idx
+    # one-hot domain membership per topology key [K,D,N]; key 0 (hostname)
+    # is counted per node by the kernels and stays zero here
+    K = table.topo.shape[1]
+    topo_onehot = np.zeros((K, D, table.n), np.float32)
+    for k in range(1, K):
+        d = table.topo[:, k]
+        rows = np.nonzero((d >= 0) & table.valid)[0]
+        topo_onehot[k, d[rows], rows] = 1.0
+    fields = {
+        f: getattr(table, f) for f in NodeStatic._fields if hasattr(table, f)
+    }
+    return NodeStatic(
+        **{f: _t(a, dev) for f, a in fields.items()},
+        domain_key=_t(domain_key, dev),
+        topo_onehot=_t(topo_onehot, dev),
+        unsched_key_id=torch.tensor(enc.unsched_key_id, dtype=torch.int32, device=dev),
+        empty_val_id=torch.tensor(enc.empty_val_id, dtype=torch.int32, device=dev),
+        anti_topo=_t(anti_topo_array(enc), dev),
+    )
+
+
+def carry_from_table(
+    table: NodeTable,
+    sel_counts: Optional[np.ndarray] = None,
+    num_selectors: int = 1,
+    port_counts: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    anti_counts: Optional[np.ndarray] = None,
+    device=DEFAULT_DEVICE,
+) -> Carry:
+    dev = resolve_device(device)
+    if sel_counts is None:
+        # the encoder's selector_table_size bucketing
+        sel_counts = np.zeros(
+            (round_up(max(num_selectors, 1), 8), table.n), np.float32
+        )
+    if port_counts is None:
+        z = np.zeros((2, table.n), np.float32)
+        port_counts = (z, z, z)
+    if anti_counts is None:
+        anti_counts = np.zeros((2, table.n), np.float32)  # anti_table_size min
+    return Carry(
+        free=_t(table.free, dev),
+        sel_counts=_t(sel_counts, dev),
+        gpu_free=_t(table.gpu_free, dev),
+        vg_free=_t(table.vg_free, dev),
+        dev_free=_t(table.dev_free, dev),
+        port_any=_t(port_counts[0], dev),
+        port_wild=_t(port_counts[1], dev),
+        port_ipc=_t(port_counts[2], dev),
+        anti_counts=_t(anti_counts, dev),
+    )
+
+
+def pod_rows_from_batch(batch: PodBatch, device=DEFAULT_DEVICE) -> PodRow:
+    """Stacked PodRow ([P, ...] leaves); PodRow fields map 1:1 onto PodBatch
+    attributes of the same name."""
+    dev = resolve_device(device)
+    return PodRow(**{f: _t(getattr(batch, f), dev) for f in PodRow._fields})

@@ -1,0 +1,205 @@
+"""The port's encoder, state constructors, interop and constants against the JAX
+package, plus build_trajectory on a pod with every node-local dynamic (GPU
+share, open-local storage, host ports). Tolerance: exact."""
+
+import json
+
+import numpy as np
+import pytest
+
+from open_simulator_tpu.core import objects as jobj
+from open_simulator_tpu.ops import encode as jenc
+from open_simulator_tpu.ops import fast as jfast
+from open_simulator_tpu.ops import kernels as jkern
+from open_simulator_tpu.ops import state as jstate
+from open_simulator_tpu_torch import interop
+from open_simulator_tpu_torch.core import objects as tobj
+from open_simulator_tpu_torch.ops import encode as tenc
+from open_simulator_tpu_torch.ops import fast as tfast
+from open_simulator_tpu_torch.ops import kernels as tkern
+from open_simulator_tpu_torch.ops import state as tstate
+
+GIB = 1 << 30
+
+
+def rich_dicts():
+    """Nodes with GPUs, local storage, taints and zones; pods with GPU
+    share, storage volumes, host ports, tolerations, selectors and spread."""
+    nodes = []
+    for i in range(7):
+        res = {
+            "cpu": str(8 + 8 * (i % 3)), "memory": f"{32 + 16 * (i % 2)}Gi", "pods": "40",
+            "alibabacloud.com/gpu-count": "4", "alibabacloud.com/gpu-mem": "64Gi",
+        }
+        nodes.append({
+            "metadata": {
+                "name": f"n-{i}",
+                "labels": {"topology.kubernetes.io/zone": f"z-{i % 3}", "tier": "a" if i % 2 else "b"},
+                "annotations": {"simon/node-local-storage": json.dumps({
+                    "vgs": [{"name": "pool", "capacity": str((40 + 10 * i) * GIB), "requested": "0"}],
+                    "devices": [
+                        {"device": "/dev/sdb", "capacity": str(100 * GIB), "mediaType": "ssd",
+                         "isAllocated": "false"},
+                        {"device": "/dev/sdc", "capacity": str(200 * GIB), "mediaType": "hdd",
+                         "isAllocated": "false"},
+                    ],
+                })},
+            },
+            "spec": {"taints": [{"key": "k", "value": "v", "effect": "PreferNoSchedule"}] if i == 3 else []},
+            "status": {"allocatable": dict(res), "capacity": dict(res)},
+        })
+    rich = {
+        "metadata": {
+            "name": "rich", "namespace": "s", "labels": {"app": "rich"},
+            "annotations": {
+                "alibabacloud.com/gpu-mem": "6Gi", "alibabacloud.com/gpu-count": "2",
+                "simon/pod-local-storage": json.dumps({"volumes": [
+                    {"kind": "LVM", "size": str(5 * GIB), "scName": "open-local-lvm"},
+                    {"kind": "SSD", "size": str(50 * GIB), "scName": "open-local-device-ssd"},
+                ]}),
+            },
+        },
+        "spec": {
+            "containers": [{
+                "name": "c", "resources": {"requests": {"cpu": "1", "memory": "2Gi"}},
+                "ports": [{"containerPort": 80, "hostPort": 8080}],
+            }],
+            "tolerations": [{"key": "k", "operator": "Exists"}],
+            "affinity": {"nodeAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+                {"weight": 3, "preference": {"matchExpressions": [
+                    {"key": "tier", "operator": "In", "values": ["a"]}]}}]}},
+            "topologySpreadConstraints": [{
+                "maxSkew": 2, "topologyKey": "topology.kubernetes.io/zone",
+                "whenUnsatisfiable": "ScheduleAnyway",
+                "labelSelector": {"matchLabels": {"app": "rich"}},
+            }],
+        },
+    }
+    plain = {
+        "metadata": {"name": "plain", "namespace": "s", "labels": {"app": "plain"}},
+        "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": "250m"}}}],
+                 "nodeSelector": {"tier": "b"}},
+    }
+    return nodes, [rich, plain]
+
+
+def encode(objs, enc_mod, node_dicts, pod_dicts):
+    templates = [objs.Pod.from_dict(d) for d in pod_dicts]
+    enc = enc_mod.Encoder()
+    enc.register_pods(templates)
+    table = enc_mod.encode_nodes(enc, [objs.Node.from_dict(d) for d in node_dicts])
+    return enc, table, enc_mod.encode_pods(enc, templates)
+
+
+@pytest.fixture(scope="module")
+def both():
+    nodes, pods = rich_dicts()
+    jenc_, jtable, jbatch = encode(jobj, jenc, nodes, pods)
+    tenc_, ttable, tbatch = encode(tobj, tenc, nodes, pods)
+    return (jenc_, jtable, jbatch), (tenc_, ttable, tbatch)
+
+
+def leaves_equal(want, got, names):
+    for f in names:
+        a, b = np.asarray(want[f]), np.asarray(got[f])
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def test_encoded_tables_match(both):
+    (_, jtable, jbatch), (_, ttable, tbatch) = both
+    for want, got in ((jtable, ttable), (jbatch, tbatch)):
+        names = [f for f in want.__dataclass_fields__ if f not in ("names", "keys")]
+        leaves_equal(vars(want), vars(got), names)
+    assert jtable.names == ttable.names and jbatch.keys == tbatch.keys
+
+
+def test_state_leaves_match(both):
+    (jenc_, jtable, jbatch), (tenc_, ttable, tbatch) = both
+    sel = jenc.initial_selector_counts(jenc_, jtable, [])
+    jns = jstate.node_static_from_table(jenc_, jtable)
+    jcarry = jstate.carry_from_table(jtable, sel)
+    jrows = jstate.pod_rows_from_batch(jbatch)
+    tns = tstate.node_static_from_table(tenc_, ttable, device="cpu")
+    tcarry = tstate.carry_from_table(
+        ttable, tenc.initial_selector_counts(tenc_, ttable, []), device="cpu"
+    )
+    trows = tstate.pod_rows_from_batch(tbatch, device="cpu")
+    for want, got in ((jns, tns), (jcarry, tcarry), (jrows, trows)):
+        assert want._fields == got._fields
+        leaves_equal(want._asdict(), interop.to_host_leaves(got), want._fields)
+
+
+def test_interop_round_trip(both):
+    (jenc_, jtable, jbatch), _ = both
+    jns = jstate.node_static_from_table(jenc_, jtable)
+    jcarry = jstate.carry_from_table(jtable, jenc.initial_selector_counts(jenc_, jtable, []))
+    jrows = jstate.pod_rows_from_batch(jbatch)
+    host = [{f: np.asarray(v) for f, v in t._asdict().items()} for t in (jns, jcarry, jrows)]
+    port = interop.from_jax_leaves(*host, device="cpu")
+    for want, got in zip(host, port):
+        leaves_equal(want, interop.to_host_leaves(got), want)
+    with pytest.raises(KeyError, match="missing"):
+        interop.from_jax_leaves({}, host[1], host[2], device="cpu")
+
+
+@pytest.mark.parametrize("pruned", [False, True], ids=["all-dynamic", "flags"])
+@pytest.mark.parametrize("template", [0, 1], ids=["gpu-storage-ports", "plain"])
+def test_build_trajectory_matches(both, template, pruned):
+    """Every Trajectory leaf, the static masks/scores and na_ok, for a pod
+    whose GPU, storage and port state evolve and for a plain one; with every
+    dynamic evaluated per step and with the flag-driven hoisting."""
+    (jenc_, jtable, jbatch), _ = both
+    jns = jstate.node_static_from_table(jenc_, jtable)
+    jcarry = jstate.carry_from_table(jtable, jenc.initial_selector_counts(jenc_, jtable, []))
+    jrows = jstate.pod_rows_from_batch(jbatch)
+    host = [{f: np.asarray(v) for f, v in t._asdict().items()} for t in (jns, jcarry, jrows)]
+    tns, tcarry, trows = interop.from_jax_leaves(*host, device="cpu")
+    jrow = jkern.PodRow(*(a[template] for a in jrows))
+    trow = tkern.PodRow(*(a[template] for a in trows))
+    flags = tfast.ALL_DYNAMIC
+    if pruned:
+        flags = tfast.group_flags(
+            {f: getattr(jbatch, f)[template] for f in (
+                "hp_pid", "has_local", "gpu_mem", "spread_topo", "spread_hard",
+                "aff_topo", "aff_required", "match_anti")},
+            np.asarray(jns.anti_topo),
+        )
+        assert flags.dyn_gpu == flags.dyn_storage == flags.dyn_ports == (template == 0)
+    want = jfast.build_trajectory(jns, jcarry, jrow, jkern.weights_array(), 8)
+    got = tfast.build_trajectory(
+        tns, tcarry, trow, tkern.weights_array(device="cpu"), 8, None, flags
+    )
+    for f in want[0]._fields:
+        a, b = np.asarray(getattr(want[0], f)), getattr(got[0], f).numpy()
+        np.testing.assert_array_equal(a, b, err_msg=f"trajectory {f}")
+    for i in (1, 2, 4):
+        np.testing.assert_array_equal(np.asarray(want[i]), got[i].numpy())
+    for k, v in want[3].items():
+        np.testing.assert_array_equal(np.asarray(v), got[3][k].numpy(), err_msg=k)
+    if template == 0:
+        assert np.asarray(want[0].gpu_take).any() and np.asarray(want[0].vg_take).any()
+
+
+@pytest.mark.parametrize("name", [
+    "F_UNSCHEDULABLE", "F_NODE_NAME", "F_TAINT", "F_NODE_AFFINITY", "F_NODE_PORTS",
+    "F_RESOURCES", "F_SPREAD", "F_POD_AFFINITY", "F_STORAGE", "F_GPU", "F_EXTRA",
+    "NUM_FILTERS", "FILTER_MESSAGES", "DEFAULT_WEIGHTS", "WEIGHT_ORDER", "_EPS",
+    "HOSTNAME_KEY_IDX",
+])
+def test_kernel_constants_tripwire(name):
+    assert getattr(tkern, name) == getattr(jkern, name)
+
+
+@pytest.mark.parametrize("name", [
+    "J_CAP", "DM_CAP", "CH_CPU", "CH_MEM", "CH_RES_FAIL", "CH_PORT_OK", "CH_STO_OK",
+    "CH_GPU_OK", "CH_STO_RAW", "CH_GPU_RAW", "N_CH", "SP_IDX", "IPA_IDX",
+])
+def test_fast_constants_tripwire(name):
+    assert getattr(tfast, name) == getattr(jfast, name)
+
+
+def test_weights_array_matches():
+    np.testing.assert_array_equal(
+        np.asarray(jkern.weights_array()), tkern.weights_array(device="cpu").numpy()
+    )
