@@ -11,9 +11,13 @@
    split. It holds the timed pass's result against the placement digest the
    JAX package computes for the same input.
 3. Holds every kernel against its plain PyTorch version on the card, on the
-   inputs the main path gave it and on extra seeded variants; prints their
-   times.
-4. Prints one JSON line of per-kernel numbers and, last, the result line.
+   inputs the main path gave it and on extra seeded variants, and prints
+   their times; holds the pop loop's split divide against __fdiv_rn on the
+   spread's operands (67 M pairs).
+4. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+   nvidia-smi reads the SM clock, and prints the latency bound of the main
+   path's pop loop beside the kernel's own cycles per pop.
+5. Prints one JSON line of per-kernel numbers and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -31,13 +35,7 @@ import numpy as np
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# The dependent critical path of one pop, read off domain_pop_kernel for one
-# warp, in SM cycles (an estimate from the code, not a measurement): the
-# count loop (~120), two 5-step shuffle max reductions (~300), the 5-step
-# shuffle argmin (~200), the spread division (~60), the barriers and the
-# count update (~100), and the dependent L2 load of the winner's next head
-# entry (~280). G pops can take no less than G times this.
-POP_STEP_CYCLES = 1060
+PROBE_POPS = 4_000_000      # long enough (~0.5 s) to read the SM clock while it runs
 
 
 def smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -49,10 +47,11 @@ def smi(query: str, fmt: str = "csv,noheader") -> str:
     return out[0]
 
 
-def pop_inputs(seed, dc, lanes, c, d, g, hard, n=12288):
+def pop_inputs(seed, dc, lanes, c, d, g, hard, n=12288, cap=None):
     """Seeded pop-loop inputs shaped like a domain plan: sorted per-class
     lane tables with tied (quantized) scores, classes that run out early or
-    are empty, rows mapped to domains or missing the key."""
+    are empty, rows mapped to domains or missing the key. `cap` bounds every
+    class's lane count (so all classes run out before g pops)."""
     rng = np.random.default_rng(seed)
     hscore = -np.sort(-(rng.integers(0, 40, (dc, lanes)) * 0.25)).astype(np.float32)
     for m in range(dc):
@@ -62,6 +61,8 @@ def pop_inputs(seed, dc, lanes, c, d, g, hard, n=12288):
     hj = rng.integers(0, 128, (dc, lanes)).astype(np.int32)
     cap_eff = rng.integers(0, lanes + 1, dc).astype(np.int32)
     cap_eff[rng.random(dc) < 0.2] = 0
+    if cap is not None:
+        cap_eff = np.minimum(cap_eff, cap)
     dom_of = rng.integers(-1, d, (c, dc))
     if hard:
         dom_of[0] = rng.integers(0, d, dc)  # every class carries the hard row's key
@@ -85,6 +86,25 @@ def pop_inputs(seed, dc, lanes, c, d, g, hard, n=12288):
     return arrays, [2.0, True, g - 5, g, hard, n]
 
 
+def divide_domain(torch, exhaustive=8192, n_random=1 << 25, seed=0):
+    """(n, d) operand pairs of the spread divide on the card: every count
+    d = mx in [1, exhaustive) with every raw in [0, mx] (larger raws give a
+    negative quotient, clipped to 0), and n_random seeded pairs with mx up
+    to 2^24. n = (mx - raw) * 100, as the kernel forms it."""
+    mxs = torch.arange(1, exhaustive, device="cuda")
+    counts = mxs + 1
+    starts = torch.cumsum(counts, 0) - counts
+    idx = torch.arange(int(counts.sum()), device="cuda")
+    mx = torch.repeat_interleave(mxs, counts)
+    raw = idx - torch.repeat_interleave(starts, counts)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mx_r = torch.randint(1, 1 << 24, (n_random,), device="cuda", generator=gen)
+    raw_r = (torch.rand(n_random, device="cuda", generator=gen, dtype=torch.float64)
+             * (mx_r + 1)).long().clamp(max=mx_r)
+    mx, raw = torch.cat([mx, mx_r]), torch.cat([raw, raw_r])
+    return (mx - raw).float() * 100.0, mx.float()
+
+
 def to_card(arrays, scalars, torch):
     return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays] + list(scalars)
 
@@ -106,18 +126,21 @@ def pop_bound(args, placed):
     [Dc] and [C,*] tables read once, the [Dc,L] head tables (score, node,
     lane) read only at the entries the loop visits (each class's first head
     and one more per placed pod: Dc + placed entries), both [G] outputs
-    written once, at the HBM rate. Operations: the f32 work of G pops (per
-    class the C*D count products and sums, the soft sum, the spread norm,
-    the hard verdict and the total; the C*D count update) at the f32 peak."""
+    written once, at the HBM rate. Operations: the f32 work of the pops that
+    place a pod (after that the loop ends), at the f32 peak: per class the
+    raw increment, the spread norm (subtract, multiply, divide, two clips)
+    and the total (multiply, add); per hard row the D domain increments and
+    per class the count increment and the verdict (add, subtract, compare)."""
     tensors = [a for a in args if hasattr(a, "element_size")]
-    hscore, base_dom = tensors[0], tensors[6]
+    hscore, base_dom, hard = tensors[0], tensors[6], tensors[11]
     dc = hscore.shape[0]
-    c, d = base_dom.shape
+    d = base_dom.shape[1]
     g = args[-3]
     head_bytes = (dc + placed) * sum(t.element_size() for t in tensors[:3])
     small_bytes = sum(t.numel() * t.element_size() for t in tensors[3:])
     nbytes = head_bytes + small_bytes + 2 * 4 * g
-    ops = g * (dc * (2 * c * d + c * (d + 4) + 8) + 3 * c * d)
+    n_hard = int((hard > 0).sum()) if args[-2] and args[-5] else 0
+    ops = (placed + 1) * (dc * 8 + n_hard * (d + 4 * dc))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -159,14 +182,16 @@ def main() -> int:
     from open_simulator_tpu_torch.ops import domain_pop as dp
     from open_simulator_tpu_torch.ops import fast
     from open_simulator_tpu_torch.ops.kernels import weights_array
+    from open_simulator_tpu_torch.tools import pop_chain
 
     card = smi("name,power.limit")
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    dp.build_library()
+    dp.build_libraries(dp.SOURCE, pop_chain.SOURCE)  # one nvcc per source, together
     dp._library()
+    pop_chain._library()
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for line in dp.build_log.splitlines():
@@ -232,7 +257,7 @@ def main() -> int:
         failures.append(f"scheduled {scheduled} of {n_pods} pods")
     if not (paths["sort"] > 0 and paths["domain"] > 0):
         failures.append(f"expected sort and domain groups, got {paths}")
-    if paths["domain_kernel"] != paths["domain"] or launches <= 0:
+    if not paths["domain_kernel"] == paths["domain"] == launches:
         failures.append(f"domain groups {paths['domain']} but kernel launches {launches}")
     if digest != HEADLINE_DIGEST_100K_10K:
         failures.append(f"digest {digest} != reference {HEADLINE_DIGEST_100K_10K}")
@@ -248,17 +273,41 @@ def main() -> int:
     main_args = captured[0]
     ms, plain_ms, err, placed = check_pop("main-path", main_args, dp, torch, reps=5)
     errs = [err]
-    for name, (seed, dc, lanes, d, hard) in {
-        "headline-hard": (7, 4, 26624, 4, True),
-        "dc64-ties-exhausted": (12, 64, 4096, 4, False),
+    # name: (seed, Dc, L, D, G, hard, cap)
+    for name, (seed, dc, lanes, d, g, hard, cap) in {
+        "headline-hard": (7, 4, 26624, 4, 26624, True, None),
+        "dc64-ties-exhausted": (12, 64, 4096, 4, 26624, False, None),
+        "dc33-hard": (33, 33, 512, 4, 4096, True, None),
+        "dc1": (1, 1, 4096, 4, 4096, False, None),
+        "lanes1": (5, 8, 1, 4, 200, True, None),
+        "g-odd": (9, 4, 5001, 4, 5001, False, None),
+        "all-exhausted": (21, 8, 512, 4, 3000, False, 256),
     }.items():
-        arrays, scalars = pop_inputs(seed, dc, lanes, 2, d, 26624, hard)
+        arrays, scalars = pop_inputs(seed, dc, lanes, 2, d, g, hard, cap=cap)
         errs.append(check_pop(name, to_card(arrays, scalars, torch), dp, torch, reps=3)[2])
     bound_ms, bound_by = pop_bound(main_args, placed)
-    max_sm_mhz = float(smi("clocks.max.sm", "csv,noheader,nounits"))
-    latency_ms = main_args[-3] * POP_STEP_CYCLES / (max_sm_mhz * 1e3)
-    print(f"domain_pop latency bound: {main_args[-3]} pops x {POP_STEP_CYCLES} cycles "
-          f"at {max_sm_mhz:.0f} MHz = {latency_ms:.2f} ms", flush=True)
+    n_div, d_div = divide_domain(torch)
+    differ = dp.check_divide(n_div, d_div)
+    print(f"split divide vs __fdiv_rn: {n_div.numel()} operand pairs, {differ} differ",
+          flush=True)
+    if differ:
+        raise SystemExit(f"domain_pop: the split divide differs from __fdiv_rn on {differ} pairs")
+
+    # -- the measured chain floor -------------------------------------------
+    g_main = main_args[-3]
+    pop_chain.run(1000)  # warm
+    cycles, ns, sm_mhz = pop_chain.run(
+        PROBE_POPS, during=lambda: float(smi("clocks.sm", "csv,noheader,nounits"))
+    )
+    probe_cycles = cycles / PROBE_POPS
+    latency_ms = g_main * probe_cycles / (sm_mhz * 1e3)
+    kernel_cycles = ms * 1e-3 * sm_mhz * 1e6 / g_main
+    print(f"pop chain probe: {probe_cycles:.1f} cycles/pop over {PROBE_POPS} pops, "
+          f"SM clock {sm_mhz:.0f} MHz (nvidia-smi during the probe), "
+          f"{cycles / ns * 1e3:.0f} MHz (clock64/globaltimer)", flush=True)
+    print(f"domain_pop main path: {kernel_cycles:.1f} cycles/pop (kernel) vs "
+          f"{probe_cycles:.1f} cycles/pop (probe); latency bound {g_main} pops x "
+          f"{probe_cycles:.1f} cycles at {sm_mhz:.0f} MHz = {latency_ms:.3f} ms", flush=True)
     kernels = [{
         "name": "domain_pop",
         "route": "cuda",
@@ -271,6 +320,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "latency_bound_ms": latency_ms,
     }]
     if opts.out:
         with open(opts.out, "w") as f:
@@ -278,8 +328,8 @@ def main() -> int:
                 "card": card, "torch": torch.__version__, "build_s": build_s,
                 "encode_s": encode_s, "warm_s": warm_s, "run_s": run_s,
                 "pods_per_s": n_pods / run_s, "warm_phases": warm_phases,
-                "phase_s": phase_s, "phases": phases, "latency_bound_ms": latency_ms,
-                "max_sm_mhz": max_sm_mhz,
+                "phase_s": phase_s, "phases": phases, "probe_cycles_per_pop": probe_cycles,
+                "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
                 "paths": paths, "digest": digest, "kernels": kernels,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

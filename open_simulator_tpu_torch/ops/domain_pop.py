@@ -16,6 +16,10 @@ Inputs (Dc classes, L lanes per class, C spread rows, D domains, G pops):
   match, soft, hard, skew f32[C]        per-row constants (masks as 0/1)
   has_key f32[C,Dc]                     class carries the row's topology key
 Returns (nodes i32[G], jidx i32[G]).
+
+`check_divide` holds the kernel's split spread divide against __fdiv_rn on
+the card (chip_smoke.py runs it on every operand pair the spread can meet
+below 2^13 and on random ones up to 2^24).
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-MAX_CLASSES = 64            # two warps; the fast path's DM_CAP
+MAX_CLASSES = 64            # two classes a lane; the fast path's DM_CAP
+STATIC_SMEM = 4 * MAX_CLASSES * MAX_CLASSES + 16 * MAX_CLASSES * 32  # s_R + rings
+EXACT = 1 << 24             # counts are exact f32 integers below this
 SMEM_BUDGET = 232448        # bytes of shared memory one block may use (H100)
 
 launches = 0                # kernel launches since import (reset by callers)
@@ -106,10 +112,15 @@ def domain_pop_reference(
     return nodes, jidx
 
 
-def smem_bytes(c: int, d: int, dc: int) -> int:
-    """Dynamic shared memory the kernel takes for these table sizes (the
-    layout at the top of domain_pop_kernel)."""
-    return 4 * (2 * c * d + c * d * dc + c * dc + 4 * c + dc + 8)
+def smem_bytes(c: int, d: int, dc: int, hard: bool = True) -> int:
+    """Dynamic shared memory the kernel takes for these table sizes: the
+    hard rows' tables when the DoNotSchedule verdict is on (the layout of
+    `Hard` in csrc/domain_pop.cu, domains rounded up to a warp), else 0. The
+    static tables take STATIC_SMEM more."""
+    if not hard:
+        return 0
+    dp = -(-d // 32) * 32
+    return 4 * (c + c * dc * dc + c * dc * dp + c * dp + c * dc)
 
 
 def _nvcc() -> str:
@@ -125,40 +136,69 @@ def _nvcc() -> str:
     )
 
 
-def build_library() -> Path:
-    """Compile csrc/domain_pop.cu into build/ (once per source content) and
-    return the shared library's path."""
+def build_libraries(*sources: Path) -> list[Path]:
+    """Compile each CUDA source into build/ (once per source content), all
+    nvcc processes started together, and return the shared libraries' paths."""
     global build_log
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libdomain_pop-{tag}.so"
-    if so.is_file():
-        return so
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{build_log}")
-    os.replace(tmp, so)
-    return so
+    sos = []
+    for source in sources:
+        tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        sos.append(BUILD_DIR / f"lib{source.stem}-{tag}.so")
+    todo = [(src, so) for src, so in zip(sources, sos) if not so.is_file()]
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src, so in todo:
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            procs.append((src, so, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        failed = []
+        for src, so, tmp, proc in procs:
+            out = proc.communicate()[0]
+            build_log += f"[{src.name}]\n{out}"
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed building {src.name}:\n{out}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return sos
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = ctypes.CDLL(str(build_libraries(SOURCE)[0]))
         fn = lib.domain_pop_launch
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        check = lib.domain_pop_divide_check
+        check.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+        check.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def check_divide(n: torch.Tensor, d: torch.Tensor) -> int:
+    """The number of (n, d) pairs, f32 CUDA tensors, on which the kernel's
+    split divide (the reciprocal kept per max, then the quotient) differs in
+    any bit from __fdiv_rn(n, d)."""
+    if n.device.type != "cuda" or n.shape != d.shape:
+        raise ValueError("check_divide: n and d must be CUDA tensors of one shape")
+    n, d = n.contiguous().float(), d.contiguous().float()
+    differ = torch.empty(n.shape, dtype=torch.int32, device=n.device)
+    err = _library().domain_pop_divide_check(
+        n.data_ptr(), d.data_ptr(), n.numel(), differ.data_ptr(),
+        torch.cuda.current_stream(n.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"divide check launch failed: CUDA error {err}")
+    return int(differ.sum())
 
 
 def _check(name, t, dtype, shape, dev):
@@ -188,12 +228,19 @@ def domain_pop(
         return domain_pop_reference(
             *args, w_sp, fo_spread, valid_count, group_size, any_hard, big_n
         )
+    Dc, L = hscore.shape
+    C, D = base_dom.shape
+    if C * group_size >= EXACT:
+        raise ValueError(
+            f"domain_pop: {C} rows x {group_size} pops may carry a count past 2^24, "
+            "where f32 counts stop being exact"
+        )
+    if not 0 < big_n < EXACT * 2:
+        raise ValueError(f"domain_pop: big_n={big_n}; the argmin packs nodes below 2^25")
     lib = _library()
     dev = hscore.device
     if dev.type != "cuda":
         raise ValueError(f"domain_pop: tensors on {dev}; the kernel needs CUDA")
-    Dc, L = hscore.shape
-    C, D = base_dom.shape
     f32, i32 = torch.float32, torch.int32
     for name, t, dtype, shape in (
         ("hscore", hscore, f32, (Dc, L)), ("hnode", hnode, i32, (Dc, L)),
@@ -207,11 +254,11 @@ def domain_pop(
         _check(name, t, dtype, shape, dev)
     if not 1 <= Dc <= MAX_CLASSES:
         raise ValueError(f"domain_pop: {Dc} classes; the kernel takes 1..{MAX_CLASSES}")
-    smem = smem_bytes(C, D, Dc)
-    if smem > SMEM_BUDGET:
+    smem = smem_bytes(C, D, Dc, bool(any_hard) and bool(fo_spread))
+    if smem + STATIC_SMEM > SMEM_BUDGET:
         raise ValueError(
-            f"domain_pop: C*D*Dc tables need {smem} bytes of shared memory; "
-            f"the budget is {SMEM_BUDGET}"
+            f"domain_pop: the [C,Dc,D] tables need {smem + STATIC_SMEM} bytes of shared "
+            f"memory; the budget is {SMEM_BUDGET}"
         )
     nodes = torch.empty(group_size, dtype=i32, device=dev)
     jidx = torch.empty(group_size, dtype=i32, device=dev)

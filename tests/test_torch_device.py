@@ -122,17 +122,60 @@ def card():
     return torch.device("cuda")
 
 
+# name: (seed, Dc, L, D, G, cap); each runs soft and hard
+_CARD_VARIANTS = {
+    "base": (5, 8, 512, 4, 512, None),
+    "dc33": (33, 33, 512, 4, 1024, None),
+    "dc64": (12, 64, 256, 4, 1024, None),
+    "dc1": (1, 1, 1024, 4, 1024, None),
+    "lanes1": (5, 8, 1, 4, 200, None),
+    "g-odd": (9, 4, 701, 4, 701, None),
+    "all-exhausted": (21, 8, 512, 4, 1500, 100),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hard", [False, True])
-def test_kernel_matches_plain_on_card(card, hard):
+@pytest.mark.parametrize("variant", list(_CARD_VARIANTS))
+def test_kernel_matches_plain_on_card(card, variant, hard):
     """The CUDA kernel and its plain version, bit-equal on the card."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    arrays, scalars = chip_smoke.pop_inputs(5, 8, 512, 2, 4, 512, hard)
+    seed, dc, lanes, d, g, cap = _CARD_VARIANTS[variant]
+    arrays, scalars = chip_smoke.pop_inputs(seed, dc, lanes, 2, d, g, hard, cap=cap)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in arrays] + scalars
     before = dp.launches
     nodes, jidx = dp.domain_pop(*args)
     assert dp.launches == before + 1
     ref_nodes, ref_jidx = dp.domain_pop_reference(*args)
     assert torch.equal(nodes, ref_nodes) and torch.equal(jidx, ref_jidx)
+    if variant == "all-exhausted":
+        assert (nodes[: scalars[2]] == -1).any()  # every class ran out before valid_count
+
+
+@pytest.mark.cuda
+def test_split_divide_matches_fdiv_rn_on_card(card):
+    """The kernel's split divide gives __fdiv_rn's bits on the spread's
+    operands (a smaller sweep than chip_smoke.py's)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    n, d = chip_smoke.divide_domain(torch, exhaustive=2048, n_random=1 << 20, seed=1)
+    assert dp.check_divide(n, d) == 0
+
+
+def test_chain_probe_rejects_bad_pop_counts():
+    from open_simulator_tpu_torch.tools import pop_chain
+
+    for g in (0, pop_chain.MAX_POPS + 1):
+        with pytest.raises(ValueError, match="pops"):
+            pop_chain.run(g)
+
+
+def test_kernel_wrapper_checks_exactness_limits(monkeypatch):
+    monkeypatch.setattr(dp, "_library", lambda: object())
+    args = _meta_args()
+    args[-3] = dp.EXACT  # group_size: C * G counts past 2^24
+    with pytest.raises(ValueError, match="2\\^24"):
+        dp.domain_pop(*args)
