@@ -10,14 +10,24 @@
    one timed pass, and one pass synced at each phase end for the phase
    split. It holds the timed pass's result against the placement digest the
    JAX package computes for the same input.
-3. Holds every kernel against its plain PyTorch version on the card, on the
-   inputs the main path gave it and on extra seeded variants, and prints
-   their times; holds the pop loop's split divide against __fdiv_rn on the
-   spread's operands (67 M pairs).
-4. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+3. Drives every other route: each `bench_configs` workload (spread_affinity,
+   gpushare, mixed) through the same passes, holding its digest, its route
+   counts and its domain_pop launches against the JAX package's run, and
+   printing wall, pods/s, the phase split and the microseconds per step of
+   each scan body (grouped, light scan, micro, affinity pop). On `mixed` the
+   port's sequential oracle `kernels.schedule_batch` runs on the card too
+   (all pods, or the first 1,000 when all would take over 30 s) and must
+   equal the fast path.
+4. Holds every kernel against its plain PyTorch version on the card, on the
+   inputs the main path gave it, on those of spread_affinity's DoNotSchedule
+   group and on extra seeded variants, and prints their times; holds the pop
+   loop's split divide against __fdiv_rn on the spread's operands (67 M
+   pairs).
+5. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-5. Prints one JSON line of per-kernel numbers and, last, the result line.
+6. Prints one JSON line of per-kernel numbers (launches summed over the
+   headline's and the workloads' timed passes) and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -166,6 +176,143 @@ def check_pop(name, args, dp, torch, reps):
     return ms, plain_ms, float(err), placed
 
 
+def capture_pops(dp, torch, keep):
+    """Wrap dp.domain_pop so the calls' inputs are cloned into `keep` (until
+    it holds one); returns the undo function."""
+    real = dp.domain_pop
+
+    def recording_pop(*args):
+        if not keep:
+            keep.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return real(*args)
+
+    dp.domain_pop = recording_pop
+
+    def undo():
+        dp.domain_pop = real
+
+    return undo
+
+
+def run_oracle(kernels, ns, carry, batch, w, fast_result, torch, budget_s=30.0, chunk=1000):
+    """The sequential oracle on the card, `chunk` pods per call threading
+    the carry: the first chunk, then the rest only if the whole run, at the
+    first chunk's rate, fits in `budget_s`. Returns (pods run, seconds,
+    mismatch list) against the fast path's result; the carry is compared
+    only when every pod ran."""
+    from open_simulator_tpu_torch.ops.state import pod_rows_from_batch
+
+    total = int(batch.valid.sum())
+    rows = pod_rows_from_batch(batch, "cuda")
+    outs, done = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while done < total and (done == 0 or (time.perf_counter() - t0) * total / done <= budget_s):
+        n = min(chunk, total - done)
+        part = kernels.PodRow(*(a[done:done + n] for a in rows))
+        carry, *got = kernels.schedule_batch(ns, carry, part, w)
+        outs.append([g.cpu().numpy() for g in got])
+        done += n
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    bad = []
+    for i, name in enumerate(("nodes", "reasons", "gpu_take", "vg_take", "dev_take")):
+        got = np.concatenate([o[i] for o in outs])
+        if not np.array_equal(got, fast_result[1 + i][:done]):
+            bad.append(name)
+    if done == total:
+        for f in carry._fields:
+            if not torch.equal(getattr(carry, f), getattr(fast_result[0], f)):
+                bad.append(f"carry.{f}")
+    return done, seconds, bad
+
+
+def routes_phase(torch, dp, fast, kernels, w, captured):
+    """Each bench_configs workload on the card: a warm pass, a timed pass
+    (route counts and kernel launches read around it), a pass synced at
+    phase ends for the phase split and the per-route step times, the digest
+    against the JAX package's; on `mixed`, the port's oracle against the fast
+    path. Returns (per-workload results, failure list)."""
+    from open_simulator_tpu_torch import bench_configs
+    from open_simulator_tpu_torch.headline import placement_digest
+
+    results, failures = {}, []
+    for name in bench_configs.WORKLOADS:
+        t0 = time.perf_counter()
+        ns, carry, batch = bench_configs.build_state(name, device="cuda")
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        total = int(batch.valid.sum())
+        keep = [] if name == "spread_affinity" else [None]
+        undo = capture_pops(dp, torch, keep)
+        t0 = time.perf_counter()
+        fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        undo()
+        if name == "spread_affinity":
+            captured["spread_affinity"] = keep[0] if keep else None
+
+        for k in fast.PATH_COUNTS:
+            fast.PATH_COUNTS[k] = 0
+        dp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        paths = {k: v for k, v in fast.PATH_COUNTS.items() if v and k != "domain_kernel"}
+        kernel_groups, launches = fast.PATH_COUNTS["domain_kernel"], dp.launches
+
+        timings: dict = {}
+        t0 = time.perf_counter()
+        fast.schedule_batch_fast(ns, carry, batch, w, device="cuda", timings=timings)
+        phase_s = time.perf_counter() - t0
+        digest = placement_digest(*result)
+        scheduled = int((result[1][:total] >= 0).sum())
+        print(f"routes[{name}] {total} pods x {int(ns.valid.sum())} nodes: encode {encode_s:.2f} s, "
+              f"warm pass {warm_s:.3f} s, timed pass {run_s:.3f} s, {total / run_s:.1f} pods/s, "
+              f"scheduled {scheduled}", flush=True)
+        print(f"routes[{name}] phase pass {phase_s:.3f} s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in timings.items()
+            if not k.startswith(("select.", "steps."))), flush=True)
+        steps = {}
+        for key, n in timings.items():
+            if key.startswith("steps.") and n:
+                route = key[len("steps."):]
+                sec = timings[f"select.{route}"]
+                steps[route] = {"steps": n, "seconds": sec, "us_per_step": sec / n * 1e6}
+                print(f"routes[{name}] {route}: {n} steps, {sec:.3f} s, "
+                      f"{sec / n * 1e6:.1f} us/step (select phase incl. per-group set-up)",
+                      flush=True)
+        print(f"routes[{name}] paths {paths} domain_pop launches {launches} digest {digest}",
+              flush=True)
+        if digest != bench_configs.DIGESTS[name]:
+            failures.append(f"{name}: digest {digest} != {bench_configs.DIGESTS[name]}")
+        if paths != bench_configs.PATHS[name]:
+            failures.append(f"{name}: paths {paths} != {bench_configs.PATHS[name]}")
+        if not launches == kernel_groups == bench_configs.DOMAIN_POP_GROUPS[name]:
+            failures.append(f"{name}: domain_pop launches {launches} / counted {kernel_groups}, "
+                            f"expected {bench_configs.DOMAIN_POP_GROUPS[name]}")
+        res = {"pods": total, "scheduled": scheduled, "encode_s": encode_s, "warm_s": warm_s,
+               "run_s": run_s, "pods_per_s": total / run_s, "phase_s": phase_s,
+               "phases": timings, "steps": steps, "paths": paths, "launches": launches,
+               "digest": digest}
+        if name == "mixed":
+            done, oracle_s, bad = run_oracle(kernels, ns, carry, batch, w, result, torch)
+            print(f"routes[mixed] oracle schedule_batch on the card: {done} of {total} pods "
+                  f"in {oracle_s:.2f} s ({oracle_s / done * 1e6:.0f} us/pod), "
+                  f"{'equal to the fast path' if not bad else 'DIFFERS: ' + ', '.join(bad)}",
+                  flush=True)
+            res.update(oracle_pods=done, oracle_s=oracle_s)
+            if bad:
+                failures.append(f"mixed: oracle differs from the fast path in {bad}")
+        results[name] = res
+    if captured.get("spread_affinity") is None:
+        failures.append("spread_affinity made no domain_pop call")
+    return results, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -180,7 +327,7 @@ def main() -> int:
         HEADLINE_DIGEST_100K_10K, build_state, placement_digest,
     )
     from open_simulator_tpu_torch.ops import domain_pop as dp
-    from open_simulator_tpu_torch.ops import fast
+    from open_simulator_tpu_torch.ops import fast, kernels
     from open_simulator_tpu_torch.ops.kernels import weights_array
     from open_simulator_tpu_torch.tools import pop_chain
 
@@ -207,19 +354,12 @@ def main() -> int:
     w = weights_array(device="cuda")
 
     captured = []
-    real_pop = dp.domain_pop
-
-    def recording_pop(*args):
-        if not captured:
-            captured.append([a.clone() if torch.is_tensor(a) else a for a in args])
-        return real_pop(*args)
-
-    dp.domain_pop = recording_pop
+    undo = capture_pops(dp, torch, captured)
     warm_phases: dict = {}
     t0 = time.perf_counter()
     fast.schedule_batch_fast(ns, carry, batch, w, device="cuda", timings=warm_phases)
     warm_s = time.perf_counter() - t0
-    dp.domain_pop = real_pop
+    undo()
 
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
@@ -268,11 +408,22 @@ def main() -> int:
     if failures:
         print("chip_smoke: main path FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
+    del ns, carry, batch, result, carry_out
+
+    # -- every other route: the bench_configs workloads -------------------
+    route_captures: dict = {}
+    routes, failures = routes_phase(torch, dp, fast, kernels, w, route_captures)
+    if failures:
+        print("chip_smoke: routes FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += sum(r["launches"] for r in routes.values())
 
     # -- kernels vs plain versions on the card -----------------------------
     main_args = captured[0]
     ms, plain_ms, err, placed = check_pop("main-path", main_args, dp, torch, reps=5)
     errs = [err]
+    errs.append(check_pop(
+        "spread_affinity-hard", route_captures["spread_affinity"], dp, torch, reps=5)[2])
     # name: (seed, Dc, L, D, G, hard, cap)
     for name, (seed, dc, lanes, d, g, hard, cap) in {
         "headline-hard": (7, 4, 26624, 4, 26624, True, None),
@@ -308,7 +459,7 @@ def main() -> int:
     print(f"domain_pop main path: {kernel_cycles:.1f} cycles/pop (kernel) vs "
           f"{probe_cycles:.1f} cycles/pop (probe); latency bound {g_main} pops x "
           f"{probe_cycles:.1f} cycles at {sm_mhz:.0f} MHz = {latency_ms:.3f} ms", flush=True)
-    kernels = [{
+    kernel_rows = [{
         "name": "domain_pop",
         "route": "cuda",
         "source": "open_simulator_tpu_torch/csrc/domain_pop.cu",
@@ -330,9 +481,9 @@ def main() -> int:
                 "pods_per_s": n_pods / run_s, "warm_phases": warm_phases,
                 "phase_s": phase_s, "phases": phases, "probe_cycles_per_pop": probe_cycles,
                 "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
-                "paths": paths, "digest": digest, "kernels": kernels,
+                "paths": paths, "digest": digest, "routes": routes, "kernels": kernel_rows,
             }, f, indent=1)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

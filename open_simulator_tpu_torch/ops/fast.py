@@ -1,8 +1,8 @@
 """Trajectory-accelerated grouped scheduling: the batched fast path.
 
-The port of the JAX package's ops/fast.py for the headline scheduling path.
-While a group of IDENTICAL pods schedules, a node's local state changes only
-when that node is chosen, so for one group:
+The port of the JAX package's ops/fast.py. While a group of IDENTICAL pods
+schedules, a node's local state changes only when that node is chosen, so
+for one group:
 
   1. `build_trajectory` virtually commits the pod to EVERY node J times,
      recording per-step node-local masks, raw scores and allocation takes
@@ -11,20 +11,26 @@ when that node is chosen, so for one group:
      - the SORT path (`sort_select`): purely node-local scores make the
        sequential argmax a k-way merge, i.e. one stable sort of all [N,J]
        lanes;
-     - the DOMAIN-MERGE path (`domain_select`): with topology spread over
-       non-hostname keys, nodes fall into a few combined domain classes; one
-       stable sort keyed (class, score) orders every class's lanes, and a
-       sequential pop loop over the class heads (`ops.domain_pop`, a CUDA
-       kernel on the card) picks the winner of each step.
+     - the DOMAIN-MERGE path (`domain_select`): with every carry-coupled
+       term keyed by non-hostname topology keys, nodes fall into a few
+       combined domain classes; one stable sort keyed (class, score) orders
+       every class's lanes, and a sequential pop loop over the class heads
+       picks the winner of each step (`ops.domain_pop`, a CUDA kernel on
+       the card, for spread-only groups; `_affinity_pop` in PyTorch for
+       groups with inter-pod (anti-)affinity terms);
+     - the LIGHT SCANS (`light_scan`): one step per pod over the carry x,
+       the node-local state read from the trajectory and every coupled
+       count rebuilt as base + match * x; the MICRO body when topology
+       spread is the only coupled term. They take the groups neither path
+       takes and replay the sort/domain results voided by a rising score
+       sequence (`mono` False).
   3. The group tail (`gather_takes`, `cur_at` -> `light_reasons`,
      `exit_carry`) folds the commits back into the carry.
 
-Placements, failure reasons, allocation takes and the exit carry are
-bit-identical to the JAX package's `schedule_batch_fast`. Routes this port
-does not cover yet raise NotImplementedError naming their ROADMAP item: the
-per-pod grouped path for small or deep groups, the light/micro scans (the
-sort and domain fallbacks and groups neither path takes), and groups with
-inter-pod (anti-)affinity terms.
+Groups too small to amortize a trajectory take the per-pod grouped scan
+(`ops.grouped.schedule_group`). Placements, failure reasons, allocation
+takes, the exit carry and the route each group takes are bit-identical to
+the JAX package's `schedule_batch_fast`.
 
 Exactness traps handled here (besides those of ops/kernels.py):
   - `torch.sort(..., stable=True)` reproduces jnp.argsort / lax.sort's
@@ -34,7 +40,10 @@ Exactness traps handled here (besides those of ops/kernels.py):
     sum, adding +0.0 so a -0.0 lane reads back as +0.0 like the sum does;
   - feasibility and partial scores are selected separately, so no
     `-inf * 0` NaN appears;
-  - scatter-adds are `index_add_` on int32.
+  - scatter-adds are `index_add_` on int32;
+  - the scan loops keep every per-step value (node, ok, lane) on the device:
+    indices are 1-element tensors used through gather / index_select /
+    index_copy_, never Python ints.
 """
 
 from __future__ import annotations
@@ -47,9 +56,17 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import domain_pop as _dp
-from .domain_pop import _spread_norm
+from .domain_pop import _hard_spread_ok, _spread_norm
 from .encode import PodBatch
-from .grouped import _bucket, _static_parts, group_runs
+from .grouped import (
+    DEFAULT_GROUP_CHUNK,
+    _bucket,
+    _empty_outputs,
+    _grouped_run,
+    _static_parts,
+    fetch,
+    group_runs,
+)
 from .kernels import (
     Carry,
     F_GPU,
@@ -63,15 +80,22 @@ from .kernels import (
     PodRow,
     WEIGHT_ORDER,
     _EPS,
-    _domain_counts,
+    _affinity_rows_ok,
+    _affinity_score,
+    _anti_sym_ok,
+    _la_ba,
     _minmax_normalize,
+    _spread_rows_ok,
+    _spread_score,
     combine_scores,
     gpu_allocate_rowwise,
     gpu_mask,
     gpu_share_raw,
     local_storage_eval,
+    pod_keys,
     port_adds,
     ports_mask,
+    reason_row,
     resource_fail,
 )
 from .state import pod_rows_from_batch
@@ -79,27 +103,18 @@ from .state import pod_rows_from_batch
 # Trajectories longer than this take the per-pod grouped path.
 J_CAP = 512
 
-# Max combined (domain-tuple, eligibility) classes for the domain-merge path.
+# Max combined (domain-tuple, eligibility) classes for the domain-merge path;
+# more fragmented groups take the light scans. Tests may set this to 0 to
+# force the micro body.
 DM_CAP = 64
 
-# Groups scheduled per strategy since import; "domain_kernel" counts the
-# domain groups whose pop loop ran as the CUDA kernel.
-PATH_COUNTS = {"sort": 0, "domain": 0, "domain_kernel": 0}
-
-# ROADMAP items named by the routes this port does not cover yet.
-TODO_GROUPED = (
-    "the per-pod grouped path (ops/grouped.py:schedule_group + "
-    "kernels.schedule_batch) is not ported yet (ROADMAP Queue 1, item 4)"
-)
-TODO_SCAN = (
-    "the light/micro scans (fast.py:light_scan, _light_scan_micro) are not "
-    "ported yet (ROADMAP Queue 1, item 5)"
-)
-TODO_AFFINITY = (
-    "inter-pod (anti-)affinity terms (the affinity branch of "
-    "fast.py:domain_select and _light_eval) are not ported yet "
-    "(ROADMAP Queue 1, item 5)"
-)
+# Groups scheduled per strategy since import: the reference's keys, plus
+# "domain_kernel", the launches of the domain_pop CUDA kernel. The port has
+# no Pallas route, so "domain_pallas" stays 0 as in the reference's default.
+PATH_COUNTS = {
+    "sort": 0, "micro": 0, "scan": 0, "grouped": 0, "sort_fallback": 0,
+    "domain": 0, "domain_fallback": 0, "domain_pallas": 0, "domain_kernel": 0,
+}
 
 # Channel layout of Trajectory.packed.
 CH_CPU, CH_MEM, CH_RES_FAIL, CH_PORT_OK, CH_STO_OK, CH_GPU_OK = range(6)
@@ -111,6 +126,8 @@ IPA_IDX = WEIGHT_ORDER.index("inter_pod_affinity")
 assert SP_IDX == len(WEIGHT_ORDER) - 1 and IPA_IDX == SP_IDX - 1, (
     "the partial-sum splits need the carry-coupled terms LAST in the fold"
 )
+
+_NEG_INF = float("-inf")
 
 
 class Trajectory(NamedTuple):
@@ -139,6 +156,9 @@ class GroupFlags(NamedTuple):
     any_req_aff: bool    # required (anti)affinity terms
     any_pref_aff: bool   # preferred (anti)affinity terms
     any_anti_sym: bool   # existing anti-affinity terms repel this pod
+    # topology spread over non-hostname keys is the ONLY carry-coupled term
+    # and there are no GPU/storage dynamics: the micro light-scan body
+    micro_spread: bool = False
     # every carry-coupled term is domain-keyed over non-hostname keys and
     # there are no GPU/storage dynamics: the domain-merge path applies
     domain_aff: bool = False
@@ -169,14 +189,12 @@ def group_flags(row_np: dict, anti_topo_np: np.ndarray) -> GroupFlags:
         and bool((row_np["aff_topo"][aff_active] > 0).all())
         and bool((anti_topo_np[anti_match] > 0).all())
     )
-    any_coupled = (
-        f.any_soft_spread or f.any_hard_spread or f.any_req_aff
-        or f.any_pref_aff or f.any_anti_sym
+    no_dyn = not f.dyn_gpu and not f.dyn_storage and keys_domainable
+    any_spread = f.any_soft_spread or f.any_hard_spread
+    return f._replace(
+        micro_spread=any_spread and not _any_affinity(f) and no_dyn,
+        domain_aff=(any_spread or _any_affinity(f)) and no_dyn,
     )
-    domain_aff = (
-        any_coupled and not f.dyn_gpu and not f.dyn_storage and keys_domainable
-    )
-    return f._replace(domain_aff=domain_aff)
 
 
 def _any_affinity(flags: GroupFlags) -> bool:
@@ -275,37 +293,21 @@ def build_trajectory(
 
 
 def _sel_j(traj_arr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """traj_arr[n, x_n] for every node (0 where x_n is out of range). The
-    +0.0 turns a -0.0 lane into +0.0, as the reference's one-hot sum does."""
+    """traj_arr[n, x_n] for every node (0 / False where x_n is out of
+    range). The +0.0 turns a -0.0 lane into +0.0, as the reference's one-hot
+    sum does."""
     N, J = traj_arr.shape[:2]
     v = traj_arr[torch.arange(N, device=x.device), x.clamp(0, J - 1).long()]
     inb = ((x >= 0) & (x < J)).reshape((N,) + (1,) * (v.dim() - 1))
+    if v.dtype == torch.bool:
+        return v & inb
     return torch.where(inb, v, 0.0) + 0.0
 
 
-def _la_ba(ns: NodeStatic, pod: PodRow, free2: torch.Tensor):
-    """LeastAllocated + BalancedAllocation from cpu/mem free values (free2 is
-    [N,2] or [N,J,2]; elementwise, so every lane matches the per-step
-    plugins). The mean over two values is (a + b) * 0.5, the same rounding
-    as jnp.mean's sum / 2."""
-    alloc2 = ns.alloc[:, :2]
-    req2 = pod.req[:2]
-    if free2.dim() == 3:
-        alloc2 = alloc2[:, None, :]
-    free_after = free2 - req2
-    frac = torch.where(alloc2 > 0, free_after / alloc2.clamp(min=1e-9), 0.0)
-    la = ((frac[..., 0] + frac[..., 1]) * 0.5).clamp(0.0, 1.0) * 100.0
-    used_after = alloc2 - free2 + req2
-    frac_b = torch.where(alloc2 > 0, used_after / alloc2.clamp(min=1e-9), 0.0)
-    frac_b = frac_b.clamp(0.0, 1.0)
-    ba = (1.0 - (frac_b[..., 0] - frac_b[..., 1]).abs()) * 100.0
-    return la, ba
-
-
 def _lane_rows(ns: NodeStatic, traj: Trajectory, pod: PodRow, static_scores: dict) -> dict:
-    """The node-local score rows per (node, lane), shared by the sort and
-    domain paths. Assumes gpu_free is frozen for the group and no storage
-    volumes / preferred affinity terms."""
+    """The node-local score rows per (node, lane), shared by the sort path,
+    the micro body and the domain path. Assumes gpu_free is frozen for the
+    group and no storage volumes / preferred affinity terms."""
     N, J, _ = traj.packed.shape
     la, ba = _la_ba(ns, pod, traj.packed[:, :, CH_CPU:CH_MEM + 1])
     gpu_score = _minmax_normalize(traj.packed[:, 0, CH_GPU_RAW], ns.valid)
@@ -340,57 +342,54 @@ def _light_eval(
 ):
     """Feasibility + scores at commit state (x, cur = packed[n, x_n]).
     Returns (score f32[N] with -inf on infeasible, dict of effective
-    per-filter bools for first-fail attribution). Spread counts are
-    reconstructed exactly as base + match * x."""
-    if _any_affinity(flags):
-        raise NotImplementedError(TODO_AFFINITY)
+    per-filter bools for first-fail attribution). Every coupled count is
+    rebuilt exactly as base + match * x and fed through the per-step
+    kernels' own row helpers."""
     N = ns.valid.shape[0]
     ones = torch.ones(N, dtype=torch.bool, device=x.device)
+    zeros = torch.zeros(N, dtype=torch.float32, device=x.device)
     xf = x.to(torch.float32)
+    keys = hoisted["keys"]
     free2 = cur[:, CH_CPU:CH_MEM + 1]
     res_fail_x = (cur[:, CH_RES_FAIL] > 0.5) & fo[F_RESOURCES]
     port_ok = ((cur[:, CH_PORT_OK] > 0.5) | ~fo[F_NODE_PORTS]) if flags.dyn_ports else ones
     storage_ok = (cur[:, CH_STO_OK] > 0.5) if flags.dyn_storage else ones
     gpu_ok = (cur[:, CH_GPU_OK] > 0.5) if flags.dyn_gpu else ones
 
-    rows = list(zip(
-        pod.spread_topo.tolist(), pod.spread_sel.tolist(), pod.spread_hard.tolist()
-    ))
+    def rows(sel):
+        """The rows' selector counts after x commits of this pod."""
+        sel = sel.long()
+        return carry0.sel_counts[sel] + pod.match_sel[sel].to(torch.float32)[:, None] * xf[None, :]
 
-    def srow(sel_idx):
-        return carry0.sel_counts[sel_idx] + pod.match_sel[sel_idx].to(torch.float32) * xf
-
+    if flags.any_hard_spread or flags.any_soft_spread:
+        spread_rows = rows(pod.spread_sel)
     spread_ok = ones
     if flags.any_hard_spread:
-        for c, (k, s, hard) in enumerate(rows):
-            if k < 0 or not hard:
-                continue
-            has_key = ns.topo[:, k] >= 0
-            _, cnt_n, min_count, _ = _domain_counts(ns, srow(s), k, na_ok)
-            ok_c = ((cnt_n + 1.0 - min_count) <= pod.spread_skew[c] + _EPS) & has_key
-            spread_ok = spread_ok & ok_c
-        spread_ok = spread_ok | ~fo[F_SPREAD]
-    aff_ok = ones  # no affinity terms (raised above)
+        spread_ok = _spread_rows_ok(ns, keys.spread, spread_rows, pod, na_ok) | ~fo[F_SPREAD]
+    if flags.any_req_aff or flags.any_pref_aff:
+        aff_rows = rows(pod.aff_sel)
+    req_ok = _affinity_rows_ok(ns, keys.aff, aff_rows, pod) if flags.any_req_aff else ones
+    sym_ok = ones
+    if flags.any_anti_sym:
+        anti_rows = carry0.anti_counts + pod.own_anti[:, None] * xf[None, :]
+        sym_ok = _anti_sym_ok(ns, keys.anti, anti_rows, pod)
+    aff_ok = (req_ok & sym_ok) | ~fo[F_POD_AFFINITY]
 
     mask = (
         static_ok & port_ok & ~res_fail_x & spread_ok & aff_ok & storage_ok
         & gpu_ok & ns.valid
     )
     la, ba = _la_ba(ns, pod, free2)
-    if flags.any_soft_spread:
-        raw_sp = torch.zeros(N, dtype=torch.float32, device=x.device)
-        for k, s, hard in rows:
-            if k >= 0 and not hard:
-                raw_sp = raw_sp + _domain_counts(ns, srow(s), k, na_ok)[1]
-        sp_score = _spread_norm(raw_sp, ns.valid)
-    else:
-        sp_score = torch.full((N,), 100.0, device=x.device)
-    zeros = torch.zeros(N, dtype=torch.float32, device=x.device)
     by_name = {
         "balanced_allocation": ba,
         "least_allocated": la,
-        "topology_spread": sp_score,
-        "inter_pod_affinity": zeros,
+        "topology_spread": (
+            _spread_score(ns, keys.spread, spread_rows, pod, na_ok)
+            if flags.any_soft_spread else torch.full((N,), 100.0, device=x.device)
+        ),
+        "inter_pod_affinity": (
+            _affinity_score(ns, keys.aff, aff_rows, pod) if flags.any_pref_aff else zeros
+        ),
         "gpu_share": (
             _minmax_normalize(cur[:, CH_GPU_RAW], ns.valid)
             if flags.dyn_gpu else hoisted["gpu_score"]
@@ -401,7 +400,7 @@ def _light_eval(
         ),
         **static_scores,
     }
-    score = torch.where(mask, combine_scores(by_name, weights), float("-inf"))
+    score = torch.where(mask, combine_scores(by_name, weights), _NEG_INF)
     parts = {
         "port_ok": port_ok, "res_fail": res_fail_x, "spread_ok": spread_ok,
         "aff_ok": aff_ok, "storage_ok": storage_ok, "gpu_ok": gpu_ok,
@@ -409,10 +408,11 @@ def _light_eval(
     return score, parts
 
 
-def _hoisted_values(ns: NodeStatic, cur: torch.Tensor, flags: GroupFlags) -> dict:
-    """Group-invariant values _light_eval needs: for a non-GPU group the
-    gpu-share score is frozen at its entry value."""
-    out = {}
+def _hoisted_values(ns: NodeStatic, pod: PodRow, cur: torch.Tensor, flags: GroupFlags) -> dict:
+    """Group-invariant values _light_eval needs: the pod's topology row
+    tables and, for a non-GPU group, the gpu-share score frozen at its entry
+    value."""
+    out = {"keys": pod_keys(ns, pod)}
     if not flags.dyn_gpu:
         out["gpu_score"] = _minmax_normalize(cur[:, CH_GPU_RAW], ns.valid)
     return out
@@ -422,9 +422,8 @@ def _sortable(flags: GroupFlags) -> bool:
     """Sort-path eligible: every score/mask is a function of the node's OWN
     commit count alone (no spread/affinity coupling, no GPU/storage)."""
     return not (
-        flags.any_hard_spread or flags.any_soft_spread or flags.any_req_aff
-        or flags.any_pref_aff or flags.any_anti_sym or flags.dyn_gpu
-        or flags.dyn_storage
+        flags.any_hard_spread or flags.any_soft_spread or _any_affinity(flags)
+        or flags.dyn_gpu or flags.dyn_storage
     )
 
 
@@ -463,7 +462,7 @@ def sort_select(
     )
     by_name = dict(_lane_rows(ns, traj, pod, static_scores))
     by_name["topology_spread"] = torch.full((N, J), 100.0, device=dev)
-    score = torch.where(mask, combine_scores(by_name, weights), float("-inf"))
+    score = torch.where(mask, combine_scores(by_name, weights), _NEG_INF)
     mono_ok = (score[:, 1:] <= score[:, :-1]).all()
 
     flat = score.reshape(-1)
@@ -487,8 +486,82 @@ def cur_at(traj: Trajectory, x: torch.Tensor) -> torch.Tensor:
     return _sel_j(traj.packed, x)
 
 
+def _active_steps(offset: int, group_size: int, valid_count: int) -> int:
+    """Steps of a scan call that may commit: those with offset + i <
+    valid_count, a prefix of the call's group_size steps. The rest commit
+    nothing and output node -1, lane 0."""
+    return max(0, min(group_size, valid_count - offset))
+
+
+def _step_outputs(vals: list, size: int, pad: int, dev) -> torch.Tensor:
+    """Per-step 1-element outputs joined into i32[size], padded for the
+    steps that did not run."""
+    out = torch.full((size,), pad, dtype=torch.int32, device=dev)
+    if vals:
+        out[: len(vals)] = torch.cat(vals).to(torch.int32)
+    return out
+
+
+def light_scan(
+    ns: NodeStatic,
+    traj: Trajectory,
+    carry0: Carry,
+    pod: PodRow,
+    static_ok: torch.Tensor,
+    static_scores: dict,
+    na_ok: torch.Tensor,
+    weights: torch.Tensor,
+    x0: torch.Tensor,
+    offset: int,
+    group_size: int,
+    valid_count: int,
+    filter_on=None,
+    flags: GroupFlags = ALL_DYNAMIC,
+):
+    """Select nodes for `group_size` pods of the group, starting from commit
+    state x0 (chunks of one group thread x through). Only steps with
+    offset + i < valid_count commit. Returns (x, nodes i32[G], jidx i32[G]).
+
+    One step per pod, a Python loop on the device with no host sync. The
+    loop keeps `cur` = packed[n, x_n] for every node, refreshing only the
+    chosen node's row per step. Failure reasons are not computed per step:
+    an infeasible step commits nothing, so every later step of the group
+    fails identically and light_reasons attributes the suffix once.
+    `flags.micro_spread` selects the micro body (_light_scan_micro)."""
+    fo = _filters_on(filter_on, x0.device)
+    if flags.micro_spread:
+        return _light_scan_micro(
+            ns, traj, carry0, pod, static_ok, static_scores, na_ok, weights,
+            x0, offset, group_size, valid_count, fo, flags,
+        )
+    N, J, _ = traj.packed.shape
+    packed_flat = traj.packed.reshape(N * J, N_CH)
+    x = x0.clone()
+    cur = cur_at(traj, x0)
+    hoisted = _hoisted_values(ns, pod, cur, flags)
+    nodes, jidxs = [], []
+    for _ in range(_active_steps(offset, group_size, valid_count)):
+        score, _ = _light_eval(
+            ns, carry0, pod, static_ok, static_scores, na_ok, weights, fo,
+            x, cur, flags, hoisted,
+        )
+        node = score.argmax().view(1)
+        # any(mask) == the winning score is finite (infeasible rows are -inf)
+        ok = score.gather(0, node) > _NEG_INF
+        x_node = x.gather(0, node)
+        nodes.append(torch.where(ok, node, -1))
+        jidxs.append(torch.where(ok, x_node, 0))
+        x.index_add_(0, node, ok.to(torch.int32))
+        j_next = (x_node + 1).clamp(0, J - 1)
+        new_row = packed_flat.index_select(0, node * J + j_next)
+        cur.index_copy_(0, node, torch.where(ok[:, None], new_row, cur.index_select(0, node)))
+    dev = x0.device
+    return x, _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
+
+
 class SpreadTables(NamedTuple):
-    """Loop-invariant spread-reconstruction tables of the domain path."""
+    """Loop-invariant spread-reconstruction tables shared by the micro body
+    and the domain path."""
     k_c: torch.Tensor       # i64[C] topo key per constraint row
     to_c: torch.Tensor      # f32[C,D,N] domain membership per constraint
     elig_f: torch.Tensor    # f32[N] spread eligibility (na_ok & valid)
@@ -526,7 +599,7 @@ def _lane_partials(
 ):
     """(partial, feas) per lane: the left-fold prefix of combine_scores
     through WEIGHT_ORDER[:prefix_end], and the lane feasibility (ports and
-    resources, the only dynamics a domain-eligible group has)."""
+    resources, the only dynamics a micro/domain-eligible group has)."""
     p9 = combine_scores(
         _lane_rows(ns, traj, pod, static_scores), weights,
         order=WEIGHT_ORDER[:prefix_end],
@@ -541,8 +614,55 @@ def _lane_partials(
     return p9, feas
 
 
+def _light_scan_micro(
+    ns, traj, carry0, pod, static_ok, static_scores, na_ok, weights,
+    x0, offset, group_size, valid_count, fo, flags,
+):
+    """The topology-spread micro body: the 9 node-local score rows are
+    hoisted into a per-lane partial sum, so the step is `partial9 + w_sp *
+    spread` (+ the DoNotSchedule skew mask) over domain counts kept as
+    base + match * y, y the eligible commits per domain. An exact split of
+    combine_scores' left fold, since topology_spread is its last term."""
+    N, J, _ = traj.packed.shape
+    p9, feas = _lane_partials(ns, traj, pod, static_scores, static_ok, weights, fo)
+    w_sp = weights[SP_IDX]
+    score_flat = torch.where(feas, p9, _NEG_INF).reshape(-1)
+    st = _spread_tables(ns, carry0, pod, na_ok, flags)
+    if flags.any_hard_spread:
+        has_key_cn = (ns.topo[:, st.k_c] >= 0).T                  # [C,N]
+    y = (st.to_c * (st.elig_f * x0.to(torch.float32))).sum(dim=2)  # [C,D]
+    # p9 and feasibility are selected separately: a one-hot multiply of the
+    # -inf lanes would give NaN
+    cur_s = torch.where(_sel_j(feas, x0), _sel_j(p9, x0), _NEG_INF)
+    x = x0.clone()
+    nodes, jidxs = [], []
+    for _ in range(_active_steps(offset, group_size, valid_count)):
+        dom = st.base_dom + st.match_c[:, None] * y
+        cnt = (dom[:, :, None] * st.to_c).sum(dim=1)              # [C,N]
+        raw = torch.where(st.active_c[:, None], cnt, 0.0).sum(dim=0)
+        score = cur_s + w_sp * _spread_norm(raw, ns.valid)        # -inf stays
+        if flags.any_hard_spread:
+            spread_ok = _hard_spread_ok(
+                dom, cnt, st.in_key_cd, st.hard_c, pod.spread_skew, has_key_cn, fo[F_SPREAD],
+            )
+            score = torch.where(spread_ok, score, _NEG_INF)
+        node = score.argmax().view(1)
+        ok = score.gather(0, node) > _NEG_INF
+        x_node = x.gather(0, node)
+        nodes.append(torch.where(ok, node, -1))
+        jidxs.append(torch.where(ok, x_node, 0))
+        x.index_add_(0, node, ok.to(torch.int32))
+        j_next = (x_node + 1).clamp(0, J - 1)
+        new_s = score_flat.index_select(0, node * J + j_next)
+        cur_s.index_copy_(0, node, torch.where(ok, new_s, cur_s.index_select(0, node)))
+        to_col = st.to_c.index_select(2, node)[:, :, 0]           # [C,D]
+        y = y + to_col * (st.elig_f.index_select(0, node) * ok.to(torch.float32))
+    dev = x0.device
+    return x, _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
+
+
 class DomainPlan(NamedTuple):
-    """Host-built partition of nodes into combined (spread-domain-tuple,
+    """Host-built partition of nodes into combined (domain-tuple,
     eligibility) classes for the domain-merge path. Dc is padded to
     max(4, next_pow2(real classes)); the tail classes are empty."""
     combo_of_node: np.ndarray  # i32[N] class id per node
@@ -642,18 +762,19 @@ def domain_select(
     filter_on=None,
     flags: GroupFlags = ALL_DYNAMIC,
 ):
-    """Whole-group selection with an O(Dc) pop-loop state for spread-only
-    domain groups (topology spread over non-hostname keys, no GPU/storage).
+    """Whole-group selection with an O(Dc) pop-loop state for domain groups
+    (every coupled term keyed by non-hostname topology keys, no GPU/storage
+    dynamics).
 
-    Nodes of one combined class share every spread count, so within a class
+    Nodes of one combined class share every coupled count, so within a class
     the pick order is the sort-path merge: one stable sort of all [N,J] lanes
     keyed (class, score desc) gives each class's head table. The pop loop
-    (`domain_pop`, the CUDA kernel on the card) then scores only the Dc class
-    heads per step.
+    then scores only the Dc class heads per step: `domain_pop` (the CUDA
+    kernel on the card) for spread-only groups, `_affinity_pop` for groups
+    with inter-pod affinity or anti-symmetry terms, as the reference routes
+    its Pallas kernel.
 
     Returns (mono_ok, nodes i32[group_size], jidx i32[group_size], x i32[N])."""
-    if _any_affinity(flags):
-        raise NotImplementedError(TODO_AFFINITY)
     N, J, _ = traj.packed.shape
     dev = traj.packed.device
     fo = _filters_on(filter_on, dev)
@@ -661,13 +782,12 @@ def domain_select(
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
 
-    # partial8 lanes: the fold prefix BEFORE both coupled terms; with no
-    # affinity term the pop loop's total is partial8 + w_sp * sp, as in the
-    # reference's kernel
+    # partial8 lanes: the fold prefix BEFORE both coupled terms; the pop
+    # loop adds w_ipa * ipa(class) and w_sp * sp(class), as combine_scores
     p8, feas = _lane_partials(
         ns, traj, pod, static_scores, static_ok, weights, fo, prefix_end=IPA_IDX,
     )
-    score_lane = torch.where(feas, p8, float("-inf"))
+    score_lane = torch.where(feas, p8, _NEG_INF)
     mono_ok = (score_lane[:, 1:] <= score_lane[:, :-1]).all()
 
     # stable two-key sort (class asc, score desc, flat index asc): a stable
@@ -682,31 +802,143 @@ def domain_select(
     lane = torch.arange(l_cap, device=dev)
     gidx = (t(plan.offsets, torch.int64)[:, None] + lane[None, :]).clamp(0, N * J - 1)
     in_range = lane[None, :] < counts[:, None]
-    hscore = torch.where(in_range, -sneg[gidx], float("-inf"))  # [Dc,L]
+    hscore = torch.where(in_range, -sneg[gidx], _NEG_INF)  # [Dc,L]
     hflat = sidx[gidx]
     hnode = (hflat // J).to(torch.int32)
     hj = (hflat % J).to(torch.int32)
     cap_eff = counts.clamp(max=l_cap).to(torch.int32)
 
     st = _spread_tables(ns, carry0, pod, na_ok, flags)
-    C, D = st.base_dom.shape
-    in_key = (
-        st.in_key_cd.to(torch.float32) if flags.any_hard_spread
-        else torch.zeros((C, D), dtype=torch.float32, device=dev)
-    )
-    nodes, jidxs = _dp.domain_pop(
-        hscore.contiguous(), hnode.contiguous(), hj.contiguous(), cap_eff,
-        t(plan.elig_combo), t(plan.combo_valid), st.base_dom.contiguous(),
-        in_key.contiguous(), t(plan.t_onehot), st.match_c.contiguous(),
-        st.active_c.to(torch.float32), st.hard_c.to(torch.float32),
-        pod.spread_skew.contiguous(), t(plan.has_key),
-        float(weights[SP_IDX]), bool(fo[F_SPREAD]), valid_count, group_size,
-        flags.any_hard_spread, N,
-    )
+    if _any_affinity(flags):
+        nodes, jidxs = _affinity_pop(
+            ns, carry0, pod, st, plan, hscore, hnode, hj, cap_eff, weights, fo,
+            flags, valid_count, group_size,
+        )
+    else:
+        C, D = st.base_dom.shape
+        in_key = (
+            st.in_key_cd.to(torch.float32) if flags.any_hard_spread
+            else torch.zeros((C, D), dtype=torch.float32, device=dev)
+        )
+        nodes, jidxs = _dp.domain_pop(
+            hscore.contiguous(), hnode.contiguous(), hj.contiguous(), cap_eff,
+            t(plan.elig_combo), t(plan.combo_valid), st.base_dom.contiguous(),
+            in_key.contiguous(), t(plan.t_onehot), st.match_c.contiguous(),
+            st.active_c.to(torch.float32), st.hard_c.to(torch.float32),
+            pod.spread_skew.contiguous(), t(plan.has_key),
+            float(weights[SP_IDX]), bool(fo[F_SPREAD]), valid_count, group_size,
+            flags.any_hard_spread, N,
+        )
     x = torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
         0, nodes.clamp(0, N - 1).long(), (nodes >= 0).to(torch.int32)
     )
     return mono_ok, nodes, jidxs, x
+
+
+def _affinity_pop(
+    ns, carry0, pod, st: SpreadTables, plan: DomainPlan, hscore, hnode, hj, cap_eff,
+    weights, fo, flags: GroupFlags, valid_count: int, group_size: int,
+):
+    """The domain path's pop loop for groups with inter-pod affinity or
+    anti-symmetry terms: the reference's scan step (fast.py domain_select),
+    one iteration per pop, on the device with no host sync. Per pop it
+    rebuilds the spread, affinity and anti-symmetry domain counts of every
+    class from the commits per class y (exact integer sums), scores the class
+    heads as (partial8 + w_ipa * ipa) + w_sp * sp, and pops the best head
+    (ties to the lowest node). Returns (nodes i32[G], jidx i32[G])."""
+    dev = hscore.device
+    Dc, L = hscore.shape
+    N = ns.valid.shape[0]
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
+
+    w_sp, w_ipa = weights[SP_IDX], weights[IPA_IDX]
+    valid_f = ns.valid.to(torch.float32)
+    combo_valid = t(plan.combo_valid, torch.bool)
+    elig_combo = t(plan.elig_combo)
+    any_spread = flags.any_soft_spread or flags.any_hard_spread
+    if any_spread:
+        t_onehot = t(plan.t_onehot)
+        has_key_cm = t(plan.has_key, torch.bool)
+    if flags.any_req_aff or flags.any_pref_aff:
+        # _domain_counts with elig=None counts over ALL valid nodes
+        k_a = pod.aff_topo.clamp(min=0).long()
+        to_a = ns.topo_onehot[k_a]                                # [CA,D,N]
+        sel_a = pod.aff_sel.long()
+        match_a = pod.match_sel[sel_a].to(torch.float32)
+        counts0_a = torch.where(valid_f > 0, carry0.sel_counts[sel_a], 0.0)
+        base_dom_a = (to_a * counts0_a[:, None, :]).sum(dim=2)    # [CA,D]
+        in_key_a = (ns.domain_key[None, :] == k_a[:, None]) & ((to_a * valid_f).sum(dim=2) > 0.0)
+        req_t = (pod.aff_topo >= 0) & pod.aff_required
+        pref_t = (pod.aff_topo >= 0) & ~pod.aff_required
+        self_match_a = pod.match_sel[sel_a]
+        signed_w = torch.where(pod.aff_anti, -pod.aff_weight, pod.aff_weight)
+        t_aff = t(plan.t_aff)
+        has_key_aff = t(plan.has_key_aff, torch.bool)
+    if flags.any_anti_sym:
+        k_t = ns.anti_topo.clamp(min=0).long()
+        to_t = ns.topo_onehot[k_t]                                # [AT,D,N]
+        counts0_t = torch.where(valid_f > 0, carry0.anti_counts, 0.0)
+        base_dom_t = (to_t * counts0_t[:, None, :]).sum(dim=2)    # [AT,D]
+        active_sym = (ns.anti_topo >= 0) & pod.match_anti
+        t_anti = t(plan.t_anti)
+        has_key_anti = t(plan.has_key_anti, torch.bool)
+    aff_on = ~fo[F_POD_AFFINITY]
+
+    h = torch.zeros(Dc, dtype=torch.int64, device=dev)
+    y = torch.zeros(Dc, dtype=torch.float32, device=dev)
+    classes = torch.arange(Dc, device=dev)
+    nodes, jidxs = [], []
+    for _ in range(_active_steps(0, group_size, valid_count)):
+        if any_spread:
+            dom = st.base_dom + st.match_c[:, None] * (t_onehot * (y * elig_combo)).sum(dim=2)
+            cnt_cm = (dom[:, :, None] * t_onehot).sum(dim=1)      # [C,Dc]
+            raw = torch.where(st.active_c[:, None], cnt_cm, 0.0).sum(dim=0)
+            sp = _spread_norm(raw, combo_valid)
+        else:
+            sp = torch.full((Dc,), 100.0, device=dev)
+        hc = h.clamp(0, L - 1)[:, None]
+        hs = torch.where(h < cap_eff, hscore.gather(1, hc)[:, 0], _NEG_INF)
+        ipa = torch.zeros(Dc, dtype=torch.float32, device=dev)
+        aff_ok = torch.ones(Dc, dtype=torch.bool, device=dev)
+        if flags.any_req_aff or flags.any_pref_aff:
+            dom_a = base_dom_a + match_a[:, None] * (t_aff * y).sum(dim=2)     # [CA,D]
+            cnt_a = (dom_a[:, :, None] * t_aff).sum(dim=1)        # [CA,Dc]
+            if flags.any_req_aff:
+                total_a = torch.where(in_key_a, dom_a, 0.0).sum(dim=1)
+                feasible = (
+                    (cnt_a > 0) | (self_match_a[:, None] & (total_a[:, None] == 0))
+                ) & has_key_aff
+                ok_t = torch.where(pod.aff_anti[:, None], cnt_a == 0, feasible)
+                aff_ok = aff_ok & torch.where(req_t[:, None], ok_t, True).all(dim=0)
+            if flags.any_pref_aff:
+                raw_a = torch.where(pref_t[:, None], signed_w[:, None] * cnt_a, 0.0).sum(dim=0)
+                ipa = torch.where(pref_t.any(), _minmax_normalize(raw_a, combo_valid), 0.0)
+        if flags.any_anti_sym:
+            dom_t = base_dom_t + pod.own_anti[:, None] * (t_anti * y).sum(dim=2)
+            cnt_t = (dom_t[:, :, None] * t_anti).sum(dim=1)       # [AT,Dc]
+            ok_t = (cnt_t == 0) | ~has_key_anti
+            aff_ok = aff_ok & torch.where(active_sym[:, None], ok_t, True).all(dim=0)
+
+        total = (hs + w_ipa * ipa) + w_sp * sp
+        if flags.any_hard_spread:
+            spread_ok = _hard_spread_ok(
+                dom, cnt_cm, st.in_key_cd, st.hard_c, pod.spread_skew, has_key_cm, fo[F_SPREAD],
+            )
+            total = torch.where(spread_ok, total, _NEG_INF)
+        total = torch.where(aff_ok | aff_on, total, _NEG_INF)
+        node_h = hnode.gather(1, hc)[:, 0]
+        j_h = hj.gather(1, hc)[:, 0]
+        mx_t = total.amax()
+        m = torch.where(total == mx_t, node_h, N).argmin().view(1)
+        ok = (mx_t > _NEG_INF).view(1)
+        nodes.append(torch.where(ok, node_h.gather(0, m), -1))
+        jidxs.append(torch.where(ok, j_h.gather(0, m), 0))
+        oh = (classes == m) & ok
+        h = h + oh.to(torch.int64)
+        y = y + oh.to(torch.float32)
+    return _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
 
 def light_reasons(
@@ -728,7 +960,7 @@ def light_reasons(
     fo = _filters_on(filter_on, x.device)
     _, p = _light_eval(
         ns, carry0, pod, static_ok, static_scores, na_ok, weights, fo, x, cur,
-        flags, _hoisted_values(ns, cur, flags),
+        flags, _hoisted_values(ns, pod, cur, flags),
     )
     first_fail = torch.full_like(static_ff, NUM_FILTERS)
     for bad, f in (
@@ -738,10 +970,7 @@ def light_reasons(
     ):
         first_fail = torch.where(bad, f, first_fail)
     first_fail = torch.where(static_ff < NUM_FILTERS, static_ff, first_fail)
-    return torch.zeros(NUM_FILTERS, dtype=torch.int32, device=x.device).index_add_(
-        0, first_fail.clamp(0, NUM_FILTERS - 1).long(),
-        ((first_fail < NUM_FILTERS) & ns.valid).to(torch.int32),
-    )
+    return reason_row(first_fail, ns.valid)
 
 
 def gather_takes(traj: Trajectory, nodes: torch.Tensor, jidxs: torch.Tensor):
@@ -813,18 +1042,30 @@ def schedule_batch_fast(
     carry: Carry,
     batch: PodBatch,
     weights,
+    max_group_chunk: int = DEFAULT_GROUP_CHUNK,
     force_fast: bool = False,
     filter_on=None,
+    extra_filters=(),
+    extra_scores=(),
     device=DEFAULT_DEVICE,
     timings: Optional[dict] = None,
 ) -> Tuple[Carry, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Schedule a pod batch group by group through the trajectory fast path.
+    """Schedule a pod batch group by group: the trajectory fast path where
+    it amortizes, the per-pod grouped scan elsewhere.
 
     Returns (carry, nodes i32[P], reasons i32[P,F], gpu_take i32[P,G],
     vg_take f32[P,V], dev_take f32[P,DV]), bit-identical to the JAX
     package's schedule_batch_fast. `ns`/`carry` must live on `device`.
-    `force_fast` disables the amortization heuristic. `timings`, when given, accumulates wall seconds per phase (trajectory,
-    select, tail), synchronizing the device at each phase boundary."""
+    `max_group_chunk` bounds the pods of one scan call; `force_fast`
+    disables the amortization heuristic. Out-of-tree plugins
+    (`extra_filters` predicates, `extra_scores` (fn, weight) pairs) may read
+    the carry arbitrarily, which voids the trajectory's premise: any plugin
+    sends the whole batch through the grouped path.
+
+    `timings`, when given, accumulates wall seconds per phase (trajectory,
+    select, tail; grouped for the grouped route's groups) and, per route,
+    the select seconds `select.<route>` and the steps run `steps.<route>`,
+    synchronizing the device at each phase boundary."""
     dev = resolve_device(device)
     if not _same_device(ns.valid.device, dev) or not _same_device(carry.free.device, dev):
         raise ValueError(
@@ -834,18 +1075,16 @@ def schedule_batch_fast(
     weights = torch.as_tensor(weights, dtype=torch.float32).to(dev)
     if filter_on is not None:
         filter_on = torch.as_tensor(filter_on, dtype=torch.bool).to(dev)
-    P = batch.p
-    nodes_out = np.full(P, -1, np.int32)
-    reasons_out = np.zeros((P, NUM_FILTERS), np.int32)
-    take_out = np.zeros((P, ns.gpu_total.shape[1]), np.int32)
-    vg_out = np.zeros((P, ns.vg_cap.shape[1]), np.float32)
-    dev_out = np.zeros((P, ns.dev_cap.shape[1]), np.float32)
+    outs = _empty_outputs(ns, batch.p)
     rows_all = pod_rows_from_batch(batch, dev)
     N = ns.valid.shape[0]
     valid_np = ns.valid.cpu().numpy()
 
-    # a disabled NodeResourcesFit filter voids the trajectory-length bound
-    res_filter_on = filter_on is None or bool(filter_on[F_RESOURCES])
+    # a disabled NodeResourcesFit filter voids the trajectory-length bound;
+    # so does any out-of-tree plugin
+    res_filter_on = (
+        filter_on is None or bool(filter_on[F_RESOURCES])
+    ) and not extra_filters and not extra_scores
     free_entry = carry.free.cpu().numpy() if res_filter_on else None
     anti_topo_np = ns.anti_topo.cpu().numpy()
     topo_np = ns.topo.cpu().numpy()
@@ -853,17 +1092,21 @@ def schedule_batch_fast(
 
     clock = [time.perf_counter()]
 
-    def phase(name):
+    def phase(name, route=None, steps=0):
         if timings is None:
             return
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         now = time.perf_counter()
         timings[name] = timings.get(name, 0.0) + now - clock[0]
+        if route is not None:
+            timings[f"select.{route}"] = timings.get(f"select.{route}", 0.0) + now - clock[0]
+            timings[f"steps.{route}"] = timings.get(f"steps.{route}", 0) + steps
         clock[0] = now
 
     for start, length in group_runs(batch):
-        clock[0] = time.perf_counter()
+        if timings is not None:
+            clock[0] = time.perf_counter()
         row = PodRow(*(a[start] for a in rows_all))
         flags = group_flags(
             {f: getattr(batch, f)[start] for f in (
@@ -877,76 +1120,123 @@ def schedule_batch_fast(
             if free_entry is not None and (force_fast or length >= 64)
             else None
         )
+        # break-even: the trajectory costs ~j_need heavy steps, the grouped
+        # scan one heavy step per pod
         use_fast = (
             j_need is not None
             and _bucket_j(j_need) <= J_CAP
             and (force_fast or length >= max(3 * j_need // 2, 64))
         )
         if not use_fast:
-            raise NotImplementedError(f"group at pod {start} (length {length}): {TODO_GROUPED}")
+            PATH_COUNTS["grouped"] += 1
+            carry = _grouped_run(
+                ns, carry, row, start, length, weights, max_group_chunk, filter_on,
+                extra_filters, extra_scores, outs,
+            )
+            phase("grouped", "grouped", length)
+            continue
 
         j_steps = _bucket_j(j_need)
         traj, static_ok, static_ff, static_scores, na_ok = build_trajectory(
             ns, carry, row, weights, j_steps, filter_on, flags
         )
         phase("trajectory")
+        sl = slice(start, start + length)
+
+        def finish(nodes_d, jidx_d, x_d, mono_d=None):
+            """The group's whole tail (takes, failure-suffix reason row,
+            exit carry), with every host-needed value and the sort/domain
+            mono verdict fetched in ONE transfer; on a False verdict the
+            caller discards it all and replays with a scan."""
+            take_d, vg_d, dev_d = gather_takes(traj, nodes_d, jidx_d)
+            reason_d = light_reasons(
+                ns, carry, row, static_ok, static_ff, static_scores, na_ok, weights,
+                x_d, cur_at(traj, x_d), filter_on, flags,
+            )
+            carry_d = exit_carry(ns, carry, row, traj, x_d)
+            mono = torch.ones((), dtype=torch.bool, device=dev) if mono_d is None else mono_d
+            mono_np, *got = fetch(mono, nodes_d, take_d, vg_d, dev_d, reason_d)
+            return bool(mono_np), got, carry_d
+
+        def commit(got, carry_d):
+            nonlocal carry
+            nodes_np, take_np, vg_np, dev_np, reason_np = got
+            outs[0][sl] = nodes_np
+            outs[2][sl] = take_np.astype(np.int32)
+            outs[3][sl] = vg_np
+            outs[4][sl] = dev_np
+            if (nodes_np < 0).any():
+                # a failed step commits nothing: one reason row covers the suffix
+                outs[1][sl][nodes_np < 0] = reason_np
+            carry = carry_d
+
+        committed = False
         out_size = _bucket_light(length)
         if _sortable(flags) and out_size <= N * j_steps:
             mono, nodes_d, jidx_d, x = sort_select(
                 ns, traj, row, static_ok, static_scores, weights, length,
                 out_size, filter_on,
             )
-            if not bool(mono):
-                raise NotImplementedError(
-                    f"group at pod {start}: a score sequence rises (sort fallback); {TODO_SCAN}"
-                )
-            path = "sort"
-        elif flags.domain_aff:
-            if _any_affinity(flags):
-                raise NotImplementedError(f"group at pod {start}: {TODO_AFFINITY}")
+            phase("select", "sort")
+            mono_ok, got, carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
+            if mono_ok:
+                PATH_COUNTS["sort"] += 1
+                commit(got, carry_d)
+                committed = True
+            else:
+                # a rising score sequence voids the merge: replay with a scan
+                PATH_COUNTS["sort_fallback"] += 1
+
+        if not committed and flags.domain_aff:
+            # the class partition is planned on the host from the pod's
+            # spread eligibility (one bool[N] transfer per group)
             elig_np = na_ok.cpu().numpy() & valid_np
             plan = _domain_plan(
                 batch.spread_topo[start], batch.aff_topo[start], anti_topo_np,
                 batch.match_anti[start], topo_np, valid_np, elig_np, j_steps,
                 n_domains,
             )
-            if plan is None:
-                raise NotImplementedError(
-                    f"group at pod {start}: more than DM_CAP={DM_CAP} domain classes; {TODO_SCAN}"
+            if plan is not None:
+                g = _bucket_light(length)
+                l_cap = _bucket_light(min(int(plan.counts.max()), length))
+                launched = _dp.launches
+                mono, nodes_d, jidx_d, x = domain_select(
+                    ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
+                    plan, g, l_cap, length, filter_on, flags,
                 )
-            l_cap = _bucket_light(min(int(plan.counts.max()), length))
-            launched = _dp.launches
-            mono, nodes_d, jidx_d, x = domain_select(
-                ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
-                plan, _bucket_light(length), l_cap, length, filter_on, flags,
-            )
-            if not bool(mono):
-                raise NotImplementedError(
-                    f"group at pod {start}: a lane sequence rises (domain fallback); {TODO_SCAN}"
-                )
-            path = "domain"
-            PATH_COUNTS["domain_kernel"] += _dp.launches - launched
-        else:
-            raise NotImplementedError(f"group at pod {start}: {TODO_SCAN}")
-        nodes_d, jidx_d = nodes_d[:length], jidx_d[:length]
-        phase("select")
+                PATH_COUNTS["domain_kernel"] += _dp.launches - launched
+                affinity = _any_affinity(flags)
+                phase("select", "domain_affinity" if affinity else "domain",
+                      min(g, length) if affinity else 0)
+                mono_ok, got, carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
+                if mono_ok:
+                    PATH_COUNTS["domain"] += 1
+                    commit(got, carry_d)
+                    committed = True
+                else:
+                    # a rising lane sequence voids the within-class merge
+                    PATH_COUNTS["domain_fallback"] += 1
 
-        take_d, vg_d, dev_d = gather_takes(traj, nodes_d, jidx_d)
-        reason_d = light_reasons(
-            ns, carry, row, static_ok, static_ff, static_scores, na_ok, weights,
-            x, cur_at(traj, x), filter_on, flags,
-        )
-        carry = exit_carry(ns, carry, row, traj, x)
-        sl = slice(start, start + length)
-        nodes_np = nodes_d.cpu().numpy()
-        nodes_out[sl] = nodes_np
-        take_out[sl] = take_d.cpu().numpy().astype(np.int32)
-        vg_out[sl] = vg_d.cpu().numpy()
-        dev_out[sl] = dev_d.cpu().numpy()
-        if (nodes_np < 0).any():
-            # a failed step commits nothing: one reason row covers the suffix
-            reasons_out[sl][nodes_np < 0] = reason_d.cpu().numpy()
-        PATH_COUNTS[path] += 1
+        if not committed:
+            route = "micro" if flags.micro_spread else "scan"
+            PATH_COUNTS[route] += 1
+            x = torch.zeros(N, dtype=torch.int32, device=dev)
+            chunks, done, steps = [], 0, 0
+            while done < length:
+                n = min(length - done, max_group_chunk)
+                g = _bucket_light(n)
+                x, nodes_d, jidx_d = light_scan(
+                    ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
+                    x, done, g, length, filter_on, flags,
+                )
+                steps += _active_steps(done, g, length)
+                chunks.append((nodes_d[:n], jidx_d[:n]))
+                done += n
+            phase("select", route, steps)
+            _, got, carry_d = finish(
+                torch.cat([c[0] for c in chunks]), torch.cat([c[1] for c in chunks]), x,
+            )
+            commit(got, carry_d)
         phase("tail")
 
-    return carry, nodes_out, reasons_out, take_out, vg_out, dev_out
+    return (carry,) + outs

@@ -1,9 +1,10 @@
-"""Filter/score building blocks of the scheduling step, in PyTorch.
+"""The scheduling step in PyTorch: filters, scores, commit and the oracle.
 
-The port's counterpart of the JAX package's ops/kernels.py, limited to what
-the trajectory fast path (ops/fast.py) reaches: the static masks and scores,
-the node-local dynamic masks (resources, host ports, open-local storage,
-GPU share), the domain counts and the explicit left-fold score combine.
+The port of the JAX package's ops/kernels.py: every Filter plugin as a mask
+over all N nodes, every Score plugin with its normalization, the explicit
+left-fold score combine, the one-pod commit (`commit_onehot`), and the
+sequential oracle `schedule_batch` (one `schedule_step` per pod, a Python
+loop over tensors on the caller's device with no host sync inside it).
 
 Every function computes the reference's expression with the same f32 ops in
 the same order, so results are bit-identical to the JAX package. The traps:
@@ -14,12 +15,14 @@ the same order, so results are bit-identical to the JAX package. The traps:
     the order cannot depend on the device's reduction tree;
   - never divide a CUDA tensor by a Python scalar: PyTorch's CUDA division
     multiplies by the scalar's reciprocal instead, which can round
-    differently. Divisors here are tensors, or powers of two.
+    differently. Divisors here are tensors, or powers of two;
+  - argmax over a bool matrix goes through uint8 (CUDA has no bool argmax);
+    ties go to the first index, as jnp.argmax's do.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -260,31 +263,136 @@ def taint_mask(ns: NodeStatic, pod: PodRow) -> torch.Tensor:
     return (_tolerated(ns, pod) | ~hard).all(dim=1)
 
 
-def _domain_counts(ns: NodeStatic, counts_node: torch.Tensor, k: int, elig=None):
-    """Per-domain sums + their per-node broadcast for topology key k (a host
-    int). Hostname (k == 0) counts per node; other keys sum through the
-    one-hot membership as exact integer reductions.
+class RowKeys(NamedTuple):
+    """Topology tables of one family of constraint rows (spread rows,
+    affinity rows or the registered anti terms), fixed for a pod spec. An
+    inactive row (key -1) reads key 0, as the reference's max(k, 0) does;
+    its verdicts are masked out by the caller."""
+    is_host: torch.Tensor   # bool[R] row keyed by hostname: counts per node
+    onehot: torch.Tensor    # f32[R,D,N] domain membership under the row's key
+    topo_k: torch.Tensor    # i64[R,N] node's domain id under the key (-1 none)
+    has_key: torch.Tensor   # bool[R,N] node carries the key
+    key_dom: torch.Tensor   # bool[R,D] domain belongs to the row's key
 
-    Returns (dom f32[D], cnt_n f32[N], min_count f32, total f32)."""
+
+def row_keys(ns: NodeStatic, topo_idx: torch.Tensor) -> RowKeys:
+    k = topo_idx.clamp(min=0).long()
+    topo_k = ns.topo[:, k].T.long()
+    return RowKeys(
+        k == HOSTNAME_KEY_IDX, ns.topo_onehot[k], topo_k, topo_k >= 0,
+        ns.domain_key[None, :] == k[:, None],
+    )
+
+
+class PodKeys(NamedTuple):
+    """The three row families one pod's coupled terms read."""
+    spread: RowKeys
+    aff: RowKeys
+    anti: RowKeys
+
+
+def pod_keys(ns: NodeStatic, pod: PodRow) -> PodKeys:
+    return PodKeys(
+        row_keys(ns, pod.spread_topo), row_keys(ns, pod.aff_topo), row_keys(ns, ns.anti_topo)
+    )
+
+
+def _row_counts(ns: NodeStatic, rk: RowKeys, counts_node: torch.Tensor, elig=None):
+    """Per-domain counts for every row of a family at once: the reference's
+    `_domain_counts` under its vmap over rows. Hostname rows count per node;
+    other keys sum through the one-hot membership as exact integer
+    reductions. Both are computed and the row's one selected, as there.
+    `elig` bool[N] restricts which nodes count (None: all valid nodes).
+
+    counts_node f32[R,N] -> (cnt_n f32[R,N] the count of the node's domain,
+    min_count f32[R] over the key's eligible domains, total f32[R])."""
     elig = ns.valid if elig is None else (elig & ns.valid)
     counts = torch.where(elig, counts_node, 0.0)
-    if k == HOSTNAME_KEY_IDX:
-        D = ns.topo_onehot.shape[1]
-        dom = torch.zeros(D, dtype=torch.float32, device=counts.device)
-        min_c = torch.where(elig, counts_node, _INF).amin()
-        min_c = torch.where(torch.isfinite(min_c), min_c, 0.0)
-        return dom, counts, min_c, counts.sum()
-    onehot = ns.topo_onehot[k]                                  # [D,N]
-    dom = (onehot * counts).sum(dim=1)                          # [D]
-    dom_elig = (onehot * elig.to(torch.float32)).sum(dim=1) > 0.0
-    topo_k = ns.topo[:, k]
-    D = dom.shape[0]
-    cnt_n = torch.where(topo_k >= 0, dom[topo_k.clamp(0, D - 1)], 0.0)
-    in_key = (ns.domain_key == k) & dom_elig
-    min_c = torch.where(in_key, dom, _INF).amin()
+    dom = (rk.onehot * counts[:, None, :]).sum(dim=2)                  # [R,D]
+    dom_elig = (rk.onehot * elig.to(torch.float32)).sum(dim=2) > 0.0
+    D = dom.shape[1]
+    cnt_gather = torch.where(rk.has_key, dom.gather(1, rk.topo_k.clamp(0, D - 1)), 0.0)
+    cnt_n = torch.where(rk.is_host[:, None], counts, cnt_gather)
+    in_key = rk.key_dom & dom_elig
+    min_dom = torch.where(in_key, dom, _INF).amin(dim=1)
+    min_host = torch.where(elig, counts_node, _INF).amin(dim=1)
+    min_c = torch.where(rk.is_host, min_host, min_dom)
     min_c = torch.where(torch.isfinite(min_c), min_c, 0.0)
-    total = torch.where(in_key, dom, 0.0).sum()
-    return dom, cnt_n, min_c, total
+    total = torch.where(
+        rk.is_host, counts.sum(dim=1), torch.where(in_key, dom, 0.0).sum(dim=1)
+    )
+    return cnt_n, min_c, total
+
+
+def _spread_rows_ok(ns, rk: RowKeys, counts_node, pod: PodRow, elig) -> torch.Tensor:
+    """PodTopologySpread DoNotSchedule verdict -> bool[N] over the hard rows,
+    from the rows' current selector counts f32[C,N]."""
+    cnt_n, min_c, _ = _row_counts(ns, rk, counts_node, elig)
+    ok = ((cnt_n + 1.0 - min_c[:, None]) <= pod.spread_skew[:, None] + _EPS) & rk.has_key
+    active = (pod.spread_topo >= 0) & pod.spread_hard
+    return torch.where(active[:, None], ok, True).all(dim=0)
+
+
+def _affinity_rows_ok(ns, rk: RowKeys, counts_node, pod: PodRow) -> torch.Tensor:
+    """InterPodAffinity required terms -> bool[N], from the rows' current
+    selector counts f32[CA,N]."""
+    cnt, _, total = _row_counts(ns, rk, counts_node)
+    self_match = pod.match_sel[pod.aff_sel.long()]
+    aff_ok = ((cnt > 0) | (self_match & (total == 0))[:, None]) & rk.has_key
+    ok = torch.where(pod.aff_anti[:, None], cnt == 0, aff_ok)
+    active = (pod.aff_topo >= 0) & pod.aff_required
+    return torch.where(active[:, None], ok, True).all(dim=0)
+
+
+def _anti_sym_ok(ns, rk: RowKeys, anti_counts, pod: PodRow) -> torch.Tensor:
+    """Existing pods' required anti-affinity repelling this pod -> bool[N],
+    from the registered terms' current carrier counts f32[AT,N]."""
+    cnt, _, _ = _row_counts(ns, rk, anti_counts)
+    ok = (cnt == 0) | ~rk.has_key
+    active = (ns.anti_topo >= 0) & pod.match_anti
+    return torch.where(active[:, None], ok, True).all(dim=0)
+
+
+def _spread_score(ns, rk: RowKeys, counts_node, pod: PodRow, elig) -> torch.Tensor:
+    """PodTopologySpread soft score: the reverse-normalized count sum over
+    the ScheduleAnyway rows."""
+    cnt, _, _ = _row_counts(ns, rk, counts_node, elig)
+    active = (pod.spread_topo >= 0) & ~pod.spread_hard
+    raw = torch.where(active[:, None], cnt, 0.0).sum(dim=0)
+    mx = torch.where(ns.valid, raw, 0.0).amax()
+    out = torch.where(mx > 0, (mx - raw) * 100.0 / mx.clamp(min=1e-9), 100.0)
+    return out.clamp(0.0, 100.0)
+
+
+def _affinity_score(ns, rk: RowKeys, counts_node, pod: PodRow) -> torch.Tensor:
+    """InterPodAffinity preferred terms: +weight per matching pod in the
+    domain for affinity, -weight for anti-affinity, min-max normalized. The
+    weighted counts are integers, so the row sum is exact in any order."""
+    cnt, _, _ = _row_counts(ns, rk, counts_node)
+    signed = torch.where(pod.aff_anti, -pod.aff_weight, pod.aff_weight)[:, None] * cnt
+    active = (pod.aff_topo >= 0) & ~pod.aff_required
+    raw = torch.where(active[:, None], signed, 0.0).sum(dim=0)
+    return torch.where(active.any(), _minmax_normalize(raw, ns.valid), 0.0)
+
+
+def spread_mask(
+    ns: NodeStatic, carry: Carry, pod: PodRow, na_ok=None, keys: Optional[PodKeys] = None
+) -> torch.Tensor:
+    """PodTopologySpread hard constraints; `na_ok` (the pod's node-affinity
+    mask, recomputed when None) restricts which nodes count."""
+    elig = node_affinity_mask(ns, pod) if na_ok is None else na_ok
+    rk = row_keys(ns, pod.spread_topo) if keys is None else keys.spread
+    return _spread_rows_ok(ns, rk, carry.sel_counts[pod.spread_sel.long()], pod, elig)
+
+
+def pod_affinity_mask(
+    ns: NodeStatic, carry: Carry, pod: PodRow, keys: Optional[PodKeys] = None
+) -> torch.Tensor:
+    """InterPodAffinity required terms AND the anti-affinity symmetry of the
+    registered terms (ns.anti_topo) this pod's labels match."""
+    keys = pod_keys(ns, pod) if keys is None else keys
+    req_ok = _affinity_rows_ok(ns, keys.aff, carry.sel_counts[pod.aff_sel.long()], pod)
+    return req_ok & _anti_sym_ok(ns, keys.anti, carry.anti_counts, pod)
 
 
 # ---------------------------------------------------------------------------
@@ -297,30 +405,35 @@ def allocatable_gpus(ns: NodeStatic, carry: Carry) -> torch.Tensor:
     return usable.to(torch.float32).sum(dim=1)
 
 
+def _gpu_device_caps(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
+    """floor(free_d / mem) shares each device can still hold -> f32[N,G]."""
+    caps = torch.floor((carry.gpu_free + _EPS) / pod.gpu_mem.clamp(min=1e-9))
+    return torch.where(ns.gpu_total > 0, caps, 0.0)
+
+
 def gpu_mask(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
     """Open-Gpu-Share Filter: non-GPU pods pass everywhere; GPU pods need
     sum_d floor(free_d/mem) >= num."""
-    mem = pod.gpu_mem.clamp(min=1e-9)
-    caps = torch.floor((carry.gpu_free + _EPS) / mem)
-    caps = torch.where(ns.gpu_total > 0, caps, 0.0)
+    caps = _gpu_device_caps(ns, carry, pod)
     feasible = (pod.gpu_num >= 1) & (caps.sum(dim=1) >= pod.gpu_num)
     return torch.where(pod.gpu_mem > 0, feasible, torch.ones_like(feasible))
 
 
-def gpu_allocate_rowwise(ns: NodeStatic, gpu_free: torch.Tensor, pod: PodRow) -> torch.Tensor:
-    """The GPU allocation take evaluated on EVERY node independently ->
-    f32[N,G]: tightest fit for one share, the two-pointer greedy for more."""
+def _gpu_take(free_d: torch.Tensor, total_d: torch.Tensor, pod: PodRow) -> torch.Tensor:
+    """The device allocation of one pod on each row of free_d/total_d
+    f32[M,G] -> shares per device f32[M,G]: tightest fit for one share (ties
+    to the lowest device), the two-pointer greedy take_d = clip(num -
+    prefix_d, 0, cap_d) for more."""
     mem = pod.gpu_mem
-    total_d = ns.gpu_total
-    G = gpu_free.shape[1]
-    elig = (total_d > 0) & (gpu_free >= mem - _EPS)
-    tight = torch.where(elig, gpu_free, _INF).argmin(dim=1)     # [N]
-    cols = torch.arange(G, device=gpu_free.device)
+    G = free_d.shape[1]
+    elig = (total_d > 0) & (free_d >= mem - _EPS)
+    tight = torch.where(elig, free_d, _INF).argmin(dim=1)
+    cols = torch.arange(G, device=free_d.device)
     take_single = (
         (cols[None, :] == tight[:, None]) & elig.any(dim=1)[:, None]
     ).to(torch.float32)
     caps = torch.where(
-        total_d > 0, torch.floor((gpu_free + _EPS) / mem.clamp(min=1e-9)), 0.0
+        total_d > 0, torch.floor((free_d + _EPS) / mem.clamp(min=1e-9)), 0.0
     )
     prefix = caps.cumsum(dim=1) - caps
     take_multi = torch.minimum((pod.gpu_num - prefix).clamp(min=0.0), caps)
@@ -329,6 +442,29 @@ def gpu_allocate_rowwise(ns: NodeStatic, gpu_free: torch.Tensor, pod: PodRow) ->
     )
     take = torch.where(pod.gpu_num == 1, take_single, take_multi)
     return torch.where((mem > 0) & (pod.gpu_num >= 1), take, 0.0)
+
+
+def gpu_allocate_rowwise(ns: NodeStatic, gpu_free: torch.Tensor, pod: PodRow) -> torch.Tensor:
+    """The GPU allocation take evaluated on EVERY node independently ->
+    f32[N,G]; row n equals gpu_allocate's take on node n."""
+    return _gpu_take(gpu_free, ns.gpu_total, pod)
+
+
+def _project(sel: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """einsum("n,n...->...") of a one-hot f32[N] selector: the selected row
+    (one 1.0 times each value plus exact zeros), all zeros when none is."""
+    return (sel.reshape((-1,) + (1,) * (rows.dim() - 1)) * rows).sum(dim=0)
+
+
+def gpu_allocate(ns: NodeStatic, carry: Carry, pod: PodRow, node_onehot: torch.Tensor):
+    """Allocate devices on the selected node -> (take f32[G] shares per
+    device, new gpu_free f32[N,G])."""
+    sel = node_onehot.to(torch.float32)
+    free_d = _project(sel, carry.gpu_free)
+    total_d = _project(sel, ns.gpu_total)
+    take = _gpu_take(free_d[None], total_d[None], pod)[0]
+    gpu_free = carry.gpu_free - sel[:, None] * take[None, :] * pod.gpu_mem
+    return take, gpu_free
 
 
 def gpu_share_raw(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
@@ -425,6 +561,34 @@ def local_storage_eval(ns: NodeStatic, carry: Carry, pod: PodRow):
     return ok, vg_take, dev_take, raw
 
 
+def local_storage_mask(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
+    return local_storage_eval(ns, carry, pod)[0]
+
+
+def score_open_local(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
+    """Open-Local score + its NormalizeScore; 0 for pods without volumes."""
+    raw = local_storage_eval(ns, carry, pod)[3]
+    return torch.where(pod.has_local, _minmax_normalize(raw, ns.valid), 0.0)
+
+
+def _storage_commit(carry: Carry, sel: torch.Tensor, vg_take_all, dev_take_all):
+    """Commit the selected node's storage allocation from the eval's takes:
+    (vg_free, dev_free, vg_take f32[V], dev_take f32[DV])."""
+    return (
+        carry.vg_free - sel[:, None] * vg_take_all,
+        carry.dev_free - sel[:, None] * dev_take_all,
+        _project(sel, vg_take_all),
+        _project(sel, dev_take_all),
+    )
+
+
+def local_storage_commit(ns: NodeStatic, carry: Carry, pod: PodRow, node_onehot: torch.Tensor):
+    """Commit the chosen node's storage allocation -> (vg_free f32[N,V],
+    dev_free f32[N,DV], vg_take f32[V], dev_take f32[DV])."""
+    _, vg_take_all, dev_take_all, _ = local_storage_eval(ns, carry, pod)
+    return _storage_commit(carry, node_onehot.to(torch.float32), vg_take_all, dev_take_all)
+
+
 # ---------------------------------------------------------------------------
 # NodePorts + NodeResourcesFit
 # ---------------------------------------------------------------------------
@@ -463,6 +627,18 @@ def port_adds(pid_rows: int, pip_rows: int, pod: PodRow):
     return add_any, add_wild, add_ipc
 
 
+def ports_commit(carry: Carry, pod: PodRow, onehot: torch.Tensor):
+    """Record the committed pod's host ports into the selected node's
+    counts -> (port_any, port_wild, port_ipc)."""
+    sel = onehot.to(torch.float32)
+    add_any, add_wild, add_ipc = port_adds(carry.port_any.shape[0], carry.port_ipc.shape[0], pod)
+    return (
+        carry.port_any + add_any[:, None] * sel[None, :],
+        carry.port_wild + add_wild[:, None] * sel[None, :],
+        carry.port_ipc + add_ipc[:, None] * sel[None, :],
+    )
+
+
 def resource_fail(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
     """NodeResourcesFit failure -> bool[N]; the whole-GPU count resource is
     checked against its dynamic allocatable."""
@@ -471,6 +647,64 @@ def resource_fail(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
     whole_used = ns.alloc[:, GPU_COUNT_IDX] - carry.free[:, GPU_COUNT_IDX]
     whole_fail = whole_req > allocatable_gpus(ns, carry) - whole_used + _EPS
     return static_fail | whole_fail
+
+
+def static_fails(ns: NodeStatic, pod: PodRow, na_ok: torch.Tensor) -> list:
+    """The four filters that read no cluster state, as failure masks
+    bool[N] in filter order (unschedulable, node name, taints, node
+    affinity). The unschedulable filter admits pods tolerating the
+    synthetic node.kubernetes.io/unschedulable:NoSchedule taint."""
+    unsched_tolerated = (
+        pod.tol_valid
+        & ((pod.tol_key == 0) | (pod.tol_key == ns.unsched_key_id))
+        & (pod.tol_exists | (pod.tol_val == ns.empty_val_id))
+        & ((pod.tol_effect == 0) | (pod.tol_effect == 1))
+    ).any()
+    return [
+        ns.unsched & ~unsched_tolerated,
+        (pod.node_name_id != 0) & (ns.name_id != pod.node_name_id),
+        ~taint_mask(ns, pod),
+        ~na_ok,
+    ]
+
+
+def first_failure(fails: torch.Tensor) -> torch.Tensor:
+    """Index of the first failing filter per row of fails bool[N,F], or
+    NUM_FILTERS where none fails -> i32[N]."""
+    first = fails.to(torch.uint8).argmax(dim=1).to(torch.int32)
+    return torch.where(fails.any(dim=1), first, torch.full_like(first, NUM_FILTERS))
+
+
+def run_filters(
+    ns: NodeStatic, carry: Carry, pod: PodRow, filter_on=None, extra_filters=(),
+    keys: Optional[PodKeys] = None,
+):
+    """All filter plugins -> (mask bool[N], first_fail i32[N]).
+
+    first_fail is the first failing filter per node (kube stops a node's
+    filter chain there), or NUM_FILTERS when feasible. `filter_on`
+    (bool[NUM_FILTERS] or None = all on) disables filters; `extra_filters`
+    are out-of-tree predicates `f(ns, carry, pod) -> bool[N]` AND-ed into
+    the F_EXTRA slot."""
+    na_ok = node_affinity_mask(ns, pod)
+    extra_fail = torch.zeros_like(ns.valid)
+    for f in extra_filters:
+        extra_fail = extra_fail | ~f(ns, carry, pod)
+    fails = torch.stack(
+        static_fails(ns, pod, na_ok) + [
+            ~ports_mask(carry, pod),
+            resource_fail(ns, carry, pod),
+            ~spread_mask(ns, carry, pod, na_ok, keys),
+            ~pod_affinity_mask(ns, carry, pod, keys),
+            ~local_storage_mask(ns, carry, pod),
+            ~gpu_mask(ns, carry, pod),
+            extra_fail,
+        ],
+        dim=1,
+    )                                                           # [N,F]
+    if filter_on is not None:
+        fails = fails & filter_on[None, :]
+    return ~fails.any(dim=1) & ns.valid, first_failure(fails)
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +719,36 @@ def _minmax_normalize(score: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     rng = hi - lo
     out = torch.where(rng > 0, (score - lo) * 100.0 / rng.clamp(min=1e-9), 0.0)
     return out.clamp(0.0, 100.0)
+
+
+def _la_ba(ns: NodeStatic, pod: PodRow, free2: torch.Tensor):
+    """LeastAllocated + BalancedAllocation from cpu/mem free values: the one
+    definition the per-pod step and every fast path share (free2 is [N,2]
+    or [N,J,2]; elementwise, so every lane matches the per-step plugins).
+    The mean over two values is (a + b) * 0.5, the same rounding as
+    jnp.mean's sum / 2."""
+    alloc2 = ns.alloc[:, :2]
+    req2 = pod.req[:2]
+    if free2.dim() == 3:
+        alloc2 = alloc2[:, None, :]
+    free_after = free2 - req2
+    frac = torch.where(alloc2 > 0, free_after / alloc2.clamp(min=1e-9), 0.0)
+    la = ((frac[..., 0] + frac[..., 1]) * 0.5).clamp(0.0, 1.0) * 100.0
+    used_after = alloc2 - free2 + req2
+    frac_b = torch.where(alloc2 > 0, used_after / alloc2.clamp(min=1e-9), 0.0)
+    frac_b = frac_b.clamp(0.0, 1.0)
+    ba = (1.0 - (frac_b[..., 0] - frac_b[..., 1]).abs()) * 100.0
+    return la, ba
+
+
+def score_least_allocated(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
+    """NodeResourcesLeastAllocated over cpu + memory."""
+    return _la_ba(ns, pod, carry.free[:, :2])[0]
+
+
+def score_balanced(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
+    """NodeResourcesBalancedAllocation: 100 - |cpuFrac - memFrac| * 100."""
+    return _la_ba(ns, pod, carry.free[:, :2])[1]
 
 
 def score_simon(ns: NodeStatic, pod: PodRow) -> torch.Tensor:
@@ -525,3 +789,123 @@ def score_node_affinity(ns: NodeStatic, pod: PodRow) -> torch.Tensor:
 def score_prefer_avoid(ns: NodeStatic, pod: PodRow) -> torch.Tensor:
     """NodePreferAvoidPods: 0 on annotated nodes for RS/RC-owned pods."""
     return torch.where(ns.avoid_pods & pod.owned_by_rs, 0.0, 100.0)
+
+
+def score_topology_spread(
+    ns: NodeStatic, carry: Carry, pod: PodRow, na_ok=None, keys: Optional[PodKeys] = None
+) -> torch.Tensor:
+    """PodTopologySpread soft constraints; counting spans the nodes passing
+    the pod's node affinity/selector (`na_ok`, recomputed when None)."""
+    elig = node_affinity_mask(ns, pod) if na_ok is None else na_ok
+    rk = row_keys(ns, pod.spread_topo) if keys is None else keys.spread
+    return _spread_score(ns, rk, carry.sel_counts[pod.spread_sel.long()], pod, elig)
+
+
+def score_inter_pod_affinity(
+    ns: NodeStatic, carry: Carry, pod: PodRow, keys: Optional[PodKeys] = None
+) -> torch.Tensor:
+    """InterPodAffinity preferred terms, min-max normalized."""
+    rk = row_keys(ns, pod.aff_topo) if keys is None else keys.aff
+    return _affinity_score(ns, rk, carry.sel_counts[pod.aff_sel.long()], pod)
+
+
+def score_gpu_share(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
+    """Open-Gpu-Share score: worst-fit share over the node's current
+    allocatable, min-max normalized."""
+    return _minmax_normalize(gpu_share_raw(ns, carry, pod), ns.valid)
+
+
+def run_scores(
+    ns: NodeStatic, carry: Carry, pod: PodRow, weights: torch.Tensor, extra_scores=(),
+    keys: Optional[PodKeys] = None,
+) -> torch.Tensor:
+    """Weighted sum of all normalized score plugins -> f32[N]; the
+    out-of-tree `extra_scores` ((fn, weight) pairs of `fn(ns, carry, pod) ->
+    f32[N]`) are added after the in-tree fold."""
+    na_ok = node_affinity_mask(ns, pod)
+    la, ba = _la_ba(ns, pod, carry.free[:, :2])
+    by_name = {
+        "balanced_allocation": ba,
+        "least_allocated": la,
+        "node_affinity": score_node_affinity(ns, pod),
+        "taint_toleration": score_taint_toleration(ns, pod),
+        "topology_spread": score_topology_spread(ns, carry, pod, na_ok, keys),
+        "inter_pod_affinity": score_inter_pod_affinity(ns, carry, pod, keys),
+        "prefer_avoid_pods": score_prefer_avoid(ns, pod),
+        "simon": score_simon(ns, pod),
+        "gpu_share": score_gpu_share(ns, carry, pod),
+        "open_local": score_open_local(ns, carry, pod),
+    }
+    score = combine_scores(by_name, weights)
+    for fn, w in extra_scores:
+        score = score + w * fn(ns, carry, pod)
+    return score
+
+
+# ---------------------------------------------------------------------------
+# Commit and the sequential oracle
+# ---------------------------------------------------------------------------
+
+def commit_onehot(ns: NodeStatic, carry: Carry, pod: PodRow, onehot: torch.Tensor):
+    """Apply one pod's placement (onehot bool[N], all-False = no commit) to
+    the carry -> (carry, gpu_take f32[G], vg_take f32[V], dev_take f32[DV])."""
+    sel = onehot.to(torch.float32)
+    gpu_take, gpu_free = gpu_allocate(ns, carry, pod, onehot)
+    vg_free, dev_free, vg_take, dev_take = local_storage_commit(ns, carry, pod, onehot)
+    port_any, port_wild, port_ipc = ports_commit(carry, pod, onehot)
+    new_carry = Carry(
+        free=carry.free - sel[:, None] * pod.req[None, :],
+        sel_counts=carry.sel_counts + pod.match_sel.to(torch.float32)[:, None] * sel[None, :],
+        gpu_free=gpu_free, vg_free=vg_free, dev_free=dev_free,
+        port_any=port_any, port_wild=port_wild, port_ipc=port_ipc,
+        anti_counts=carry.anti_counts + pod.own_anti[:, None] * sel[None, :],
+    )
+    return new_carry, gpu_take, vg_take, dev_take
+
+
+def reason_row(first_fail: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Histogram i32[F] of the valid nodes' first failing filters."""
+    return torch.zeros(NUM_FILTERS, dtype=torch.int32, device=first_fail.device).index_add_(
+        0, first_fail.clamp(0, NUM_FILTERS - 1).long(),
+        ((first_fail < NUM_FILTERS) & valid).to(torch.int32),
+    )
+
+
+def schedule_step(
+    ns: NodeStatic, weights: torch.Tensor, carry: Carry, pod: PodRow, filter_on=None,
+    extra_filters=(), extra_scores=(), keys: Optional[PodKeys] = None,
+):
+    """Filter, score, pick (first max: lowest node index wins ties) and
+    commit one pod -> (carry, (node i32, reasons i32[F], gpu_take i32[G],
+    vg_take f32[V], dev_take f32[DV])). Reasons are zero when the pod lands.
+    No value leaves the device."""
+    mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters, keys)
+    score = torch.where(mask, run_scores(ns, carry, pod, weights, extra_scores, keys), -_INF)
+    node = score.argmax()
+    ok = mask.any() & pod.valid
+    onehot = (torch.arange(ns.valid.shape[0], device=node.device) == node) & ok
+    new_carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
+    reasons = torch.where(ok, 0, reason_row(first_fail, ns.valid))
+    return new_carry, (
+        torch.where(ok, node, -1).to(torch.int32), reasons,
+        gpu_take.to(torch.int32), vg_take, dev_take,
+    )
+
+
+def schedule_batch(
+    ns: NodeStatic, carry: Carry, pods: PodRow, weights: torch.Tensor, filter_on=None,
+    extra_filters=(), extra_scores=(),
+):
+    """The sequential oracle: schedule every row of the stacked PodRow in
+    order, one schedule_step each, on the tensors' device.
+
+    Returns (carry, nodes i32[P] (-1 = unschedulable), reasons i32[P,F],
+    gpu_take i32[P,G], vg_take f32[P,V], dev_take f32[P,DV]) as tensors."""
+    outs = []
+    for i in range(pods.req.shape[0]):
+        pod = PodRow(*(a[i] for a in pods))
+        carry, out = schedule_step(
+            ns, weights, carry, pod, filter_on, extra_filters, extra_scores, pod_keys(ns, pod)
+        )
+        outs.append(out)
+    return (carry,) + tuple(torch.stack(col) for col in zip(*outs))
