@@ -18,16 +18,28 @@
    port's sequential oracle `kernels.schedule_batch` runs on the card too
    (all pods, or the first 1,000 when all would take over 30 s) and must
    equal the fast path.
-4. Holds every kernel against its plain PyTorch version on the card, on the
+4. Drives the simulator engine, the entry point users call: the port's
+   `simulate()` on `sim_configs.plan` (the JAX package's bench.py
+   config_plan cluster and apps, 100,000 pods x 10,000 nodes, no capacity
+   search; a warm call and a timed call) and on `sim_configs.preempt`
+   (config_preempt; a cold and a warm call), each held against the JAX
+   package's result digest and counts, with sort 1 / domain 1 and one
+   domain_pop launch per plan call; prints wall, pods/s, the tracing spans
+   and the preemption probe's calls, lanes and us per lane. Then the two
+   example configs through `run_apply(auto_plan=False)`, held against the
+   JAX report digest (text without its `device:` line) and placement
+   digest.
+5. Holds every kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it, on those of spread_affinity's DoNotSchedule
-   group and on extra seeded variants, and prints their times; holds the pop
+   group and of the simulator's plan call, and on extra seeded variants, and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
    pairs).
-5. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+6. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-6. Prints one JSON line of per-kernel numbers (launches summed over the
-   headline's and the workloads' timed passes) and, last, the result line.
+7. Prints one JSON line of per-kernel numbers (launches summed over the
+   headline's and the workloads' timed passes, the timed plan call, the warm
+   preempt call and the apply runs) and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -313,13 +325,123 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
     return results, failures
 
 
+def simulate_once(torch, dp, fast, build, keep=None):
+    """One simulate() on the card of freshly built inputs after
+    reset_name_rng(), with the route counts and kernel launches set to 0
+    just before it; with `keep`, the first domain_pop call's inputs are
+    cloned into it. Returns (result, wall s, span seconds, routes,
+    domain_pop launches, probe calls, probe lanes)."""
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.simulator import simulate
+    from open_simulator_tpu_torch.utils import metrics, tracing
+
+    reset_name_rng()
+    cluster, apps = build()
+    for k in fast.PATH_COUNTS:
+        fast.PATH_COUNTS[k] = 0
+    dp.launches = 0
+    calls0 = metrics.PROBE_LANES.value(unit="calls")
+    lanes0 = metrics.PROBE_LANES.value(unit="lanes")
+    undo = capture_pops(dp, torch, keep) if keep is not None else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simulate(cluster, apps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if undo is not None:
+        undo()
+    routes = {k: v for k, v in fast.PATH_COUNTS.items() if v}
+    return (result, wall, tracing.span_seconds(tracing.recent_timings()[-1]), routes, dp.launches,
+            int(metrics.PROBE_LANES.value(unit="calls") - calls0),
+            int(metrics.PROBE_LANES.value(unit="lanes") - lanes0))
+
+
+def simulator_phase(torch, dp, fast):
+    """The port's simulate() on the card: config_plan at full size (warm
+    call, timed call) and config_preempt (cold call, warm call), each held
+    against the JAX package's result digest; then the two example configs
+    through run_apply(auto_plan=False), held against the JAX report and
+    placement digests. Returns (results, failures, domain_pop launches of
+    the timed plan call, the warm preempt call and the apply runs, the
+    inputs of the warm plan call's domain_pop launch)."""
+    import io
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.api.config import SimonConfig
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.apply import placement_digest, run_apply
+
+    results, failures, launches, captured = {}, [], 0, []
+    shown = ("expand-workloads", "encode-cluster", "encode", "schedule", "bind", "preempt",
+             "probe", "decode-result")
+    for name, build, labels in (("plan", sc.plan, ("warm", "timed")),
+                                ("preempt", sc.preempt, ("cold", "warm"))):
+        for label in labels:
+            result, wall, spans, routes, n_pop, calls, lanes = simulate_once(
+                torch, dp, fast, build, captured if (name, label) == ("plan", "warm") else None)
+            digest, counts = sc.result_digest(result), sc.result_counts(result)
+            pods = counts[0] + counts[1]
+            other = spans["simulate"] - sum(v for k, v in spans.items()
+                                            if k in shown and k != "probe")
+            print(f"simulator[{name}/{label}] {pods} pods x {len(result.node_status)} nodes: "
+                  f"wall {wall:.3f} s, {pods / wall:.1f} pods/s; placed/unscheduled/preempted "
+                  f"{counts}; routes {routes}; domain_pop launches {n_pop}", flush=True)
+            print(f"simulator[{name}/{label}] spans (s): " + ", ".join(
+                f"{k} {spans[k]:.3f}" for k in shown if k in spans)
+                + f", other {other:.3f}", flush=True)
+            if calls:
+                print(f"simulator[{name}/{label}] preemption: {spans.get('preempt', 0.0):.3f} s, "
+                      f"{calls} probe calls, {lanes} lanes, "
+                      f"{spans['probe'] / lanes * 1e6:.1f} us/lane in the probe calls", flush=True)
+            if digest != sc.SIM_DIGESTS[name]:
+                failures.append(f"{name}/{label}: digest {digest} != {sc.SIM_DIGESTS[name]}")
+            if counts != sc.SIM_COUNTS[name]:
+                failures.append(f"{name}/{label}: counts {counts} != {sc.SIM_COUNTS[name]}")
+            if name == "plan" and (routes.get("sort") != 1 or routes.get("domain") != 1
+                                   or n_pop != 1 or routes.get("domain_kernel") != 1):
+                failures.append(f"plan/{label}: routes {routes}, domain_pop launches {n_pop}; "
+                                "expected sort 1, domain 1, one launch")
+            if name == "preempt" and not calls:
+                failures.append(f"preempt/{label}: the device probe never ran")
+            results[f"{name}/{label}"] = {
+                "wall_s": wall, "pods_per_s": pods / wall, "spans": spans, "routes": routes,
+                "launches": n_pop, "probe_calls": calls, "probe_lanes": lanes, "digest": digest,
+            }
+            if label in ("timed", "warm"):
+                launches += n_pop
+    for path, (report_d, placement_d, unscheduled) in sc.APPLY_DIGESTS.items():
+        reset_name_rng()
+        dp.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        outcome = run_apply(SimonConfig.load(path), auto_plan=False, out=out, device="cuda")
+        wall = time.perf_counter() - t0
+        launches += dp.launches
+        got = (sc.report_digest(out.getvalue()), sc.report_digest(outcome.report),
+               placement_digest(outcome.result), len(outcome.result.unscheduled))
+        print(f"apply[{path}] {wall:.3f} s, {out.getvalue().splitlines()[-1]}, report "
+              f"{got[0]}, placement {got[2]}, unscheduled {got[3]}, domain_pop launches "
+              f"{dp.launches}", flush=True)
+        if got != (report_d, report_d, placement_d, unscheduled):
+            failures.append(f"apply {path}: {got} != {(report_d, report_d, placement_d, unscheduled)}")
+        results[f"apply/{path}"] = {"wall_s": wall, "launches": dp.launches}
+    if not captured:
+        failures.append("plan made no domain_pop call")
+    return results, failures, launches, captured[0] if captured else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
     opts = ap.parse_args()
 
+    import logging
+
     import torch
 
+    # the simulator's root spans log their trees when slower than 1 s; this
+    # script prints its own split
+    logging.getLogger("osim").setLevel(logging.ERROR)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -418,12 +540,20 @@ def main() -> int:
         return 1
     launches += sum(r["launches"] for r in routes.values())
 
+    # -- the simulator engine and simon apply -------------------------------
+    sim_results, failures, sim_launches, sim_pops = simulator_phase(torch, dp, fast)
+    if failures:
+        print("chip_smoke: simulator FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += sim_launches
+
     # -- kernels vs plain versions on the card -----------------------------
     main_args = captured[0]
     ms, plain_ms, err, placed = check_pop("main-path", main_args, dp, torch, reps=5)
     errs = [err]
     errs.append(check_pop(
         "spread_affinity-hard", route_captures["spread_affinity"], dp, torch, reps=5)[2])
+    errs.append(check_pop("simulator-plan", sim_pops, dp, torch, reps=3)[2])
     # name: (seed, Dc, L, D, G, hard, cap)
     for name, (seed, dc, lanes, d, g, hard, cap) in {
         "headline-hard": (7, 4, 26624, 4, 26624, True, None),
@@ -481,7 +611,8 @@ def main() -> int:
                 "pods_per_s": n_pods / run_s, "warm_phases": warm_phases,
                 "phase_s": phase_s, "phases": phases, "probe_cycles_per_pop": probe_cycles,
                 "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
-                "paths": paths, "digest": digest, "routes": routes, "kernels": kernel_rows,
+                "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
+                "kernels": kernel_rows,
             }, f, indent=1)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,227 @@
+"""The Applier: config → cluster/apps → simulate → report.
+
+Parity: upstream `pkg/apply/apply.go` (NewApplier/Run), as the JAX package's
+engine/apply.py ports it: builds the cluster from the config's custom
+config directory, renders each app (chart or manifest directory), runs the
+simulation on the caller's device and prints the report.
+
+Not ported yet: the add-node capacity search and the interactive add-node
+loop (ROADMAP.md Queue 1 item 8, engine/capacity.py), a real cluster through
+`kubeConfig`, the run journal and the watchdog. A run that would need the
+capacity search raises NotImplementedError instead of printing a partial
+answer; nothing falls back to another device.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import shutil
+import subprocess
+import sys
+from dataclasses import dataclass, field as dataclass_field
+from typing import List, Optional, TextIO
+
+from ..api.config import SimonConfig
+from ..core.objects import (
+    ANNO_NODE_LOCAL_STORAGE,
+    ANNO_WORKLOAD_KIND,
+    ANNO_WORKLOAD_NAME,
+    ANNO_WORKLOAD_NAMESPACE,
+    Node,
+)
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..utils import metrics
+from ..utils.tracing import span
+from ..utils.yamlio import json_files_by_stem, load_yaml_documents, objects_from_directory
+from .report import full_report
+from .simulator import AppResource, ClusterResource, SimulateResult, _not_ported, simulate
+
+
+class ApplyError(Exception):
+    pass
+
+
+def build_cluster(cfg: SimonConfig) -> ClusterResource:
+    if cfg.kube_config:
+        raise NotImplementedError(
+            "spec.cluster.kubeConfig (a real cluster snapshot) is not ported to "
+            "open_simulator_tpu_torch yet; use spec.cluster.customConfig"
+        )
+    objs = objects_from_directory(cfg.custom_config)
+    cluster = ClusterResource.from_objects(objs)
+    if not cluster.nodes:
+        raise ApplyError(f"no Node objects found under {cfg.custom_config}")
+    cluster.attach_local_storage(json_files_by_stem(cfg.custom_config))
+    return cluster
+
+
+def render_chart(path: str, name: str) -> List[dict]:
+    """Helm chart rendering (parity: chart.ProcessChart, pkg/chart/chart.go).
+
+    The built-in renderer (utils/chart.py) handles the Go-template subset
+    application charts use; charts beyond that subset go to a real
+    `helm template` binary when one is installed."""
+    from ..utils.chart import ChartError, process_chart
+
+    try:
+        return process_chart(path, release_name=name)
+    except ChartError as e:
+        helm = shutil.which("helm")
+        if helm is None:
+            raise ApplyError(
+                f"app {name}: built-in chart renderer: {e} (and no helm "
+                "binary is installed to fall back to; pre-render with "
+                "`helm template` and point the app path at the output)"
+            )
+        proc = subprocess.run(
+            [helm, "template", name, path], capture_output=True, text=True, check=False,
+        )
+        if proc.returncode != 0:
+            raise ApplyError(f"helm template failed for {name}: {proc.stderr.strip()}")
+        return load_yaml_documents(proc.stdout)
+
+
+@dataclass
+class FailedApp:
+    """An app whose chart/manifests could not be rendered; the remaining
+    apps still simulate."""
+
+    name: str
+    error: str
+
+
+def build_apps(
+    cfg: SimonConfig, failures: Optional[List[FailedApp]] = None
+) -> List[AppResource]:
+    """Render every app in the config. With `failures` supplied, an app whose
+    chart fails to render is recorded there and skipped; without it the first
+    render error raises."""
+    import yaml
+
+    apps = []
+    for app in cfg.app_list:
+        try:
+            if app.chart:
+                objects = render_chart(app.path, app.name)
+            else:
+                objects = objects_from_directory(app.path)
+        except (ApplyError, yaml.YAMLError, OSError, UnicodeDecodeError, ValueError) as e:
+            if failures is None:
+                if isinstance(e, ApplyError):
+                    raise
+                raise ApplyError(f"app {app.name}: {e}")
+            failures.append(FailedApp(name=app.name, error=str(e)))
+            continue
+        apps.append(AppResource(name=app.name, objects=objects))
+    return apps
+
+
+def load_new_node(cfg: SimonConfig) -> Optional[Node]:
+    if not cfg.new_node:
+        return None
+    objs = objects_from_directory(cfg.new_node)
+    nodes = [o for o in objs if o.get("kind") == "Node"]
+    if not nodes:
+        return None
+    # the reference supports exactly one candidate node
+    node = Node.from_dict(nodes[0])
+    info = json_files_by_stem(cfg.new_node).get(node.name)
+    if info is not None:
+        node.meta.annotations[ANNO_NODE_LOCAL_STORAGE] = info
+    return node
+
+
+@dataclass
+class ApplyOutcome:
+    result: SimulateResult
+    report: str = ""
+    failed_apps: List[FailedApp] = dataclass_field(default_factory=list)
+    device: str = ""   # the torch device the simulation ran on
+
+
+def placement_digest(result: SimulateResult) -> str:
+    """Stable digest of the workload→node assignment, keyed by (workload
+    kind/ns/name, node, replica count), not pod name: two runs produced the
+    same plan iff their digests match."""
+    counts: dict = {}
+    for st in result.node_status:
+        for p in st.pods:
+            ann = p.meta.annotations
+            wl = (
+                ann.get(ANNO_WORKLOAD_KIND, ""),
+                ann.get(ANNO_WORKLOAD_NAMESPACE, p.meta.namespace),
+                # standalone pods carry no workload annotation; their
+                # manifest name is already deterministic
+                ann.get(ANNO_WORKLOAD_NAME) or p.meta.name,
+                st.node.name,
+            )
+            counts[wl] = counts.get(wl, 0) + 1
+    blob = "\n".join("\t".join(k) + f"\t{n}" for k, n in sorted(counts.items()))
+    return hashlib.blake2b(blob.encode(), digest_size=8).hexdigest()
+
+
+def run_apply(
+    cfg: SimonConfig,
+    interactive: bool = False,
+    auto_plan: bool = True,
+    out: Optional[TextIO] = None,
+    scheduler_config: str = "",
+    use_greed: bool = False,
+    device=DEFAULT_DEVICE,
+) -> ApplyOutcome:
+    """Simulate the config's apps on its cluster on `device` (CUDA by
+    default) and print the report, then a `device:` line. With
+    `auto_plan=True` and pods left unscheduled while the config names a new
+    node, the reference searches for the node count; that search is not
+    ported and raises NotImplementedError."""
+    from ..models.profiles import load_scheduler_config
+
+    if interactive:
+        raise _not_ported("the interactive add-node loop", 8, "engine/capacity.py")
+    dev = resolve_device(device)
+    report_to_file = out is not None and out is not sys.stdout
+    out = out or sys.stdout
+
+    with span("build-cluster"):
+        cluster = build_cluster(cfg)
+    failed_apps: List[FailedApp] = []
+    with span("render-apps"):
+        apps = build_apps(cfg, failures=failed_apps)
+    if report_to_file:
+        # the report (with its FAILED APP lines) goes to the file, so
+        # surface render failures on the terminal too
+        for fa in failed_apps:
+            print(f"app {fa.name}: failed to render: {fa.error}", file=sys.stderr)
+    new_node = load_new_node(cfg)
+    sched_cfg = load_scheduler_config(scheduler_config)
+    result = simulate(
+        cluster, apps, profiles=sched_cfg.profiles, use_greed=use_greed,
+        extenders=sched_cfg.extenders, device=dev,
+    )
+    if result.unscheduled and new_node is not None and auto_plan:
+        raise _not_ported(
+            f"the capacity search ({len(result.unscheduled)} pod(s) unschedulable; "
+            "pass auto_plan=False / --no-auto-plan for the report alone)",
+            8, "engine/capacity.py",
+        )
+
+    with span("render-report"):
+        report = full_report(result)
+    if failed_apps:
+        report += "\n" + "\n".join(f"FAILED APP {fa.name}: {fa.error}" for fa in failed_apps)
+    outcome = "ok"
+    if result.unscheduled:
+        outcome = "unschedulable"
+    elif failed_apps:
+        outcome = "render_failed"
+    metrics.APPLY_RUNS.inc(outcome=outcome)
+    # color only live terminal output; the returned report and a report
+    # file stay plain text
+    display = report
+    if not report_to_file and getattr(out, "isatty", lambda: False)():
+        from ..utils.tables import colorize_report
+
+        display = colorize_report(report)
+    print(display, file=out)
+    print(f"device: {dev}", file=out)
+    return ApplyOutcome(result=result, report=report, failed_apps=failed_apps, device=str(dev))

@@ -794,6 +794,35 @@ def encode_pods(enc: Encoder, pods: Sequence[Pod]) -> PodBatch:
     return PodBatch(keys=b.keys, **expanded)
 
 
+def aggregate_gpu_usage(
+    nodes: Sequence[Node], placed: Sequence[Tuple[Pod, str]]
+) -> Dict[str, np.ndarray]:
+    """Per-node used-MiB-per-device arrays for already-bound GPU pods.
+
+    Only pods carrying a gpu-index annotation contribute, and only to devices
+    that exist (parity: addOrUpdatePod skips pods whose annotation is missing
+    or unparseable, gpunodeinfo.go:122-140). The scheduler cache skips
+    Succeeded/Failed pods (deviceinfo.go:45-67)."""
+    by_name = {nd.name: nd for nd in nodes}
+    used: Dict[str, np.ndarray] = {}
+    for pod, node_name in placed:
+        mem_bytes = pod.gpu_mem_request()
+        if mem_bytes <= 0 or pod.phase in ("Succeeded", "Failed"):
+            continue
+        nd = by_name.get(node_name)
+        if nd is None or nd.gpu_count() <= 0:
+            continue
+        ids = pod.gpu_index_ids()
+        if not ids:
+            continue
+        mem = np.float32(mem_bytes / float(1 << 20))
+        arr = used.setdefault(node_name, np.zeros(nd.gpu_count(), np.float32))
+        for d in ids:
+            if 0 <= d < len(arr):
+                arr[d] += mem
+    return used
+
+
 def aggregate_usage(placed: Sequence[Tuple[Pod, str]]) -> Dict[str, Dict[str, int]]:
     """Canonical per-node request totals of already-bound pods, including the
     implicit 'pods' slot each pod occupies — feed this to encode_nodes so

@@ -66,6 +66,23 @@ FILTER_MESSAGES = (
     "node(s) were rejected by an out-of-tree filter plugin",
 )
 
+# kube Filter plugin name -> filter index, for scheduler-config enable/disable
+# lists (models/profiles.py). The default provider's volume filters
+# (VolumeBinding, VolumeRestrictions, NodeVolumeLimits, VolumeZone) are inert
+# in the reference, which rewrites every PVC volume to hostPath before any
+# pod reaches the scheduler; configs naming them parse, and toggling them is
+# a no-op.
+FILTER_PLUGIN_MAP = {
+    "NodeUnschedulable": F_UNSCHEDULABLE,
+    "NodeName": F_NODE_NAME,
+    "TaintToleration": F_TAINT,
+    "NodeAffinity": F_NODE_AFFINITY,
+    "NodePorts": F_NODE_PORTS,
+    "NodeResourcesFit": F_RESOURCES,
+    "PodTopologySpread": F_SPREAD,
+    "InterPodAffinity": F_POD_AFFINITY,
+}
+
 # Score weights: the default v1beta1 provider weights plus Simon at weight 1.
 DEFAULT_WEIGHTS = {
     "balanced_allocation": 1.0,

@@ -13,7 +13,15 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from .encode import Encoder, NodeTable, PodBatch, anti_table_size, round_up
+from .encode import (
+    Encoder,
+    NodeTable,
+    PodBatch,
+    anti_table_size,
+    port_table_sizes,
+    round_up,
+    selector_table_size,
+)
 from .kernels import Carry, NodeStatic, PodRow
 
 
@@ -95,3 +103,35 @@ def pod_rows_from_batch(batch: PodBatch, device=DEFAULT_DEVICE) -> PodRow:
     attributes of the same name."""
     dev = resolve_device(device)
     return PodRow(**{f: _t(getattr(batch, f), dev) for f in PodRow._fields})
+
+
+def _grow_rows(arr: torch.Tensor, rows: int) -> torch.Tensor:
+    old, n = arr.shape
+    if rows <= old:
+        return arr
+    out = torch.zeros((rows, n), dtype=arr.dtype, device=arr.device)
+    out[:old] = arr
+    return out
+
+
+def align_carry(carry: Carry, enc: Encoder, ns: NodeStatic) -> Tuple[Carry, NodeStatic]:
+    """Grow the selector/port/anti row axes when a later batch registered
+    new entries, keeping the counts so far in place (ids are append-only),
+    and refresh NodeStatic.anti_topo when its content is stale, not only its
+    shape: the 0-term pad state and the 1-term state share shape (1,).
+    Returns the same carry / ns objects when nothing changed."""
+    pid, pip = port_table_sizes(enc)
+    new = {
+        "sel_counts": _grow_rows(carry.sel_counts, selector_table_size(enc)),
+        "port_any": _grow_rows(carry.port_any, pid),
+        "port_wild": _grow_rows(carry.port_wild, pid),
+        "port_ipc": _grow_rows(carry.port_ipc, pip),
+        "anti_counts": _grow_rows(carry.anti_counts, anti_table_size(enc)),
+    }
+    if any(v is not getattr(carry, k) for k, v in new.items()):
+        carry = carry._replace(**new)
+    want = anti_topo_array(enc)
+    have = ns.anti_topo.cpu().numpy()
+    if have.shape != want.shape or not np.array_equal(have, want):
+        ns = ns._replace(anti_topo=_t(want, ns.anti_topo.device))
+    return carry, ns

@@ -1,0 +1,153 @@
+"""Scheduler metrics: labeled counters and histograms.
+
+The port's copy of the JAX package's registry, cut to the metrics the
+simulator, preemption and apply paths increment (kube-scheduler names under
+the `osim_` prefix). No Prometheus exposition: the port has no server yet.
+
+    osim_e2e_scheduling_duration_seconds  -> scheduler_e2e_scheduling_duration_seconds
+    osim_pod_scheduling_attempts_total    -> scheduler_pod_scheduling_attempts
+    osim_schedule_result_total{result=}   -> scheduler_schedule_attempts_total{result=}
+    osim_filter_failure_total{reason=}    -> per-plugin unschedulable counts
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Sequence, Tuple
+
+# kube-scheduler's e2e duration buckets: exponential from 1 ms, factor 2,
+# 15 buckets (1 ms .. ~16 s)
+DEFAULT_BUCKETS: Tuple[float, ...] = tuple(0.001 * 2 ** i for i in range(15))
+
+
+class Counter:
+    """One metric family; one float per label-value tuple."""
+
+    def __init__(self, name: str, help: str, labelnames: Sequence[str] = ()) -> None:
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._values: Dict[Tuple[str, ...], float] = {}
+
+    def _key(self, labels: Dict[str, str]) -> Tuple[str, ...]:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: labels {sorted(labels)} != declared {sorted(self.labelnames)}"
+            )
+        return tuple(str(labels[n]) for n in self.labelnames)
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        if amount < 0:
+            raise ValueError(f"{self.name}: counters cannot decrease")
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: str) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+
+class Histogram:
+    """Bucketed observations per label tuple."""
+
+    def __init__(
+        self, name: str, help: str, labelnames: Sequence[str] = (),
+        buckets: Sequence[float] = DEFAULT_BUCKETS,
+    ) -> None:
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self.buckets = tuple(sorted(float(b) for b in buckets)) + (math.inf,)
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], list] = {}   # [counts, sum, count]
+
+    def observe(self, value: float, **labels: str) -> None:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(f"{self.name}: labels {sorted(labels)} != declared")
+        key = tuple(str(labels[n]) for n in self.labelnames)
+        value = float(value)
+        idx = next(i for i, ub in enumerate(self.buckets) if value <= ub)
+        with self._lock:
+            child = self._children.setdefault(key, [[0] * len(self.buckets), 0.0, 0])
+            child[0][idx] += 1
+            child[1] += value
+            child[2] += 1
+
+    def child_state(self, **labels: str) -> Tuple[List[int], float, int]:
+        """(cumulative bucket counts, sum, count) of one label tuple."""
+        key = tuple(str(labels[n]) for n in self.labelnames)
+        with self._lock:
+            counts, total, n = self._children.get(key, [[0] * len(self.buckets), 0.0, 0])
+            cum, running = [], 0
+            for c in counts:
+                running += c
+                cum.append(running)
+            return cum, total, n
+
+
+E2E_SCHEDULING = Histogram(
+    "osim_e2e_scheduling_duration_seconds",
+    "End-to-end simulate() duration (root span), seconds.",
+)
+ENCODE_DURATION = Histogram(
+    "osim_encode_duration_seconds",
+    "Pod/cluster -> device-tensor encode duration, seconds.",
+)
+SPAN_DURATION = Histogram(
+    "osim_span_duration_seconds",
+    "Duration of every tracing span, by span name, seconds.",
+    labelnames=("span",),
+)
+SCHEDULING_ATTEMPTS = Counter(
+    "osim_pod_scheduling_attempts_total",
+    "Pods entering a scheduling pass (preemption retries count again).",
+)
+SCHEDULE_RESULT = Counter(
+    "osim_schedule_result_total",
+    "Final scheduling outcomes: scheduled, unscheduled, or preempted "
+    "(victims evicted by a committed preemption).",
+    labelnames=("result",),
+)
+EXPAND_CACHE = Counter(
+    "osim_expand_cache_total",
+    "Workload expand-cache lookups inside simulate().",
+    labelnames=("event",),
+)
+FILTER_FAILURE = Counter(
+    "osim_filter_failure_total",
+    "Per-(pod,node) filter rejections for pods that failed to schedule, "
+    "by kube failure-reason string.",
+    labelnames=("reason",),
+)
+PREEMPTION_ATTEMPTS = Counter(
+    "osim_preemption_attempts_total",
+    "Preemption attempts for unscheduled pods, by outcome.",
+    labelnames=("outcome",),
+)
+PROBE_LANES = Counter(
+    "osim_preemption_probe_lanes_total",
+    "Post-eviction node states evaluated by the batched device probe "
+    "(Simulator._device_fits_many), and the probe calls that carried them.",
+    labelnames=("unit",),
+)
+APPLY_RUNS = Counter(
+    "osim_apply_total",
+    "simon-apply runs, by outcome.",
+    labelnames=("outcome",),
+)
+
+# span names with a dedicated kube-parity histogram
+_SPAN_HISTOGRAMS = {"simulate": E2E_SCHEDULING, "encode": ENCODE_DURATION}
+
+
+def observe_span(name: str, seconds: float) -> None:
+    """Feed one finished tracing span into the histograms (called by
+    tracing.span for every span; metrics never imports tracing)."""
+    dedicated = _SPAN_HISTOGRAMS.get(name)
+    if dedicated is not None:
+        dedicated.observe(seconds)
+    SPAN_DURATION.observe(seconds, span=name)

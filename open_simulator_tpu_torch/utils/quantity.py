@@ -81,3 +81,33 @@ def parse_quad(s: str) -> tuple:
         int(math.ceil(b)),
         int(math.floor(b)),
     )
+
+
+def parse_milli(value) -> int:
+    """Parse a quantity and return it in milli-units, rounding up (cpu)."""
+    if isinstance(value, str):
+        return parse_quad(value)[0]
+    return int(math.ceil(parse_quantity(value) * 1000))
+
+
+def parse_int(value) -> int:
+    """Parse a quantity and return the integer base value, rounding up."""
+    if isinstance(value, str):
+        return parse_quad(value)[2]
+    return int(math.ceil(parse_quantity(value)))
+
+
+def format_milli(milli: int) -> str:
+    """Render a milli-quantity the way kubectl does (e.g. 1500m, 2)."""
+    if milli % 1000 == 0:
+        return str(milli // 1000)
+    return f"{milli}m"
+
+
+def format_bytes(n: int) -> str:
+    """Render bytes with the largest clean binary suffix (parity with kubectl)."""
+    for suffix in ("Ei", "Pi", "Ti", "Gi", "Mi", "Ki"):
+        unit = _BINARY[suffix]
+        if n != 0 and n % unit == 0:
+            return f"{n // unit}{suffix}"
+    return str(n)

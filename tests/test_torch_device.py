@@ -107,7 +107,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_port_import_loads_no_jax():
     code = (
         "import sys, open_simulator_tpu_torch.headline, open_simulator_tpu_torch.interop, "
-        "open_simulator_tpu_torch.ops.fast\n"
+        "open_simulator_tpu_torch.ops.fast, open_simulator_tpu_torch.engine.simulator, "
+        "open_simulator_tpu_torch.engine.apply, open_simulator_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'open_simulator_tpu' or m.startswith('open_simulator_tpu.')]\n"
         "assert not bad, bad\n"
@@ -179,3 +180,17 @@ def test_kernel_wrapper_checks_exactness_limits(monkeypatch):
     args[-3] = dp.EXACT  # group_size: C * G counts past 2^24
     with pytest.raises(ValueError, match="2\\^24"):
         dp.domain_pop(*args)
+
+
+def test_simulator_path_imports_without_yaml():
+    """The card's machine need not have PyYAML: the simulator, the apply
+    module and the sim configs import without it (YAML is read only when a
+    config file is loaded)."""
+    code = (
+        "import sys\nsys.modules['yaml'] = None\n"
+        "import open_simulator_tpu_torch.engine.simulator, open_simulator_tpu_torch.engine.apply\n"
+        "import open_simulator_tpu_torch.sim_configs, open_simulator_tpu_torch.cli\n"
+        "from open_simulator_tpu_torch.models import profiles\n"
+        "assert profiles.load_scheduler_config('').profiles\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

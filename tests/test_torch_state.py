@@ -185,7 +185,7 @@ def test_build_trajectory_matches(both, template, pruned):
     "F_UNSCHEDULABLE", "F_NODE_NAME", "F_TAINT", "F_NODE_AFFINITY", "F_NODE_PORTS",
     "F_RESOURCES", "F_SPREAD", "F_POD_AFFINITY", "F_STORAGE", "F_GPU", "F_EXTRA",
     "NUM_FILTERS", "FILTER_MESSAGES", "DEFAULT_WEIGHTS", "WEIGHT_ORDER", "_EPS",
-    "HOSTNAME_KEY_IDX",
+    "HOSTNAME_KEY_IDX", "FILTER_PLUGIN_MAP",
 ])
 def test_kernel_constants_tripwire(name):
     assert getattr(tkern, name) == getattr(jkern, name)
@@ -203,3 +203,56 @@ def test_weights_array_matches():
     np.testing.assert_array_equal(
         np.asarray(jkern.weights_array()), tkern.weights_array(device="cpu").numpy()
     )
+
+
+@pytest.mark.parametrize("name", [
+    "ANNO_WORKLOAD_KIND", "ANNO_WORKLOAD_NAME", "ANNO_WORKLOAD_NAMESPACE", "ANNO_GPU_INDEX",
+    "ANNO_NODE_LOCAL_STORAGE", "ANNO_POD_LOCAL_STORAGE", "LABEL_NEW_NODE", "DEFAULT_SCHEDULER",
+])
+def test_object_constants_tripwire(name):
+    assert getattr(tobj, name) == getattr(jobj, name)
+
+
+def test_name_rng_tripwire():
+    """Generated pod names (and every simulator digest) depend on the name
+    RNG drawing the reference's sequence."""
+    from open_simulator_tpu.core import workloads as jwl
+    from open_simulator_tpu_torch.core import workloads as twl
+
+    assert twl.NAME_RNG_SEED == jwl.reset_name_rng.__defaults__[0] == 0x51B0
+    jwl.reset_name_rng()
+    twl.reset_name_rng()
+    assert [twl._rand_suffix() for _ in range(50)] == [jwl._rand_suffix() for _ in range(50)]
+    assert twl.WORKLOAD_KINDS == jwl.WORKLOAD_KINDS
+
+
+def test_align_carry_matches_jax():
+    """align_carry grows the row axes in place, refreshes anti_topo on a
+    content change, and keeps identity when nothing changed."""
+    nodes, pods = rich_dicts()
+    anti = {
+        "metadata": {"name": "anti", "namespace": "s", "labels": {"app": "anti"}},
+        "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": "1"}}}],
+                 "affinity": {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+                     {"labelSelector": {"matchLabels": {"app": "anti"}},
+                      "topologyKey": "topology.kubernetes.io/zone"}]}}},
+    }
+    out = []
+    for objs, enc_mod, st, kw in ((jobj, jenc, jstate, {}), (tobj, tenc, tstate, {"device": "cpu"})):
+        enc, table, _ = encode(objs, enc_mod, nodes, pods)
+        ns = st.node_static_from_table(enc, table, **kw)
+        carry = st.carry_from_table(table, enc_mod.initial_selector_counts(enc, table, []), **kw)
+        same = st.align_carry(carry, enc, ns)
+        assert same[0] is carry and same[1] is ns
+        enc.register_pods([objs.Pod.from_dict(anti)] + [objs.Pod.from_dict(
+            {"metadata": {"name": f"p{i}", "namespace": "s", "labels": {f"k{i}": "v"}},
+             "spec": {"containers": [{"name": "c"}], "topologySpreadConstraints": [{
+                 "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+                 "whenUnsatisfiable": "DoNotSchedule",
+                 "labelSelector": {"matchLabels": {f"k{i}": "v"}}}]}}) for i in range(12)])
+        out.append(st.align_carry(carry, enc, ns))
+    (jc, jns), (tc, tns) = out
+    assert tc.sel_counts.shape[0] > 8 and tc.anti_counts.shape[0] >= 2
+    leaves_equal(jc._asdict(), interop.to_host_leaves(tc), jc._fields)
+    np.testing.assert_array_equal(np.asarray(jns.anti_topo), tns.anti_topo.numpy())
+    assert (tns.anti_topo.numpy() >= 0).any()
