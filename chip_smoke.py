@@ -29,17 +29,32 @@
    example configs through `run_apply(auto_plan=False)`, held against the
    JAX report digest (text without its `device:` line) and placement
    digest.
-5. Holds every kernel against its plain PyTorch version on the card, on the
+5. Drives the capacity search (`engine/capacity.py`), the scenario axis and
+   the wave commit engine: `plan_capacity` on `sim_configs.plan_spec()`
+   (100,000 pods x 10,000 nodes, the 32 cpu / 64Gi template) serially, with
+   each probe's wall and spans and one domain_pop launch per simulate();
+   plan_small serially and in auto mode (batched; on the card the wave
+   engine), with its waves, rounds per wave, conflicts and fallbacks;
+   plan_full's first ladder sweep at its lanes and node bucket: 1,024 pods
+   through the wave driver at its default knobs and through the lane-batched
+   scan (both timed, every wave round split into its probe and its replay),
+   then 256 pods in waves of 16 pods, which must all converge and be adopted,
+   bit-equal to the scan on the same pods; capacity_sweep in every mode;
+   multi_scenario's 64 lanes through `simulate_batch`; the quickstart
+   config through `run_apply(auto_plan=True)`. Every result is held against
+   the JAX package's constants in `sim_configs`.
+6. Holds every kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it, on those of spread_affinity's DoNotSchedule
    group and of the simulator's plan call, and on extra seeded variants, and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
    pairs).
-6. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+7. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-7. Prints one JSON line of per-kernel numbers (launches summed over the
+8. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
-   preempt call and the apply runs) and, last, the result line.
+   preempt call, the apply runs and the capacity phase) and, last, the
+   result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -430,6 +445,364 @@ def simulator_phase(torch, dp, fast):
     return results, failures, launches, captured[0] if captured else None
 
 
+def _new_roots(tracing, before):
+    """Root span trees recorded since `before` (a recent_timings() list)."""
+    seen = {id(t) for t in before}
+    return [t for t in tracing.recent_timings() if id(t) not in seen]
+
+
+def _wave_counters(metrics):
+    return {
+        "waves": metrics.PLAN_CHUNKS.value(),
+        "rounds_n": metrics.COMMIT_ROUNDS.child_state()[2],
+        "rounds_sum": metrics.COMMIT_ROUNDS.child_state()[1],
+        "conflicts": metrics.WAVE_CONFLICTS.value(),
+        "fallbacks": metrics.WAVE_FALLBACKS.value(reason="max_rounds"),
+    }
+
+
+class RoundClock:
+    """Times every wave round on the card and splits it into its probe and
+    its replay (the row commits and the prefix-carry stack): wraps
+    fast.schedule_wave (a round ends synced anyway, the driver fetches its
+    choices) and the probe that wave._probe_lanes builds, synced before and
+    after each probe call. Counts rounds per wave (a wave is one input
+    carry). A round whose probe time is negative or longer than the round
+    itself is a broken split: `bad` lists them and the phase fails."""
+
+    def __init__(self, fast, wave, torch):
+        self.fast, self.wave, self.torch = fast, wave, torch
+        self.real_round, self.real_probe = fast.schedule_wave, wave._probe_lanes
+        self.rounds: list = []        # (wave number, pods in the wave, round s, probe s)
+        self.waves = 0
+        self.bad: list = []
+
+    def __enter__(self):
+        last = [None]
+        probe_s = [0.0]
+        sync = self.torch.cuda.synchronize
+
+        def probe_lanes(*args, **kw):
+            probe = self.real_probe(*args, **kw)
+
+            def timed(*a):
+                sync()
+                t0 = time.perf_counter()
+                out = probe(*a)
+                sync()
+                probe_s[0] += time.perf_counter() - t0
+                return out
+
+            return timed
+
+        def timed_round(ns, carry_s, pods, *args, **kw):
+            # rounds of one wave share its input carry object; the next
+            # wave starts from another (the adopted exit carry)
+            if carry_s is not last[0]:
+                self.waves += 1
+                last[0] = carry_s
+            probe_s[0] = 0.0
+            t0 = time.perf_counter()
+            out = self.real_round(ns, carry_s, pods, *args, **kw)
+            sync()
+            rec = (self.waves, int(pods.req.shape[0]), time.perf_counter() - t0, probe_s[0])
+            if not 0.0 <= rec[3] <= rec[2]:
+                self.bad.append(f"wave {rec[0]}: probe {rec[3]:.6f} s in a {rec[2]:.6f} s round")
+            self.rounds.append(rec)
+            return out
+
+        self.fast.schedule_wave = timed_round
+        self.wave._probe_lanes = probe_lanes
+        return self
+
+    def __exit__(self, *exc):
+        self.fast.schedule_wave = self.real_round
+        self.wave._probe_lanes = self.real_probe
+
+    def per_wave(self):
+        counts: dict = {}
+        for key, *_ in self.rounds:
+            counts[key] = counts.get(key, 0) + 1
+        return list(counts.values())
+
+    def summary(self) -> dict:
+        """Rounds per wave, and per round its wall, its probe and the
+        replay's time per pod step (the round less its probe, over W)."""
+        per_wave, n = self.per_wave(), len(self.rounds)
+        return {
+            "waves": len(per_wave), "rounds": per_wave,
+            "rounds_mean": sum(per_wave) / len(per_wave), "rounds_max": max(per_wave),
+            "round_ms_mean": sum(r[2] for r in self.rounds) / n * 1e3,
+            "probe_ms_per_round": sum(r[3] for r in self.rounds) / n * 1e3,
+            "replay_us_per_step": sum((r[2] - r[3]) / r[1] for r in self.rounds) / n * 1e6,
+        }
+
+    def line(self) -> str:
+        s = self.summary()
+        return (f"{s['waves']} waves, rounds per wave mean {s['rounds_mean']:.2f} max "
+                f"{s['rounds_max']}, {s['round_ms_mean']:.1f} ms per round: probe "
+                f"{s['probe_ms_per_round']:.1f} ms, replay {s['replay_us_per_step']:.1f} us "
+                f"per step")
+
+
+def plan_once(torch, dp, fast, spec, mode, label):
+    """One plan_capacity on the card of freshly built inputs after
+    reset_name_rng(), counts set to 0 just before it. Prints wall, attempts,
+    batched sweeps, the wave counters and each probe's wall and spans;
+    returns (key tuple, wall, domain_pop launches, stats)."""
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.core.objects import Node
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.capacity import plan_capacity
+    from open_simulator_tpu_torch.ops import wave
+    from open_simulator_tpu_torch.utils import metrics, tracing
+
+    reset_name_rng()
+    cluster, apps = sc._port_build(spec)
+    template = Node.from_dict(sc.template_spec())
+    for k in fast.PATH_COUNTS:
+        fast.PATH_COUNTS[k] = 0
+    dp.launches = 0
+    before, roots0 = _wave_counters(metrics), tracing.recent_timings()
+    clock = RoundClock(fast, wave, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with clock:
+        plan = plan_capacity(cluster, apps, template, sweep_mode=mode, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = _wave_counters(metrics)
+    d = {k: after[k] - before[k] for k in after}
+    key = (plan.nodes_added, plan.attempts, plan.batched_calls, sc.result_digest(plan.result))
+    roots = _new_roots(tracing, roots0)
+    stats = {"wall_s": wall, "key": list(key), "launches": dp.launches,
+             "sims": sum(r["name"] == "capacity-probe" for r in roots),
+             "sweeps": sum(r["name"] == "capacity-sweep" for r in roots), **d}
+    print(f"capacity[{label}] {mode}: wall {wall:.3f} s, nodes_added {key[0]}, attempts "
+          f"{key[1]}, batched_calls {key[2]}, digest {key[3]}, simulate() calls "
+          f"{stats['sims']}, sweeps {stats['sweeps']}, domain_pop launches {dp.launches}",
+          flush=True)
+    shown = ("expand-workloads", "encode-cluster", "encode", "schedule", "bind",
+             "schedule-scenarios", "decode-result")
+    for r in roots:
+        spans = tracing.span_seconds(r)
+        meta = r.get("meta", {})
+        print(f"capacity[{label}]   {r['name']} {meta}: {r['duration_s']:.3f} s; " + ", ".join(
+            f"{k} {spans[k]:.3f}" for k in shown if k in spans), flush=True)
+    stats["clock_bad"] = clock.bad
+    if clock.rounds:
+        stats.update(clock.summary())
+        print(f"capacity[{label}] wave engine: {clock.line()}; {int(d['conflicts'])} "
+              f"conflicts, {int(d['fallbacks'])} max-rounds fallbacks", flush=True)
+    return key, wall, dp.launches, stats
+
+
+def wave_width_check(torch, fast, spec, n_pods=1024, n_converge=256, converge_wave=16):
+    """plan_full's first ladder sweep at its lanes (6, padded to 8) and node
+    bucket, run twice through the wave driver, each against the lane-batched
+    serial scan on the same pods (every output and the carry digest
+    bit-equal):
+    - timing: the first `n_pods` pods (4 waves of 256) at the default knobs,
+      each engine timed, every wave round split into its probe and its
+      replay. Here every wave runs the 24-round budget and falls back to the
+      scan, so its outputs are the scan's own: this run times the rounds;
+    - convergence: the first `n_converge` pods in waves of `converge_wave`
+      (OSIM_WAVE_SIZE; a wave reaches its fixpoint within W + 1 rounds, under
+      the budget), so every wave's outputs and exit carry are the probe's and
+      the replay's. No wave may fall back."""
+    import contextlib
+    import os
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.core.objects import Node
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.capacity import (
+        LADDER_LANES, _TrialReuse, lower_bound_nodes,
+    )
+    from open_simulator_tpu_torch.ops.fast import scenario_bucket
+    from open_simulator_tpu_torch.engine.simulator import Simulator, simulate
+    from open_simulator_tpu_torch.ops import wave
+    from open_simulator_tpu_torch.ops.encode import encode_pods, node_bucket
+    from open_simulator_tpu_torch.ops.state import stack_carry
+    from open_simulator_tpu_torch.utils import metrics
+
+    reset_name_rng()
+    cluster, apps = sc._port_build(spec)
+    template = Node.from_dict(sc.template_spec())
+    n_base = len(cluster.nodes)
+    base = simulate(cluster, apps, device="cuda")
+    k = lower_bound_nodes(base, template)
+    ladder = [k << i for i in range(LADDER_LANES) if k << i <= 1 << 14]
+    n_pad = node_bucket(n_base + ladder[-1])
+    reset_name_rng()
+    cluster, apps = sc._port_build(spec)
+    trial = type(cluster)(nodes=list(cluster.nodes) + _TrialReuse(template, n_base).fakes(ladder[-1]))
+    sim = Simulator(trial, n_pad=n_pad, device="cuda")
+    app_pods = sim._expand_apps(apps)
+    sim._build_device_state([p for pods in app_pods for p in pods])
+    table_valid = sim._table.valid
+    valid = []
+    for c in ladder:
+        v = table_valid.copy()
+        v[n_base + c:] = False
+        valid.append(v)
+    s = len(ladder)
+    s_pad = scenario_bucket(s)
+    valid += [valid[0]] * (s_pad - s)   # pad lanes copy lane 0, as run_scenarios does
+    valid_s = torch.from_numpy(np.stack(valid)).cuda()
+    weights_s = sim.weights[None].repeat(s_pad, 1)
+
+    def run(batch, knobs, clock=None):
+        saved = {v: os.environ.get(v) for v in
+                 ("OSIM_WAVE_COMMIT", "OSIM_WAVE_SIZE", "OSIM_COMMIT_CHUNK")}
+        for v in saved:
+            os.environ.pop(v, None)
+        os.environ.update(knobs)
+        before = _wave_counters(metrics)
+        try:
+            carry_s = stack_carry(sim._carry, s_pad)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with clock or contextlib.nullcontext():
+                out = fast.schedule_scenarios_host(sim._ns, carry_s, batch, weights_s, valid_s, s)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            for v, old in saved.items():
+                if old is None:
+                    os.environ.pop(v, None)
+                else:
+                    os.environ[v] = old
+        after = _wave_counters(metrics)
+        counts = {c: after[c] - before[c] for c in ("waves", "fallbacks")}
+        return (fast.scenario_carry_digest(out[0]),) + tuple(out[1:]), secs, counts
+
+    def same(a, b):
+        return a[0] == b[0] and all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+    pods = app_pods[0][:n_pods]
+    batch = encode_pods(sim.enc, pods)
+    clock = RoundClock(fast, wave, torch)
+    got_w, wave_s, counts_w = run(batch, {"OSIM_WAVE_COMMIT": "1"}, clock)
+    got_s, scan_s, _ = run(batch, {"OSIM_WAVE_COMMIT": "0"})
+    stats = {
+        "nodes": n_base, "n_pad": n_pad, "lanes": s, "s_pad": s_pad, "ladder": ladder,
+        "pods": n_pods, "wave_s": wave_s, "scan_s": scan_s, "equal": same(got_w, got_s),
+        "fallbacks": int(counts_w["fallbacks"]), "scan_us_per_pod": scan_s / n_pods * 1e6,
+        **clock.summary(), "placed": int((got_s[1] >= 0).sum()),
+    }
+    print(f"wave[full width] timing, {n_pods} pods x {s} lanes ({s_pad} padded) x {n_pad} "
+          f"node rows (ladder {ladder}): wave driver {wave_s:.3f} s ({clock.line()}; rounds "
+          f"{stats['rounds']}; {stats['fallbacks']} of {stats['waves']} waves fell back to the "
+          f"scan), lane-batched scan {scan_s:.3f} s ({stats['scan_us_per_pod']:.0f} us per "
+          f"pod), {stats['placed']} (pod, lane) placed, "
+          f"{'bit-equal' if stats['equal'] else 'DIFFERENT'}", flush=True)
+
+    batch = encode_pods(sim.enc, pods[:n_converge])
+    clock_c = RoundClock(fast, wave, torch)
+    got_w, wave_s, counts = run(
+        batch, {"OSIM_WAVE_COMMIT": "1", "OSIM_WAVE_SIZE": str(converge_wave)}, clock_c)
+    got_s, scan_s, _ = run(batch, {"OSIM_WAVE_COMMIT": "0"})
+    conv = {"pods": n_converge, "wave": converge_wave, "wave_s": wave_s, "scan_s": scan_s,
+            "waves": int(counts["waves"]), "fallbacks": int(counts["fallbacks"]),
+            "adopted": int(counts["waves"] - counts["fallbacks"]),
+            "equal": same(got_w, got_s), **clock_c.summary(),
+            "placed": int((got_s[1] >= 0).sum())}
+    stats["converge"] = conv
+    stats["clock_bad"] = clock.bad + clock_c.bad
+    print(f"wave[full width] convergence, {n_converge} pods in waves of {converge_wave}: "
+          f"wave driver {wave_s:.3f} s ({clock_c.line()}; rounds {conv['rounds']}), "
+          f"{conv['adopted']} of {conv['waves']} waves adopted, {conv['fallbacks']} fell back; "
+          f"lane-batched scan {scan_s:.3f} s, {conv['placed']} (pod, lane) placed, "
+          f"{'bit-equal' if conv['equal'] else 'DIFFERENT'} (carry digest {got_w[0]:08x})",
+          flush=True)
+    return stats
+
+
+def capacity_phase(torch, dp, fast):
+    """The capacity search on the card: plan_full (100,000 pods x 10,000
+    nodes) serially, plan_small in auto mode (batched, the wave engine) and
+    serially, the wave engine against the lane-batched scan at plan_full's
+    first ladder width, capacity_sweep in every mode, multi_scenario's 64
+    lanes through simulate_batch, and the quickstart through
+    run_apply(auto_plan=True); every result held against the JAX package's
+    constants. Returns (results, failures, domain_pop launches)."""
+    import io
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.api.config import SimonConfig
+    from open_simulator_tpu_torch.core.objects import Node
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.apply import placement_digest, run_apply
+    from open_simulator_tpu_torch.engine.simulator import (
+        AppResource, ClusterResource, Scenario, simulate_batch,
+    )
+
+    results, failures, launches = {}, [], 0
+    for label, spec, mode, want in (
+        ("plan_full", sc.plan_spec(), "serial", "plan_full/serial"),
+        ("plan_small", sc.plan_spec(*sc.PLAN_SMALL), "auto", "plan_small/auto"),
+        ("plan_small", sc.plan_spec(*sc.PLAN_SMALL), "serial", "plan_small/serial"),
+        ("capacity_sweep", sc.capacity_sweep_spec(), "serial", "capacity_sweep/serial"),
+        ("capacity_sweep", sc.capacity_sweep_spec(), "batched", "capacity_sweep/batched"),
+        ("capacity_sweep", sc.capacity_sweep_spec(), "auto", "capacity_sweep/auto"),
+    ):
+        key, wall, n_pop, stats = plan_once(torch, dp, fast, spec, mode, label)
+        launches += n_pop
+        results[want] = stats
+        if key != sc.CAPACITY_DIGESTS[want]:
+            failures.append(f"{want}: {key} != {sc.CAPACITY_DIGESTS[want]}")
+        if label.startswith("plan") and mode == "serial" and n_pop != stats["sims"]:
+            failures.append(f"{want}: {n_pop} domain_pop launches for {stats['sims']} simulate() calls")
+        if label == "plan_small" and mode == "auto" and not stats.get("rounds_mean"):
+            failures.append("plan_small/auto: the wave engine never ran")
+        failures += [f"{want}: {b}" for b in stats["clock_bad"]]
+    results["wave_full_width"] = stats = wave_width_check(torch, fast, sc.plan_spec())
+    conv = stats["converge"]
+    if not stats["equal"]:
+        failures.append("wave driver and lane-batched scan differ at full width")
+    if not (conv["equal"] and conv["fallbacks"] == 0 and conv["adopted"] == conv["waves"] > 0):
+        failures.append(f"wave convergence run: {conv['adopted']} of {conv['waves']} waves "
+                        f"adopted, {conv['fallbacks']} fell back, equal to the scan: "
+                        f"{conv['equal']}")
+    failures += [f"wave[full width]: {b}" for b in stats["clock_bad"]]
+
+    reset_name_rng()
+    cluster, apps = sc._port_build(sc.multi_scenario_spec())
+    counts = sc.multi_scenario_counts()
+    scenarios = [Scenario(name=f"s-{i}", node_count=c) for i, c in enumerate(counts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = simulate_batch(cluster, apps, scenarios, device="cuda")
+    wall = time.perf_counter() - t0
+    bad = [i for i, (c, r) in enumerate(zip(counts, lanes))
+           if sc.result_digest(r) != sc.MULTI_SCENARIO_DIGESTS[c]]
+    print(f"multi_scenario {len(lanes)} lanes x 400 pods x 64 nodes: {wall:.3f} s, "
+          f"{len(lanes) / wall:.2f} scenarios/s, {len(lanes) - len(bad)} lane digests equal",
+          flush=True)
+    results["multi_scenario"] = {"wall_s": wall, "lanes_equal": len(lanes) - len(bad)}
+    if bad:
+        failures.append(f"multi_scenario: lanes {bad} differ")
+
+    reset_name_rng()
+    dp.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    outcome = run_apply(SimonConfig.load("example/simon-config.yaml"), out=out, device="cuda")
+    wall = time.perf_counter() - t0
+    launches += dp.launches
+    text = out.getvalue()
+    got = (sc.report_digest(text), placement_digest(outcome.result),
+           outcome.plan.nodes_added if outcome.plan else -1,
+           outcome.plan.attempts if outcome.plan else -1)
+    print(f"quickstart {wall:.3f} s: {text.splitlines()[1]!r}; report {got[0]}, placement "
+          f"{got[1]}, domain_pop launches {dp.launches}", flush=True)
+    results["quickstart"] = {"wall_s": wall, "launches": dp.launches}
+    if got != sc.QUICKSTART_DIGEST:
+        failures.append(f"quickstart: {got} != {sc.QUICKSTART_DIGEST}")
+    return results, failures, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -547,6 +920,13 @@ def main() -> int:
         return 1
     launches += sim_launches
 
+    # -- the capacity search, the scenario axis and the wave engine --------
+    cap_results, failures, cap_launches = capacity_phase(torch, dp, fast)
+    if failures:
+        print("chip_smoke: capacity FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += cap_launches
+
     # -- kernels vs plain versions on the card -----------------------------
     main_args = captured[0]
     ms, plain_ms, err, placed = check_pop("main-path", main_args, dp, torch, reps=5)
@@ -612,8 +992,8 @@ def main() -> int:
                 "phase_s": phase_s, "phases": phases, "probe_cycles_per_pop": probe_cycles,
                 "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
                 "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
-                "kernels": kernel_rows,
-            }, f, indent=1)
+                "capacity": cap_results, "kernels": kernel_rows,
+            }, f, indent=1, default=str)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

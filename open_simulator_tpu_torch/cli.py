@@ -2,12 +2,16 @@
 
     python -m open_simulator_tpu_torch.cli apply -f example/simon-config.yaml \\
         [--device cpu] [--output-file F] [--scheduler-config F] [--use-greed] \\
-        [--no-auto-plan]
+        [-i/--interactive] [--no-auto-plan]
 
 Runs on CUDA unless `--device` says otherwise, and fails without a card.
-Exit code 0 when every pod placed, 2 when some stayed unscheduled, 1 on an
-error. The add-node capacity search is not ported: a config whose pods do
-not all fit and that names a new node needs `--no-auto-plan`.
+When pods stay unscheduled and the config names a new node, the add-node
+capacity search runs (engine/capacity.py) and the report shows the planned
+cluster; `--interactive` runs the reference's add-node loop instead, and
+`--no-auto-plan` reports the unscheduled pods. Exit code 0 when every pod
+placed, 2 when some stayed unscheduled, 1 on an error, 3 when a simulation
+or sweep outlived OSIM_CALL_DEADLINE_S seconds: the CLI then exits, which
+ends the abandoned work with the process (the port has no CPU degrade).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="KubeSchedulerConfiguration YAML merged with simon's plugin set")
     p.add_argument("--use-greed", action="store_true",
                    help="order pods by descending dominant resource share first")
+    p.add_argument("-i", "--interactive", action="store_true",
+                   help="reference-style interactive add-node loop")
     p.add_argument("--no-auto-plan", action="store_true",
                    help="report unscheduled pods instead of searching for nodes")
     return ap
@@ -36,6 +42,7 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     from .api.config import SimonConfig
+    from .durable.watchdog import DeadlineExceeded
     from .engine.apply import ApplyError, run_apply
     from .utils.tracing import init_logging
 
@@ -45,7 +52,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         out = open(args.output_file, "w") if args.output_file else None
         try:
             outcome = run_apply(
-                cfg, auto_plan=not args.no_auto_plan, out=out,
+                cfg, interactive=args.interactive, auto_plan=not args.no_auto_plan, out=out,
                 scheduler_config=args.scheduler_config, use_greed=args.use_greed,
                 device=args.device,
             )
@@ -55,6 +62,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ApplyError, ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    except DeadlineExceeded as e:
+        print(f"error: {e}; abandoned", file=sys.stderr)
+        return 3
     return 0 if not outcome.result.unscheduled else 2
 
 

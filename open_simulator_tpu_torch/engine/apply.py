@@ -3,13 +3,15 @@
 Parity: upstream `pkg/apply/apply.go` (NewApplier/Run), as the JAX package's
 engine/apply.py ports it: builds the cluster from the config's custom
 config directory, renders each app (chart or manifest directory), runs the
-simulation on the caller's device and prints the report.
+simulation on the caller's device and, when pods stay unscheduled and the
+config names a new node, searches for the number of new nodes
+(engine/capacity.py) or runs the interactive add-node loop; then prints the
+report.
 
-Not ported yet: the add-node capacity search and the interactive add-node
-loop (ROADMAP.md Queue 1 item 8, engine/capacity.py), a real cluster through
-`kubeConfig`, the run journal and the watchdog. A run that would need the
-capacity search raises NotImplementedError instead of printing a partial
-answer; nothing falls back to another device.
+Not ported yet: a real cluster through `kubeConfig`, the run journal
+(ROADMAP.md Queue 1 item 13). Nothing falls back to another device: a
+watchdog deadline (OSIM_CALL_DEADLINE_S) reaches the caller as
+DeadlineExceeded.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..utils import metrics
 from ..utils.tracing import span
 from ..utils.yamlio import json_files_by_stem, load_yaml_documents, objects_from_directory
+from .capacity import CapacityPlan, new_fake_nodes, plan_capacity
 from .report import full_report
-from .simulator import AppResource, ClusterResource, SimulateResult, _not_ported, simulate
+from .simulator import AppResource, ClusterResource, SimulateResult, simulate
 
 
 class ApplyError(Exception):
@@ -134,6 +137,7 @@ def load_new_node(cfg: SimonConfig) -> Optional[Node]:
 @dataclass
 class ApplyOutcome:
     result: SimulateResult
+    plan: Optional[CapacityPlan] = None
     report: str = ""
     failed_apps: List[FailedApp] = dataclass_field(default_factory=list)
     device: str = ""   # the torch device the simulation ran on
@@ -160,27 +164,62 @@ def placement_digest(result: SimulateResult) -> str:
     return hashlib.blake2b(blob.encode(), digest_size=8).hexdigest()
 
 
+def select_apps(apps: List[AppResource], out: TextIO, input_fn) -> List[AppResource]:
+    """Interactive multi-select of the apps to deploy (parity: the survey
+    MultiSelect prompt, apply.go:173-195): comma-separated indices or names;
+    empty input deploys everything."""
+    if not apps:
+        return apps
+    print("applications:", file=out)
+    for i, app in enumerate(apps):
+        print(f"  [{i}] {app.name}", file=out)
+    raw = input_fn("deploy which apps? (comma list of numbers/names, empty = all) ")
+    raw = (raw or "").strip()
+    if not raw:
+        return apps
+    chosen: List[AppResource] = []
+    by_name = {a.name: a for a in apps}
+    for tok in raw.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if tok.isdigit() and int(tok) < len(apps):
+            app = apps[int(tok)]
+        elif tok in by_name:
+            app = by_name[tok]
+        else:
+            print(f"  ignoring unknown app {tok!r}", file=out)
+            continue
+        if app not in chosen:
+            chosen.append(app)
+    return chosen or apps
+
+
 def run_apply(
     cfg: SimonConfig,
     interactive: bool = False,
     auto_plan: bool = True,
     out: Optional[TextIO] = None,
+    input_fn=input,
     scheduler_config: str = "",
     use_greed: bool = False,
     device=DEFAULT_DEVICE,
 ) -> ApplyOutcome:
     """Simulate the config's apps on its cluster on `device` (CUDA by
-    default) and print the report, then a `device:` line. With
-    `auto_plan=True` and pods left unscheduled while the config names a new
-    node, the reference searches for the node count; that search is not
-    ported and raises NotImplementedError."""
+    default). When pods stay unscheduled and the config names a new node:
+    with `interactive`, the add-node loop (prompts through `input_fn`);
+    else with `auto_plan`, the capacity search, which prints the
+    reference's `N pod(s) unschedulable; searching ...` and `capacity plan:
+    add K x <node> (A simulations)` lines and reports the planned cluster.
+    Then the report and a `device:` line."""
+    from ..durable.watchdog import call_deadline_s, guarded_call
     from ..models.profiles import load_scheduler_config
 
-    if interactive:
-        raise _not_ported("the interactive add-node loop", 8, "engine/capacity.py")
     dev = resolve_device(device)
     report_to_file = out is not None and out is not sys.stdout
     out = out or sys.stdout
+    # interactive prompts stay on the terminal when the report goes to a file
+    ui_out = sys.stderr if report_to_file else out
 
     with span("build-cluster"):
         cluster = build_cluster(cfg)
@@ -191,19 +230,48 @@ def run_apply(
         # the report (with its FAILED APP lines) goes to the file, so
         # surface render failures on the terminal too
         for fa in failed_apps:
-            print(f"app {fa.name}: failed to render: {fa.error}", file=sys.stderr)
+            print(f"app {fa.name}: failed to render: {fa.error}", file=ui_out)
+    if interactive:
+        apps = select_apps(apps, ui_out, input_fn)
     new_node = load_new_node(cfg)
     sched_cfg = load_scheduler_config(scheduler_config)
-    result = simulate(
-        cluster, apps, profiles=sched_cfg.profiles, use_greed=use_greed,
-        extenders=sched_cfg.extenders, device=dev,
+    profiles = sched_cfg.profiles
+    extenders = sched_cfg.extenders
+    result = guarded_call(
+        "apply-simulate",
+        lambda: simulate(
+            cluster, apps, profiles=profiles, use_greed=use_greed,
+            extenders=extenders, device=dev,
+        ),
+        call_deadline_s(),
     )
-    if result.unscheduled and new_node is not None and auto_plan:
-        raise _not_ported(
-            f"the capacity search ({len(result.unscheduled)} pod(s) unschedulable; "
-            "pass auto_plan=False / --no-auto-plan for the report alone)",
-            8, "engine/capacity.py",
-        )
+    plan: Optional[CapacityPlan] = None
+    if result.unscheduled and new_node is not None:
+        if interactive:
+            result = _interactive_loop(
+                cluster, apps, new_node, result, ui_out, input_fn,
+                profiles=profiles, use_greed=use_greed, extenders=extenders, device=dev,
+            )
+        elif auto_plan:
+            print(
+                f"{len(result.unscheduled)} pod(s) unschedulable; "
+                f"searching for minimum copies of node {new_node.name}...",
+                file=out,
+            )
+            with span("capacity-search"):
+                plan = plan_capacity(
+                    cluster, apps, new_node, profiles=profiles, use_greed=use_greed,
+                    extenders=extenders, device=dev,
+                )
+            if plan is None:
+                print("capacity search failed: workload does not fit", file=out)
+            else:
+                print(
+                    f"capacity plan: add {plan.nodes_added} x {new_node.name} "
+                    f"({plan.attempts} simulations)",
+                    file=out,
+                )
+                result = plan.result
 
     with span("render-report"):
         report = full_report(result)
@@ -224,4 +292,45 @@ def run_apply(
         display = colorize_report(report)
     print(display, file=out)
     print(f"device: {dev}", file=out)
-    return ApplyOutcome(result=result, report=report, failed_apps=failed_apps, device=str(dev))
+    return ApplyOutcome(
+        result=result, plan=plan, report=report, failed_apps=failed_apps, device=str(dev),
+    )
+
+
+def _interactive_loop(
+    cluster: ClusterResource,
+    apps,
+    new_node: Node,
+    result: SimulateResult,
+    out: TextIO,
+    input_fn,
+    weights=None,
+    use_greed: bool = False,
+    profiles=None,
+    extenders=None,
+    device=DEFAULT_DEVICE,
+) -> SimulateResult:
+    """The reference's manual loop (apply.go:203-259): add one node, show
+    the reasons, or quit, re-simulating from scratch after each node."""
+    added = 0
+    while result.unscheduled:
+        print(f"{len(result.unscheduled)} pod(s) failed to schedule.", file=out)
+        choice = input_fn("[a]dd a new node, show [r]easons, or [q]uit? ").strip().lower()
+        if choice.startswith("r"):
+            for u in result.unscheduled:
+                print(f"  {u.pod.key}: {u.reason}", file=out)
+            continue
+        if not choice.startswith("a"):
+            break
+        added += 1
+        trial = ClusterResource(
+            nodes=list(cluster.nodes) + new_fake_nodes(new_node, added),
+            pods=list(cluster.pods),
+            daemonsets=list(cluster.daemonsets),
+            others=dict(cluster.others),
+        )
+        result = simulate(
+            trial, apps, weights=weights, use_greed=use_greed,
+            profiles=profiles, extenders=extenders, device=device,
+        )
+    return result

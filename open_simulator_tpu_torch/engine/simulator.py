@@ -15,10 +15,12 @@ Parity map (upstream → here):
 
 The device is the caller's (`device=`, CUDA by default; see
 `device.resolve_device`). Results are bit-identical to the JAX package's
-`simulate()` on the same inputs. Not ported yet, and refused with
+`simulate()` on the same inputs. The scenario axis (`Scenario`,
+`Simulator.run_scenarios`, `simulate_batch`, `ScenarioSession`) runs S
+what-if lanes over one shared node table in one batched sweep
+(ops/fast.py:schedule_scenarios_host). Not ported yet, and refused with
 NotImplementedError naming their ROADMAP.md Queue 1 item: a device mesh,
-scheduler extenders, resident cluster state, the capacity search's node
-padding / pre-encoded tables, and the scenario axis.
+scheduler extenders and resident cluster state.
 
 Pod ordering parity: core/ordering.py (AffinityQueue then TolerationQueue,
 plus the GreedQueue behind use_greed).
@@ -45,6 +47,7 @@ from ..core.objects import (
 )
 from ..core.ordering import order_pods
 from ..core.validation import check_nodes, check_pods
+from ..core import workloads
 from ..core.workloads import WORKLOAD_KINDS, pods_from_workload
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.encode import (
@@ -59,7 +62,7 @@ from ..ops.encode import (
     match_vector,
     resource_scale,
 )
-from ..ops.fast import schedule_batch_fast
+from ..ops.fast import scenario_bucket, schedule_batch_fast, schedule_scenarios_host
 from ..ops.kernels import (
     DEFAULT_WEIGHTS,
     FILTER_MESSAGES,
@@ -71,9 +74,11 @@ from ..ops.kernels import (
 )
 from ..ops.state import (
     align_carry,
+    align_carry_scenarios,
     carry_from_table,
     node_static_from_table,
     pod_rows_from_batch,
+    stack_carry,
 )
 from ..plugins import split_registry
 from ..utils import metrics
@@ -125,6 +130,61 @@ class AppResource:
     """One app: ordered list of decoded workload objects (core.go:47-51)."""
     name: str
     objects: List[dict] = field(default_factory=list)
+
+
+@dataclass
+class Scenario:
+    """One lane of a multi-scenario sweep (simulate_batch). Scenarios share
+    the cluster and app list; each lane varies the score weights and/or the
+    set of usable nodes. `node_count` keeps only the first N cluster nodes
+    (the capacity ladder's shape); `node_valid` is an explicit keep-mask over
+    cluster.nodes in order. At most one of the two may be set."""
+
+    name: str = ""
+    weights: Optional[dict] = None       # None = the sweep's default weights
+    node_count: Optional[int] = None
+    node_valid: Optional[Sequence[bool]] = None
+
+    def keep_mask(self, n_nodes: int) -> Optional[np.ndarray]:
+        """bool[n_nodes] keep-mask, or None when every node is usable."""
+        if self.node_count is not None and self.node_valid is not None:
+            raise ValueError("Scenario sets both node_count and node_valid")
+        if self.node_count is not None:
+            if not 0 <= self.node_count <= n_nodes:
+                raise ValueError(
+                    f"Scenario node_count {self.node_count} outside [0, {n_nodes}]"
+                )
+            if self.node_count == n_nodes:
+                return None
+            mask = np.zeros(n_nodes, bool)
+            mask[: self.node_count] = True
+            return mask
+        if self.node_valid is not None:
+            mask = np.asarray(list(self.node_valid), bool)
+            if mask.shape != (n_nodes,):
+                raise ValueError(
+                    f"Scenario node_valid has {mask.shape[0]} entries for {n_nodes} nodes"
+                )
+            return None if mask.all() else mask
+        return None
+
+
+@dataclass
+class ScenarioOutcome:
+    """Per-scenario verdict data of a non-materializing sweep
+    (run_scenarios(materialize=False)): what the capacity planner's good()
+    gate reads, without building S full SimulateResults."""
+
+    name: str
+    unscheduled: int
+    # totals mirroring satisfy_resource_setting's sums: allocatable over the
+    # scenario's nodes, requests over every bound pod (pre-bound + placed)
+    cpu_alloc: float = 0.0
+    cpu_req: float = 0.0
+    mem_alloc: float = 0.0
+    mem_req: float = 0.0
+    vg_cap: int = 0
+    vg_req: int = 0
 
 
 @dataclass
@@ -220,6 +280,14 @@ class Simulator:
         call runs (CUDA by default; raises when CUDA is asked for and
         absent).
 
+        `n_pad`: the node axis pads to this many rows (when it covers the
+        cluster) instead of the node_bucket rung, so every probe of a
+        capacity bisection shares one shape. `preencoded` ((Encoder,
+        NodeTable) or None): capacity-sweep reuse, an encoder and node table
+        the caller delta-updated to match `cluster.nodes` exactly
+        (capacity._TrialReuse), adopted instead of running encode_nodes; its
+        node axis must equal `n_pad`.
+
         `expand_cache` (dict or None): shared across repeated simulations of
         the SAME apps against varying node sets. Non-DaemonSet workload pods
         are expanded, patched and validated once, then rebound fresh on every
@@ -233,10 +301,6 @@ class Simulator:
         (WithPatchPodsFuncMap parity)."""
         if mesh is not None:
             raise _not_ported("a device mesh", 13, "durability + parallelism")
-        if n_pad is not None or preencoded is not None:
-            raise _not_ported(
-                "node padding / pre-encoded tables", 8, "engine/capacity.py"
-            )
         if extenders:
             raise _not_ported("scheduler extenders", 11, "extenders")
         if resident is not None:
@@ -280,7 +344,17 @@ class Simulator:
             )
         else:
             self._profiles = {DEFAULT_SCHEDULER: (self.weights, None)}
-        self.enc = Encoder(topology_keys=("kubernetes.io/hostname",))
+        self.n_pad = n_pad
+        self._preencoded = preencoded
+        if preencoded is not None:
+            if n_pad is None or preencoded[1].alloc.shape[0] != n_pad:
+                raise ValueError(
+                    "preencoded table node axis "
+                    f"{preencoded[1].alloc.shape[0]} must equal n_pad={n_pad}"
+                )
+            self.enc = preencoded[0]
+        else:
+            self.enc = Encoder(topology_keys=("kubernetes.io/hostname",))
         self._bound: List[Tuple[Pod, str]] = []   # (pod, node name)
         self._pending_cluster: List[Pod] = []
         for pod in cluster.pods:
@@ -323,12 +397,26 @@ class Simulator:
         self.enc.register_pods(list(all_pods))
         for pod, _ in self._bound:
             self.enc.register_pods([pod])
-        self._table = encode_nodes(
-            self.enc,
-            self.cluster.nodes,
-            existing_usage=aggregate_usage(self._bound),
-            existing_gpu=aggregate_gpu_usage(self.cluster.nodes, self._bound),
-        )
+        if self._preencoded is not None:
+            self._table = self._preencoded[1]
+            if len(self._table.names) != len(self.cluster.nodes):
+                raise ValueError(
+                    f"preencoded table holds {len(self._table.names)} rows "
+                    f"but the cluster has {len(self.cluster.nodes)} nodes"
+                )
+        else:
+            self._table = encode_nodes(
+                self.enc,
+                self.cluster.nodes,
+                existing_usage=aggregate_usage(self._bound),
+                existing_gpu=aggregate_gpu_usage(self.cluster.nodes, self._bound),
+                n_pad=(
+                    self.n_pad
+                    if self.n_pad and self.n_pad >= len(self.cluster.nodes)
+                    else None
+                ),
+            )
+        self._name_index = None
         self._ns = node_static_from_table(self.enc, self._table, device=self.device)
         self._carry = carry_from_table(
             self._table,
@@ -839,19 +927,208 @@ class Simulator:
                 result.preempted = list(self._preempted)
             return result
 
-    def run_scenarios(self, *args, **kwargs):
-        raise _not_ported("the scenario axis (run_scenarios)", 9, "scenario axis")
+    def run_scenarios(
+        self,
+        apps: Sequence[AppResource],
+        scenarios: Sequence[Scenario],
+        materialize: bool = True,
+        *,
+        reuse_state: bool = False,
+        s_floor: int = 0,
+    ):
+        """One batched sweep over S scenarios sharing this cluster and app
+        list: expand and encode once, stack the carry with a leading lane
+        axis, and run the lane-batched commit engine
+        (ops/fast.py:schedule_scenarios_host). Each lane's placements equal a
+        serial simulate() of its scenario.
 
-    def _storage_status(self) -> Dict[str, NodeLocalStorage]:
+        Returns per-scenario SimulateResults (materialize=True) or
+        ScenarioOutcomes (materialize=False, the capacity planner's verdict
+        mode), or None when the workload needs per-scenario control flow
+        this path cannot batch: a pod with priority > 0 (preemption evicts
+        different victims per lane) or a pre-bound pod on a scenario-masked
+        node. `reuse_state` keeps the table and carry of the previous call
+        (ScenarioSession); `s_floor` pads the lanes at least that wide."""
+        scenarios = list(scenarios)
+        n_nodes = len(self.cluster.nodes)
+        keeps = [sc.keep_mask(n_nodes) for sc in scenarios]
+        with span("simulate-scenarios", nodes=n_nodes, scenarios=len(scenarios), apps=len(apps)):
+            app_pods = self._expand_apps(apps)
+            all_pods = self._pending_cluster + [p for pods in app_pods for p in pods]
+            if any(p.priority > 0 for p in all_pods):
+                return None
+            for keep in keeps:
+                if keep is None:
+                    continue
+                dropped = {n.name for n, k in zip(self.cluster.nodes, keep) if not k}
+                if any(name in dropped for _, name in self._bound):
+                    return None
+            if not (reuse_state and self._table is not None):
+                with span("encode-cluster"):
+                    self._build_device_state(all_pods)
+            # per-lane valid masks over the shared padded node axis: pad rows
+            # stay False, masked real rows turn False in their lane
+            table_valid = np.asarray(self._table.valid)
+            valid_rows, n_nodes_s = [], []
+            for keep in keeps:
+                v = table_valid.copy()
+                if keep is not None:
+                    v[:n_nodes] &= keep
+                    n_nodes_s.append(int(keep.sum()))
+                else:
+                    n_nodes_s.append(n_nodes)
+                valid_rows.append(v)
+            base_weights = self.weights.cpu().numpy()
+            weight_rows = [
+                weights_array(sc.weights, device="cpu").numpy()
+                if sc.weights is not None else base_weights
+                for sc in scenarios
+            ]
+            # lane bucketing: pad with copies of lane 0 (results discarded)
+            s_real = len(scenarios)
+            s_pad = scenario_bucket(s_real, floor=s_floor)
+            metrics.LANE_OCCUPANCY.observe(s_real / s_pad)
+            valid_rows += [valid_rows[0]] * (s_pad - s_real)
+            weight_rows += [weight_rows[0]] * (s_pad - s_real)
+            valid_s = torch.from_numpy(np.stack(valid_rows)).to(self.device)
+            weights_s = torch.from_numpy(np.stack(weight_rows).astype(np.float32)).to(self.device)
+            carry_s = stack_carry(self._carry, s_pad)
+            lanes = [{"placed": [], "failed": [], "fail_counts": None} for _ in range(s_real)]
+            # run()'s batch structure: cluster-pending first, then each app,
+            # split into consecutive schedulerName runs
+            batches = [self._order(self._pending_cluster)] + app_pods
+            for pods in batches:
+                i = 0
+                while i < len(pods):
+                    j = i
+                    name = pods[i].scheduler_name
+                    while j < len(pods) and pods[j].scheduler_name == name:
+                        j += 1
+                    run_pods = pods[i:j]
+                    i = j
+                    if name not in self._profiles:
+                        reason = f"no scheduler profile named {name!r} is configured"
+                        for lane in lanes:
+                            lane["failed"].extend(UnscheduledPod(p, reason) for p in run_pods)
+                        continue
+                    with span("encode", pods=len(run_pods)):
+                        batch = encode_pods(self.enc, run_pods)
+                    carry_s, self._ns = align_carry_scenarios(carry_s, self.enc, self._ns)
+                    with span("schedule-scenarios", pods=len(run_pods), scenarios=s_real) as sp:
+                        (
+                            carry_s, nodes_np, reasons_np, take_np, vg_np, dev_np,
+                        ) = schedule_scenarios_host(
+                            self._ns, carry_s, batch, weights_s, valid_s, s_real,
+                        )
+                        sp.meta["scheduled"] = int((nodes_np >= 0).sum())
+                    progress(
+                        "scheduled scenario batch: %d/%d (pod,lane) placed in %.2fs",
+                        int((nodes_np >= 0).sum()), len(run_pods) * s_real, sp.duration,
+                    )
+                    metrics.SCHEDULING_ATTEMPTS.inc(len(run_pods) * s_real)
+                    for s, lane in enumerate(lanes):
+                        for p_idx, pod in enumerate(run_pods):
+                            ni = int(nodes_np[s, p_idx])
+                            if ni >= 0:
+                                lane["placed"].append((
+                                    pod, ni, take_np[s, p_idx], vg_np[s, p_idx], dev_np[s, p_idx],
+                                ))
+                            else:
+                                if lane["fail_counts"] is None:
+                                    lane["fail_counts"] = np.zeros(reasons_np.shape[2], np.int64)
+                                lane["fail_counts"] += reasons_np[s, p_idx]
+                                lane["failed"].append(UnscheduledPod(
+                                    pod, _reason_string(n_nodes_s[s], reasons_np[s, p_idx]),
+                                ))
+            vg_free_s = carry_s.vg_free.cpu().numpy()
+            dev_free_s = carry_s.dev_free.cpu().numpy()
+            if not materialize:
+                return self._scenario_outcomes(scenarios, keeps, lanes, vg_free_s, dev_free_s)
+            # materialize lane by lane against the shared pod objects: bind,
+            # deep-copy the result, reset, so lanes never alias each other
+            base_bound = list(self._bound)
+            results = []
+            with span("decode-scenarios"):
+                for s, lane in enumerate(lanes):
+                    keep = keeps[s]
+                    self._bound = list(base_bound)
+                    self._storage_takes = {}
+                    for pod, ni, take, vg, dev in lane["placed"]:
+                        self._bind_placed(pod, ni, take, vg, dev)
+                    if lane["fail_counts"] is not None:
+                        _count_filter_failures(lane["fail_counts"])
+                    self._finalize_unscheduled(lane["failed"])
+                    result = SimulateResult()
+                    result.unscheduled = list(lane["failed"])
+                    by_node: Dict[str, NodeStatus] = {
+                        n.name: NodeStatus(node=n)
+                        for idx, n in enumerate(self.cluster.nodes)
+                        if keep is None or keep[idx]
+                    }
+                    for pod, node_name in self._bound:
+                        if node_name in by_node:
+                            by_node[node_name].pods.append(pod)
+                    result.node_status = list(by_node.values())
+                    result.storage = self._storage_status(vg_free_s[s], dev_free_s[s], keep=keep)
+                    results.append(copy.deepcopy(result))
+                    self._reset_bindings([t[0] for t in lane["placed"]])
+            self._bound = base_bound
+            self._storage_takes = {}
+            return results
+
+    def _scenario_outcomes(
+        self, scenarios, keeps, lanes, vg_free_s, dev_free_s
+    ) -> List[ScenarioOutcome]:
+        """Each lane's totals that satisfy_resource_setting reads, without
+        materializing node_status (verdict mode)."""
+        outcomes = []
+        for s, lane in enumerate(lanes):
+            keep = keeps[s]
+            out = ScenarioOutcome(
+                name=scenarios[s].name or f"scenario-{s}",
+                unscheduled=len(lane["failed"]),
+            )
+            for idx, node in enumerate(self.cluster.nodes):
+                if keep is not None and not keep[idx]:
+                    continue
+                out.cpu_alloc += node.allocatable.get("cpu", 0)
+                out.mem_alloc += node.allocatable.get("memory", 0)
+            # requests over every bound pod: pre-bound (all on kept nodes,
+            # gated in run_scenarios) plus this lane's placements
+            for pod, _ in self._bound:
+                out.cpu_req += pod.requests.get("cpu", 0)
+                out.mem_req += pod.requests.get("memory", 0)
+            for pod, *_rest in lane["placed"]:
+                out.cpu_req += pod.requests.get("cpu", 0)
+                out.mem_req += pod.requests.get("memory", 0)
+            storage = self._storage_status(vg_free_s[s], dev_free_s[s], keep=keep)
+            for st in storage.values():
+                for vg in st.vgs:
+                    out.vg_cap += vg.capacity
+                    out.vg_req += vg.requested
+            outcomes.append(out)
+        return outcomes
+
+    def _storage_status(
+        self,
+        vg_free: Optional[np.ndarray] = None,
+        dev_free: Optional[np.ndarray] = None,
+        keep: Optional[np.ndarray] = None,
+    ) -> Dict[str, NodeLocalStorage]:
         """Decode the final vg_free/dev_free carry back into per-node storage
         state (parity: the bind-updated simon/node-local-storage annotations,
-        plugin/open-local.go:221-247)."""
+        plugin/open-local.go:221-247). A scenario lane passes its own carry
+        slices and node keep-mask; the default decodes the live carry over
+        every cluster node."""
         out: Dict[str, NodeLocalStorage] = {}
-        if self._carry is None:
-            return out
-        vg_free = self._carry.vg_free.cpu().numpy()
-        dev_free = self._carry.dev_free.cpu().numpy()
+        if vg_free is None or dev_free is None:
+            if self._carry is None:
+                return out
+            vg_free = self._carry.vg_free.cpu().numpy()
+            dev_free = self._carry.dev_free.cpu().numpy()
         for i, node in enumerate(self.cluster.nodes):
+            if keep is not None and not keep[i]:
+                continue
             st = node.local_storage()
             if st is None:
                 continue
@@ -907,10 +1184,163 @@ def simulate(
     ).run(apps)
 
 
-def simulate_batch(*args, **kwargs):
-    raise _not_ported("simulate_batch", 9, "scenario axis")
+def batch_ineligible_reason(
+    cluster: ClusterResource,
+    apps: Sequence[AppResource],
+    scenarios: Sequence[Scenario],
+    use_greed: bool = False,
+    mesh=None,
+    profiles=None,
+    plugins=None,
+    extenders=None,
+) -> Optional[str]:
+    """Why this sweep cannot take the batched path, or None when it can.
+    Every gate names a feature whose control flow is per-scenario serial;
+    simulate_batch falls back to serial simulate() per scenario for them.
+    `mesh` stays in the signature as in the reference, where a mesh no
+    longer gates."""
+    if extenders:
+        return "scheduler extenders"
+    if profiles:
+        return "scheduler profiles"
+    if plugins:
+        return "out-of-tree device plugins"
+    masked = any(sc.node_count is not None or sc.node_valid is not None for sc in scenarios)
+    if not masked:
+        return None
+    if use_greed:
+        # greed ordering keys on the node totals: per-scenario node sets
+        # would need per-scenario pod orders
+        return "greed ordering with per-scenario node sets"
+    if cluster.daemonsets or any(
+        obj.get("kind") == "DaemonSet" for app in apps for obj in app.objects
+    ):
+        # DaemonSet expansion is per node: lanes with different node sets
+        # would need different pod lists
+        return "DaemonSets with per-scenario node sets"
+    return None
+
+
+def _scenario_cluster(cluster: ClusterResource, sc: Scenario) -> ClusterResource:
+    """The serial fallback's view of one scenario: the cluster restricted to
+    the lane's kept nodes (shares pod/daemonset/other objects; Simulator
+    copies what it mutates)."""
+    keep = sc.keep_mask(len(cluster.nodes))
+    if keep is None:
+        return cluster
+    return ClusterResource(
+        nodes=[n for n, k in zip(cluster.nodes, keep) if k],
+        pods=list(cluster.pods),
+        daemonsets=list(cluster.daemonsets),
+        others=dict(cluster.others),
+    )
+
+
+def simulate_batch(
+    cluster: ClusterResource,
+    apps: Sequence[AppResource],
+    scenarios: Sequence[Scenario],
+    *,
+    weights: Optional[dict] = None,
+    use_greed: bool = False,
+    mesh=None,
+    n_pad: Optional[int] = None,
+    profiles=None,
+    plugins=None,
+    patch_pods=None,
+    expand_cache=None,
+    extenders=None,
+    resident=None,
+    device=DEFAULT_DEVICE,
+) -> List[SimulateResult]:
+    """Simulate S scenarios against one cluster and app list on `device`
+    (CUDA by default): one batched sweep (Simulator.run_scenarios) when the
+    workload allows it, else serial simulate() per scenario (see
+    batch_ineligible_reason). Either way one SimulateResult per scenario,
+    in order, each equal to a standalone simulate() of its scenario.
+    `weights` is the sweep default; Scenario.weights overrides it per lane."""
+    scenarios = list(scenarios)
+    if not scenarios:
+        return []
+    # captured BEFORE the batched attempt: run_scenarios may expand the
+    # workloads (advancing the name RNG) and only then hit a post-expansion
+    # gate; the serial fallback must see the entry-time RNG state
+    rng_state = workloads._rng.getstate()
+    reason = batch_ineligible_reason(
+        cluster, apps, scenarios, use_greed=use_greed, mesh=mesh,
+        profiles=profiles, plugins=plugins, extenders=extenders,
+    )
+    if reason is None:
+        results = Simulator(
+            cluster, weights=weights, use_greed=use_greed, mesh=mesh,
+            n_pad=n_pad, patch_pods=patch_pods, expand_cache=expand_cache,
+            resident=resident, device=device,
+        ).run_scenarios(apps, scenarios)
+        if results is not None:
+            return results
+        reason = (
+            "preemption-eligible pods (priority > 0) or pre-bound pods on "
+            "scenario-masked nodes"
+        )
+    log.info("simulate_batch: serial fallback for %d scenario(s): %s", len(scenarios), reason)
+    # every lane equals a standalone simulate(), pod-name suffixes included:
+    # rewind the name RNG to the entry state per lane
+    out = []
+    for sc in scenarios:
+        workloads._rng.setstate(rng_state)
+        out.append(simulate(
+            _scenario_cluster(cluster, sc), apps,
+            weights=sc.weights if sc.weights is not None else weights,
+            use_greed=use_greed, mesh=mesh, n_pad=n_pad,
+            profiles=profiles, plugins=plugins, patch_pods=patch_pods,
+            expand_cache=None, extenders=extenders, resident=resident, device=device,
+        ))
+    return out
 
 
 class ScenarioSession:
-    def __init__(self, *args, **kwargs) -> None:
-        raise _not_ported("ScenarioSession", 9, "scenario axis")
+    """A warm Simulator pinned to one (cluster, apps, weights) tuple, so
+    back-to-back batched calls skip the per-call set-up (Simulator
+    construction, the encode pass): each run() after the first reuses the
+    table and carry through run_scenarios(reuse_state=True).
+
+    The session captures the name RNG at creation and rewinds it before
+    every run, so run([sc]) on the Nth call equals a cold simulate() of the
+    same scenario. `pad_floor` is the widest padded lane count served so
+    far; later calls pad at least that wide. run() returns None when the
+    batched path refuses the workload (the caller falls back cold)."""
+
+    def __init__(
+        self,
+        cluster: ClusterResource,
+        apps: Sequence[AppResource],
+        *,
+        weights: Optional[dict] = None,
+        resident=None,
+        device=DEFAULT_DEVICE,
+    ) -> None:
+        self._rng_state = workloads._rng.getstate()
+        self.sim = Simulator(
+            cluster, weights=weights, expand_cache={}, resident=resident, device=device,
+        )
+        self.apps = list(apps)
+        self.calls = 0
+        self.pad_floor = 0
+
+    def run(self, scenarios: Sequence[Scenario]):
+        """One batched call over this session's cluster and apps -> per-
+        scenario SimulateResults, or None when the batched path refuses."""
+        scenarios = list(scenarios)
+        if not scenarios:
+            return []
+        if batch_ineligible_reason(self.sim.cluster, self.apps, scenarios) is not None:
+            return None
+        workloads._rng.setstate(self._rng_state)
+        results = self.sim.run_scenarios(
+            self.apps, scenarios, reuse_state=self.calls > 0, s_floor=self.pad_floor,
+        )
+        if results is None:
+            return None
+        self.calls += 1
+        self.pad_floor = max(self.pad_floor, scenario_bucket(len(scenarios)))
+        return results

@@ -16,6 +16,7 @@ Shapes (N nodes, P pods, R resources, padded caps L/T/TERM/EXPR/VAL/TOL/S/K):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -25,6 +26,7 @@ from ..core.matcher import match_label_selector
 from ..core.objects import (
     ANNO_GPU_COUNT_POD,
     ANNO_GPU_MEM_POD,
+    ANNO_NODE_LOCAL_STORAGE,
     ANNO_POD_LOCAL_STORAGE,
     RESOURCE_GPU_COUNT,
     LabelSelector,
@@ -95,6 +97,15 @@ def node_bucket(n: int) -> int:
     Tiny clusters pay a few inert padded rows; in exchange the engine keeps
     one compiled program per rung instead of one per node count."""
     return round_up(n, floor=NODE_BUCKET_FLOOR, step=NODE_BUCKET_STEP)
+
+
+def ladder_rungs(n_max: int) -> List[int]:
+    """Every ladder rung up to and including the one covering `n_max`: the
+    node-axis shapes a capacity sweep over [1, n_max] can touch."""
+    rungs = [NODE_BUCKET_FLOOR]
+    while rungs[-1] < n_max:
+        rungs.append(node_bucket(rungs[-1] + 1))
+    return rungs
 
 
 class Vocab:
@@ -440,6 +451,20 @@ def node_axes(
     return L, T, G, V, DV
 
 
+# Sentinel for "decode the node's local storage here"; None is a legal
+# storage value.
+_STORAGE_UNSET: Optional[NodeLocalStorage] = NodeLocalStorage()
+
+
+def clear_node_row(table: NodeTable, i: int) -> None:
+    """Reset row i of every per-node array to the pad value encode_nodes
+    allocates (zeros, NaN label_num, -1 topo, False flags), so a following
+    encode_node_into writes bytes identical to a from-scratch encode."""
+    for f in _STAMP_FIELDS:
+        arr = getattr(table, f)
+        arr[i] = _PAD_VALUES.get(f, 0)
+
+
 def encode_node_into(
     enc: Encoder,
     table: NodeTable,
@@ -447,10 +472,10 @@ def encode_node_into(
     nd: Node,
     usage: Dict[str, Dict[str, int]],
     gpu_usage: Dict[str, np.ndarray],
-    st: Optional[NodeLocalStorage],
+    st: Optional[NodeLocalStorage] = _STORAGE_UNSET,
 ) -> None:
-    """Encode one node (with its decoded local storage `st`) into row i of a
-    zeroed table."""
+    """Encode one node into row i of a zeroed or cleared table (its local
+    storage `st` is decoded here unless the caller passes it)."""
     L = table.label_pair.shape[1]
     T = table.taint_key.shape[1]
     V = table.vg_cap.shape[1]
@@ -491,6 +516,8 @@ def encode_node_into(
         used = gpu_usage.get(nd.name)
         if used is not None:
             table.gpu_free[i, : len(used)] -= used.astype(np.float32)
+    if st is _STORAGE_UNSET:
+        st = nd.local_storage()
     if st is not None:
         table.has_storage[i] = True
         for j, vg in enumerate(st.vgs[:V]):
@@ -505,24 +532,140 @@ def encode_node_into(
             table.dev_free[i, j] = 0.0 if dev.is_allocated else 1.0
 
 
+# Per-row NodeTable arrays (every array field; `names` is built apart): the
+# fields the stamping pass broadcasts from a template row to its clones, and
+# the pad value encode_nodes allocates for each (0 / False elsewhere).
+_STAMP_FIELDS = (
+    "alloc", "free", "label_pair", "label_key", "label_num",
+    "taint_key", "taint_val", "taint_effect", "name_id", "unsched",
+    "avoid_pods", "topo", "valid", "gpu_total", "gpu_free",
+    "vg_cap", "vg_free", "vg_name", "dev_cap", "dev_ssd", "dev_free",
+    "has_storage",
+)
+_PAD_VALUES = {"label_num": np.nan, "topo": -1}
+
+# Placeholder for "this label holds the node's own name" in template
+# signatures: a control character no real label value can contain.
+_OWN_NAME_SENTINEL = "\x00own-name\x00"
+
+
+def _node_stamp_sig(
+    enc: Encoder,
+    nd: Node,
+    usage: Dict[str, Dict[str, int]],
+    gpu_usage: Dict[str, np.ndarray],
+    st: Optional[NodeLocalStorage],
+    host_key: str,
+) -> Tuple:
+    """Template signature: nodes with equal signatures encode to identical
+    rows except the name-derived cells (name_id, topo[:, 0] and, when the
+    hostname label holds the node's own name, that label slot's pair id and
+    numeric view), which the stamping pass fixes up per clone. It covers
+    exactly the inputs encode_node_into reads; a hostname label value is
+    replaced by a sentinel only when it equals the node's own name."""
+    g_cnt = nd.gpu_count()
+    g_used = gpu_usage.get(nd.name)
+    labels = []
+    for k in sorted(nd.meta.labels):
+        v = nd.meta.labels[k]
+        if k == host_key and v == nd.name:
+            v = _OWN_NAME_SENTINEL
+        labels.append((k, v))
+    return (
+        tuple(sorted(nd.allocatable.items())),
+        tuple(labels),
+        tuple((t.key, t.value, t.effect) for t in nd.taints),
+        nd.unschedulable,
+        "scheduler.alpha.kubernetes.io/preferAvoidPods" in nd.meta.annotations,
+        g_cnt,
+        nd.gpu_mem_per_device() if g_cnt > 0 else 0,
+        tuple(sorted(usage.get(nd.name, {}).items())),
+        None if g_used is None else tuple(np.asarray(g_used).tolist()),
+        None if st is None else (
+            tuple((vg.name, vg.capacity, vg.requested) for vg in st.vgs),
+            tuple((d.capacity, d.media_type, d.is_allocated) for d in st.devices),
+        ),
+    )
+
+
 def encode_nodes(
     enc: Encoder,
     nodes: Sequence[Node],
     existing_usage: Optional[Dict[str, Dict[str, int]]] = None,
     existing_gpu: Optional[Dict[str, np.ndarray]] = None,
+    n_pad: Optional[int] = None,
+    stamp: Optional[bool] = None,
 ) -> NodeTable:
-    """Build the node table, one encode_node_into per node in order (so
-    vocabulary ids follow node order). existing_usage maps node name ->
-    canonical request totals of already-bound pods (subtracted into `free`);
+    """Build the node table. existing_usage maps node name -> canonical
+    request totals of already-bound pods (subtracted into `free`);
     existing_gpu maps node name -> used MiB per device. The node axis pads
-    to the node_bucket ladder."""
-    N = node_bucket(len(nodes))
+    to `n_pad`, or to the node_bucket ladder.
+
+    `stamp` (None reads OSIM_STAMP_ENCODE, default on) is the template
+    stamping pass: each distinct node spec is encoded once with
+    encode_node_into and its clones are stamped by a row broadcast plus
+    per-row name fixups. Byte-identical to the per-node loop: the signature
+    covers every input the row encode reads, and clones intern their
+    name-derived vocabulary entries at their loop position. Capacity clones
+    carry a `_stamp_token` (engine/capacity.new_fake_nodes) that stands for
+    their content, so their signature is a few dict lookups."""
+    n = len(nodes)
+    N = n_pad if n_pad is not None else node_bucket(n)
     R = len(enc.resources)
     K = max(len(enc.topology_keys), 1)
     usage = existing_usage or {}
     gpu_usage = existing_gpu or {}
-    storages = [nd.local_storage() for nd in nodes]
-    L, T, G, V, DV = node_axes(enc, nodes, storages)
+    if stamp is None:
+        stamp = os.environ.get("OSIM_STAMP_ENCODE", "1") != "0"
+    stamp = bool(stamp) and n >= 2
+
+    storages: List[Optional[NodeLocalStorage]] = []
+    storages_by_row: Dict[int, Optional[NodeLocalStorage]] = {}
+    sigs: List[Tuple] = []
+    names_list: List[str] = []
+    if stamp:
+        # signature pre-pass; the axis caps come from one representative
+        # per distinct signature (group members are content-equal)
+        host_key = enc.topology_keys[0]
+        ax_nodes: List[Node] = []
+        ax_st: List[Optional[NodeLocalStorage]] = []
+        seen_tok: Dict[object, Tuple] = {}
+        no_usage = not usage and not gpu_usage
+        for i, nd in enumerate(nodes):
+            meta = nd.meta
+            name = meta.name
+            names_list.append(name)
+            tok = nd.__dict__.get("_stamp_token")
+            if tok is not None:
+                if no_usage:
+                    sig = (tok, nd.unschedulable,
+                           meta.annotations.get(ANNO_NODE_LOCAL_STORAGE))
+                else:
+                    sig = (
+                        tok, nd.unschedulable,
+                        meta.annotations.get(ANNO_NODE_LOCAL_STORAGE),
+                        tuple(sorted(usage[name].items())) if name in usage else None,
+                        tuple(np.asarray(gpu_usage[name]).tolist())
+                        if name in gpu_usage else None,
+                    )
+                prev = seen_tok.get(tok)
+                if prev is None:
+                    seen_tok[tok] = sig
+                if prev is None or prev != sig:
+                    ax_nodes.append(nd)
+                    ax_st.append(nd.local_storage())
+            else:
+                st = nd.local_storage()
+                storages_by_row[i] = st
+                sig = _node_stamp_sig(enc, nd, usage, gpu_usage, st, host_key)
+                ax_nodes.append(nd)
+                ax_st.append(st)
+            sigs.append(sig)
+        L, T, G, V, DV = node_axes(enc, ax_nodes, ax_st)
+    else:
+        storages = [nd.local_storage() for nd in nodes]
+        L, T, G, V, DV = node_axes(enc, nodes, storages)
+        names_list = [nd.meta.name for nd in nodes]
     table = NodeTable(
         alloc=np.zeros((N, R), np.float32),
         free=np.zeros((N, R), np.float32),
@@ -546,10 +689,66 @@ def encode_nodes(
         dev_ssd=np.zeros((N, DV), bool),
         dev_free=np.zeros((N, DV), np.float32),
         has_storage=np.zeros(N, bool),
-        names=[nd.meta.name for nd in nodes],
+        names=names_list,
     )
-    for i, nd in enumerate(nodes):
-        encode_node_into(enc, table, i, nd, usage, gpu_usage, storages[i])
+    if not stamp:
+        for i, nd in enumerate(nodes):
+            encode_node_into(enc, table, i, nd, usage, gpu_usage, storages[i])
+        return table
+
+    # Stamping pass, sequential over nodes so every vocabulary intern
+    # happens at the position the per-node loop would do it.
+    first_row: Dict[Tuple, int] = {}
+    # template row -> [(clone row, name_id, hostname pair id, num(name))]
+    clones: Dict[int, List[Tuple[int, int, int, float]]] = {}
+    host_bound: Dict[int, bool] = {}
+    names_d = enc.names._ids
+    vals_d = enc.vals._ids
+    pairs_d = enc.pairs._ids
+    _nan = float("nan")
+    for i, sig in enumerate(sigs):
+        tmpl = first_row.get(sig)
+        if tmpl is None:
+            nd = nodes[i]
+            first_row[sig] = i
+            host_bound[i] = nd.meta.labels.get(host_key) == names_list[i]
+            encode_node_into(
+                enc, table, i, nd, usage, gpu_usage,
+                st=storages_by_row.get(i, _STORAGE_UNSET),
+            )
+            continue
+        # a clone's only new vocabulary entries are its name and (when
+        # hostname-bound) its hostname label pair: Vocab.id, inlined
+        name = names_list[i]
+        nid = names_d.get(name)
+        if nid is None:
+            nid = len(names_d) + 1
+            names_d[name] = nid
+        if host_bound[tmpl]:
+            if name not in vals_d:
+                vals_d[name] = len(vals_d) + 1
+            pair = host_key + "=" + name
+            pid = pairs_d.get(pair)
+            if pid is None:
+                pid = len(pairs_d) + 1
+                pairs_d[pair] = pid
+            num = _num_or_nan(name)
+        else:
+            pid, num = 0, _nan
+        clones.setdefault(tmpl, []).append((i, nid, pid, num))
+    for tmpl, rows in clones.items():
+        idx = np.fromiter((r[0] for r in rows), np.int32, len(rows))
+        for f in _STAMP_FIELDS:
+            arr = getattr(table, f)
+            arr[idx] = arr[tmpl]
+        table.name_id[idx] = np.fromiter((r[1] for r in rows), np.int32, len(rows))
+        table.topo[idx, 0] = idx  # hostname: every node is its own domain
+        if host_bound[tmpl]:
+            # the hostname label sits at the same sorted slot on every clone
+            key_id = enc.keys.get(host_key)
+            j = int(np.nonzero(table.label_key[tmpl] == key_id)[0][0])
+            table.label_pair[idx, j] = np.fromiter((r[2] for r in rows), np.int32, len(rows))
+            table.label_num[idx, j] = np.fromiter((r[3] for r in rows), np.float32, len(rows))
     return table
 
 

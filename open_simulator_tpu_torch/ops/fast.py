@@ -48,6 +48,8 @@ Exactness traps handled here (besides those of ops/kernels.py):
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -55,9 +57,12 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..utils import metrics as _metrics
+from . import delta as _delta
 from . import domain_pop as _dp
+from . import wave as _wave
 from .domain_pop import _hard_spread_ok, _spread_norm
-from .encode import PodBatch
+from .encode import PodBatch, round_up
 from .grouped import (
     DEFAULT_GROUP_CHUNK,
     _bucket,
@@ -88,6 +93,8 @@ from .kernels import (
     _spread_rows_ok,
     _spread_score,
     combine_scores,
+    commit_choices_lanes,
+    commit_parts,
     gpu_allocate_rowwise,
     gpu_mask,
     gpu_share_raw,
@@ -97,8 +104,11 @@ from .kernels import (
     ports_mask,
     reason_row,
     resource_fail,
+    schedule_step,
 )
 from .state import pod_rows_from_batch
+
+_log = logging.getLogger("osim")
 
 # Trajectories longer than this take the per-pod grouped path.
 J_CAP = 512
@@ -1240,3 +1250,291 @@ def schedule_batch_fast(
         phase("tail")
 
     return (carry,) + outs
+
+
+# ---------------------------------------------------------------------------
+# Scenario axis: S lanes over one shared node table
+# ---------------------------------------------------------------------------
+
+# Lanes of every batched call pad to a multiple of this (pad lanes are copies
+# of lane 0, results discarded), as the reference pads its scenario axis.
+SCENARIO_BUCKET = 8
+
+
+def scenario_bucket(s: int, floor: int = 0) -> int:
+    """Padded lane count for `s` real lanes; `floor` (itself a padded count)
+    keeps a session's widest shape across consecutive calls."""
+    return round_up(max(int(s), 1, int(floor)), SCENARIO_BUCKET)
+
+
+# (N, P) shape key -> padded lane counts seen through schedule_scenarios_host
+_SCENARIO_PROGRAMS: dict = {}
+
+
+def scenario_programs() -> dict:
+    """Snapshot of {(n_nodes, n_pods): {padded lane counts}} so far."""
+    return {k: set(v) for k, v in _SCENARIO_PROGRAMS.items()}
+
+
+def reset_scenario_programs() -> None:
+    _SCENARIO_PROGRAMS.clear()
+
+
+def commit_chunk_size() -> int:
+    """Pods per chunk of the chunked scenario scan (`OSIM_COMMIT_CHUNK`);
+    0, the default, runs the whole batch as one scan."""
+    try:
+        return max(0, int(os.environ.get("OSIM_COMMIT_CHUNK", "0") or 0))
+    except ValueError:
+        return 0
+
+
+def _scenario_step(ns: NodeStatic, filter_on):
+    """schedule_step on S lanes: each lane has its own valid mask, score
+    weights and carry; the pod and its topology keys are shared."""
+
+    def one(valid, weights, carry, pod, keys):
+        return schedule_step(ns._replace(valid=valid), weights, carry, pod, filter_on, (), (), keys)
+
+    return torch.func.vmap(one, in_dims=(0, 0, 0, None, None))
+
+
+def schedule_scenarios(
+    ns: NodeStatic,
+    carry_s: Carry,
+    pods: PodRow,
+    weights_s: torch.Tensor,
+    valid_s: torch.Tensor,
+    filter_on=None,
+):
+    """The sequential commit scan on S lanes: one Python loop over the pods,
+    each step `schedule_step` under `torch.func.vmap` over the lanes.
+
+    Lanes share the node table `ns` and the pod sequence; each has its own
+    valid mask `valid_s` bool[S,N], weights `weights_s` f32[S,W] and carry
+    (every leaf stacked on axis 0). A row that is real but invalid in a lane
+    is inert in every filter, score and commit, so lane s equals a serial
+    scan over a table whose valid mask is valid_s[s].
+
+    Returns (carry_s, nodes i32[S,P], reasons i32[S,P,F], gpu_take
+    i32[S,P,G], vg_take f32[S,P,V], dev_take f32[S,P,DV]) as tensors."""
+    step = _scenario_step(ns, filter_on)
+    outs = []
+    for i in range(pods.req.shape[0]):
+        pod = PodRow(*(a[i] for a in pods))
+        carry_s, out = step(valid_s, weights_s, carry_s, pod, pod_keys(ns, pod))
+        outs.append(out)
+    return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*outs))
+
+
+def schedule_scenarios_chunked(
+    ns: NodeStatic,
+    carry_s: Carry,
+    pods: PodRow,
+    weights_s: torch.Tensor,
+    valid_s: torch.Tensor,
+    count: int,
+    filter_on=None,
+):
+    """One chunk of the scenario scan, count-gated: only the first `count`
+    pods of the chunk step (the reference masks the carry writes of the
+    rest, which leaves the carry as it was); outputs cover those pods."""
+    return schedule_scenarios(
+        ns, carry_s, PodRow(*(a[:count] for a in pods)), weights_s, valid_s, filter_on
+    )
+
+
+def schedule_wave(
+    ns: NodeStatic,
+    carry_s: Carry,
+    pods: PodRow,
+    weights_s: torch.Tensor,
+    valid_s: torch.Tensor,
+    choices_s: torch.Tensor,
+    count: Optional[int],
+    parts,
+    filter_on=None,
+):
+    """One conflict-parallel commit round over a wave of W pods on S lanes
+    (ops/wave.py's Jacobi step). On the converged round (returned choices
+    equal `choices_s`) every output is bitwise the serial scan's over the
+    same wave. `carry_s` is only read. Returns (carry_s, choices i32[S,W],
+    reasons i32[S,W,F], gpu_take i32[S,W,G], vg_take f32[S,W,V], dev_take
+    f32[S,W,DV])."""
+    return _wave.wave_round(
+        ns, weights_s, valid_s, carry_s, pods, choices_s, count, parts, filter_on
+    )
+
+
+def commit_choices(
+    ns: NodeStatic,
+    carry_s: Carry,
+    pods: PodRow,
+    choices_s: torch.Tensor,
+    count: Optional[int] = None,
+):
+    """The wave engine's commit phase alone: replay decided choices i32[S,W]
+    (-1 = no commit; pods from `count` on never commit) through the row
+    commit. Returns (carry_s, gpu_take i32[S,W,G], vg_take f32[S,W,V],
+    dev_take f32[S,W,DV])."""
+    W = choices_s.shape[1]
+    takes = []
+    for w in range(W):
+        pod = PodRow(*(a[w] for a in pods))
+        ch = choices_s[:, w] if count is None or w < count else torch.full_like(choices_s[:, w], -1)
+        carry_s, g, v, d = commit_choices_lanes(ns, carry_s, pod, ch)
+        takes.append((g.to(torch.int32), v, d))
+    return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*takes))
+
+
+def scenario_carry_digest(carry_s: Carry) -> int:
+    """Digest of a (stacked) carry: one device `digest_fold` per leaf,
+    chained in Carry._fields order; equal to scenario_carry_digest_host of
+    the same leaves on the host, and to the reference's."""
+    parts = torch.stack([_delta.digest_fold(getattr(carry_s, f)) for f in Carry._fields])
+    return _delta.combine_digests(parts.cpu().tolist())
+
+
+def scenario_carry_digest_host(leaves: dict) -> int:
+    """Host twin of scenario_carry_digest over {field: np.ndarray} leaves."""
+    return _delta.combine_digests(
+        _delta.digest_fold_host(np.asarray(leaves[f])) for f in Carry._fields
+    )
+
+
+def carry_to_host(carry_s: Carry) -> dict:
+    """Every Carry leaf on the host -> {field: np.ndarray}."""
+    return {f: getattr(carry_s, f).cpu().numpy() for f in Carry._fields}
+
+
+def _to_host(tensors) -> tuple:
+    return tuple(t.cpu().numpy() for t in tensors)
+
+
+def schedule_scenarios_host(
+    ns: NodeStatic,
+    carry_s: Carry,
+    batch: PodBatch,
+    weights_s: torch.Tensor,
+    valid_s: torch.Tensor,
+    s_real: int,
+    filter_on=None,
+):
+    """Host driver for one batched call over a pod batch. Returns (carry_s,
+    nodes, reasons, gpu_take, vg_take, dev_take), the outputs as numpy
+    arrays trimmed to the `s_real` live lanes and the batch's real pods.
+    `carry_s` / `weights_s` / `valid_s` are padded to
+    scenario_bucket(s_real) (pad lanes copy lane 0); the returned carry
+    keeps the padded lanes so it threads into the next call.
+
+    Routes, as the reference's: the wave driver when ops.wave.wave_enabled
+    (on a CUDA device, auto mode takes it from 512 pods on); else, with
+    OSIM_COMMIT_CHUNK > 0 and more pods than a chunk, the chunked scan;
+    else one scan. All three give the same bits."""
+    dev = valid_s.device
+    p_real = int(batch.p)
+    rows = PodRow(*(t[:p_real] for t in pod_rows_from_batch(batch, dev)))
+    s_pad = int(valid_s.shape[0])
+    _SCENARIO_PROGRAMS.setdefault((int(ns.valid.shape[0]), p_real), set()).add(s_pad)
+    _metrics.SCENARIOS_PER_CALL.observe(s_real)
+    if _wave.wave_enabled(p_real, dev):
+        return _schedule_scenarios_wave_host(
+            ns, carry_s, rows, batch, weights_s, valid_s, s_real, s_pad,
+            p_real, _wave.wave_size(), filter_on,
+        )
+    chunk = commit_chunk_size()
+    if chunk and p_real > chunk:
+        return _schedule_scenarios_chunked_host(
+            ns, carry_s, rows, weights_s, valid_s, s_real, s_pad, p_real, chunk, filter_on,
+        )
+    _progress(f"scenarios S={s_real}/{s_pad} P={p_real} N={ns.valid.shape[0]}")
+    carry_s, *outs = schedule_scenarios(ns, carry_s, rows, weights_s, valid_s, filter_on)
+    return (carry_s,) + tuple(a[:s_real] for a in _to_host(outs))
+
+
+def _progress(msg: str) -> None:
+    _log.debug("%s", msg)
+
+
+def _schedule_scenarios_chunked_host(
+    ns, carry_s, rows, weights_s, valid_s, s_real, s_pad, p_real, chunk, filter_on=None,
+):
+    """The chunked scan's host loop: ceil(P/C) count-gated chunk calls whose
+    chained result equals the single scan."""
+    N = int(ns.valid.shape[0])
+    n_chunks = -(-p_real // chunk)
+    _SCENARIO_PROGRAMS.setdefault((N, chunk), set()).add(s_pad)
+    outs = []
+    for i in range(n_chunks):
+        lo = i * chunk
+        count = min(chunk, p_real - lo)
+        _progress(f"scenarios S={s_real}/{s_pad} N={N} chunk {i + 1}/{n_chunks} "
+                  f"(C={chunk}, live={count})")
+        carry_s, *out = schedule_scenarios_chunked(
+            ns, carry_s, PodRow(*(a[lo:lo + chunk] for a in rows)),
+            weights_s, valid_s, count, filter_on,
+        )
+        outs.append(_to_host(out))
+        _metrics.PLAN_CHUNKS.inc()
+    cat = tuple(np.concatenate([o[k] for o in outs], axis=1) for k in range(5))
+    return (carry_s,) + tuple(a[:s_real] for a in cat)
+
+
+def _schedule_scenarios_wave_host(
+    ns, carry_s, rows, batch, weights_s, valid_s, s_real, s_pad, p_real, wave, filter_on=None,
+):
+    """The wave driver's host loop: per wave of `wave` pods, run
+    schedule_wave rounds until the probe reproduces its input choices (the
+    fixpoint, bitwise the serial scan), then adopt that round's exit carry
+    and outputs. A wave still moving after OSIM_WAVE_ROUNDS rounds is re-run
+    through the serial chunked scan from its input carry (counted in
+    osim_wave_fallbacks_total)."""
+    N = int(ns.valid.shape[0])
+    n_waves = -(-p_real // wave)
+    _SCENARIO_PROGRAMS.setdefault((N, wave), set()).add(s_pad)
+    max_rounds = _wave.wave_max_rounds()
+    rows_np = {f: np.asarray(getattr(batch, f)) for f in ("match_sel", "own_anti", "gpu_mem",
+                                                           "gpu_num", "lvm_req", "dev_req", "hp_pid")}
+    parts_all = [commit_parts(rows_np, i) for i in range(p_real)]
+    dev = valid_s.device
+    outs = []
+    for i in range(n_waves):
+        lo = i * wave
+        count = min(wave, p_real - lo)
+        rows_w = PodRow(*(a[lo:lo + count] for a in rows))
+        parts = parts_all[lo:lo + count]
+        choices = torch.full((s_pad, count), -1, dtype=torch.int32, device=dev)
+        prev = np.full((s_pad, count), -1, np.int32)
+        rounds = 0
+        converged = False
+        while True:
+            rounds += 1
+            _progress(f"scenarios S={s_real}/{s_pad} N={N} wave {i + 1}/{n_waves} "
+                      f"round {rounds} (W={wave}, live={count})")
+            carry_w, choices_new, *out = schedule_wave(
+                ns, carry_s, rows_w, weights_s, valid_s, choices, None, parts, filter_on,
+            )
+            ch = choices_new.cpu().numpy()
+            if np.array_equal(ch, prev):
+                converged = True
+                break
+            if rounds > 1:
+                _metrics.WAVE_CONFLICTS.inc(int((ch[:s_real] != prev[:s_real]).sum()))
+            if max_rounds and rounds >= max_rounds:
+                break
+            choices, prev = choices_new, ch
+        _metrics.COMMIT_ROUNDS.observe(rounds)
+        if converged:
+            carry_s = carry_w
+            outs.append((np.ascontiguousarray(ch),) + _to_host(out))
+        else:
+            _metrics.WAVE_FALLBACKS.inc(reason="max_rounds")
+            _progress(f"wave {i + 1}/{n_waves}: no fixpoint in {rounds} rounds; "
+                      "replaying through the serial chunked scan")
+            carry_s, *out = schedule_scenarios_chunked(
+                ns, carry_s, rows_w, weights_s, valid_s, count, filter_on,
+            )
+            outs.append(_to_host(out))
+        _metrics.PLAN_CHUNKS.inc()
+    cat = tuple(np.concatenate([o[k] for o in outs], axis=1) for k in range(5))
+    return (carry_s,) + tuple(a[:s_real] for a in cat)

@@ -881,11 +881,12 @@ def commit_onehot(ns: NodeStatic, carry: Carry, pod: PodRow, onehot: torch.Tenso
 
 
 def reason_row(first_fail: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Histogram i32[F] of the valid nodes' first failing filters."""
-    return torch.zeros(NUM_FILTERS, dtype=torch.int32, device=first_fail.device).index_add_(
-        0, first_fail.clamp(0, NUM_FILTERS - 1).long(),
-        ((first_fail < NUM_FILTERS) & valid).to(torch.int32),
-    )
+    """Histogram i32[F] of the valid nodes' first failing filters, as an
+    integer sum of a [N,F] one-hot (no in-place scatter, so it runs under
+    torch.func.vmap); a node with first_fail == NUM_FILTERS counts nowhere."""
+    filters = torch.arange(NUM_FILTERS, device=first_fail.device)
+    hit = (first_fail[:, None] == filters[None, :]) & valid[:, None]
+    return hit.sum(dim=0, dtype=torch.int32)
 
 
 def schedule_step(
@@ -926,3 +927,179 @@ def schedule_batch(
         )
         outs.append(out)
     return (carry,) + tuple(torch.stack(col) for col in zip(*outs))
+
+
+def probe_step(
+    ns: NodeStatic, carry: Carry, pod: PodRow, weights: torch.Tensor, filter_on=None,
+    extra_filters=(), extra_scores=(),
+):
+    """Filter and score ONE pod without committing -> (mask bool[N], score
+    f32[N] with -inf on infeasible nodes, first_fail i32[N])."""
+    mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters)
+    score = torch.where(mask, run_scores(ns, carry, pod, weights, extra_scores), -_INF)
+    return mask & ns.valid, score, first_fail
+
+
+def commit_step(ns: NodeStatic, carry: Carry, pod: PodRow, node: torch.Tensor):
+    """Commit ONE pod to node index `node` (i32 scalar, -1 = no commit): the
+    scan's state transition for the same choice -> (carry, gpu_take
+    i32[G], vg_take f32[V], dev_take f32[DV])."""
+    ok = (node >= 0) & pod.valid
+    onehot = (torch.arange(ns.valid.shape[0], device=node.device) == node) & ok
+    new_carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
+    return new_carry, gpu_take.to(torch.int32), vg_take, dev_take
+
+
+# ---------------------------------------------------------------------------
+# Row-wise commit (the wave engine's replay)
+# ---------------------------------------------------------------------------
+
+# The carry planes one commit can change, by pod feature; a pod whose
+# feature is absent leaves that part bitwise unchanged (see commit_choice).
+COMMIT_PARTS = frozenset(("sel", "anti", "gpu", "storage", "ports"))
+
+
+def commit_parts(rows_np: dict, i: int) -> frozenset:
+    """The parts of COMMIT_PARTS pod i of a PodBatch (host numpy arrays, by
+    PodRow field) can change when it commits."""
+    parts = set()
+    if rows_np["match_sel"][i].any():
+        parts.add("sel")
+    if rows_np["own_anti"][i].any():
+        parts.add("anti")
+    if rows_np["gpu_mem"][i] > 0 and rows_np["gpu_num"][i] >= 1:
+        parts.add("gpu")
+    if (rows_np["lvm_req"][i] > 0).any() or (rows_np["dev_req"][i] > 0).any():
+        parts.add("storage")
+    if (rows_np["hp_pid"][i] > 0).any():
+        parts.add("ports")
+    return frozenset(parts)
+
+
+def _local_storage_take_rows(vg_cap, vg_name, dev_cap, dev_ssd, vg_free, dev_free, pod: PodRow):
+    """local_storage_eval's takes on M given node rows (each arg [M,V] or
+    [M,DV]) -> (vg_take f32[M,V], dev_take f32[M,DV]). The eval is
+    row-local, so these are its arithmetic with the other rows dropped."""
+    V = vg_cap.shape[1]
+    DV = dev_cap.shape[1]
+    dev = vg_cap.device
+    vcols = torch.arange(V, device=dev)
+    dcols = torch.arange(DV, device=dev)
+    free, vg_take = vg_free, torch.zeros_like(vg_free)
+    for s in range(pod.lvm_req.shape[0]):
+        req = pod.lvm_req[s]
+        active = req > 0
+        want = pod.lvm_vg[s]
+        fits = (free + _EPS >= req) & (vg_name != 0)
+        elig = torch.where(want != 0, fits & (vg_name == want), fits)
+        choice = torch.where(elig, free, _INF).argmin(dim=1)
+        onehot = (
+            (vcols[None, :] == choice[:, None]) & elig.any(dim=1)[:, None] & active
+        ).to(torch.float32)
+        free = free - onehot * req
+        vg_take = vg_take + onehot * req
+    avail, dev_take = dev_free, torch.zeros_like(dev_free)
+    for s in range(pod.dev_req.shape[0]):
+        req = pod.dev_req[s]
+        active = req > 0
+        elig = (
+            (avail > 0.5)
+            & (dev_ssd == pod.dev_media_ssd[s])
+            & (dev_cap + _EPS >= req)
+            & (dev_cap > 0)
+        )
+        choice = torch.where(elig, dev_cap, _INF).argmin(dim=1)
+        onehot = (
+            (dcols[None, :] == choice[:, None]) & elig.any(dim=1)[:, None] & active
+        ).to(torch.float32)
+        avail = avail - onehot
+        dev_take = dev_take + onehot
+    return vg_take, dev_take
+
+
+def commit_choices_lanes(
+    ns: NodeStatic, carry_s: Carry, pod: PodRow, choice_s: torch.Tensor,
+    parts: frozenset = COMMIT_PARTS,
+):
+    """commit_choice on S lanes at once: `carry_s` leaves carry a leading
+    [S] axis, `choice_s` i32[S] (-1 = no commit) picks one node per lane,
+    and every lane shares `ns` (the row commit reads no valid mask).
+
+    Only the chosen row (or column) of each plane changes: gather it, apply
+    commit_onehot's row arithmetic, and write it back with a one-hot
+    `torch.where`, so a lane whose choice is -1 (or whose pod is a pad row)
+    keeps its carry bitwise. Bit-identity to the dense commit: its
+    unchosen rows add or subtract an exact +0.0 (every delta is
+    nonnegative) and its chosen row sees 1.0 * delta, which is delta.
+
+    `parts` (commit_parts) may leave out planes the pod cannot change: a
+    skipped plane would only have x - 0.0 (bitwise x) or x + 0.0 written
+    back on its counts, which are never -0.0 (they start at +0.0 and move
+    by whole units), and its takes are +0.0 either way.
+
+    Returns (carry_s, gpu_take f32[S,G], vg_take f32[S,V], dev_take
+    f32[S,DV])."""
+    n = ns.valid.shape[0]
+    S = choice_s.shape[0]
+    dev = choice_s.device
+    ok = (choice_s >= 0) & pod.valid                                   # [S]
+    row = torch.where(ok, choice_s, 0).long()
+    hit = (torch.arange(n, device=dev)[None, :] == choice_s[:, None]) & ok[:, None]
+    hit_row = hit[:, :, None]                                          # [S,N,1]
+    hit_col = hit[:, None, :]                                          # [S,1,N]
+    lanes = torch.arange(S, device=dev)
+
+    def set_row(plane, new):            # plane [S,N,X], new [S,X]
+        return torch.where(hit_row, new[:, None, :], plane)
+
+    def col(plane):                     # plane [S,X,N] -> [S,X]
+        return plane[lanes, :, row]
+
+    def set_col(plane, new):            # plane [S,X,N], new [S,X]
+        return torch.where(hit_col, new[:, :, None], plane)
+
+    c = carry_s
+    new = {"free": set_row(c.free, c.free[lanes, row] - pod.req)}
+    if "sel" in parts:
+        new["sel_counts"] = set_col(
+            c.sel_counts, col(c.sel_counts) + pod.match_sel.to(torch.float32)
+        )
+    if "anti" in parts:
+        new["anti_counts"] = set_col(c.anti_counts, col(c.anti_counts) + pod.own_anti)
+    G = c.gpu_free.shape[2]
+    if "gpu" in parts:
+        free_d = c.gpu_free[lanes, row]
+        take = _gpu_take(free_d, ns.gpu_total[row], pod)
+        gpu_take = torch.where(ok[:, None], take, 0.0)
+        new["gpu_free"] = set_row(c.gpu_free, free_d - gpu_take * pod.gpu_mem)
+    else:
+        gpu_take = torch.zeros((S, G), dtype=torch.float32, device=dev)
+    if "storage" in parts:
+        vg_row = c.vg_free[lanes, row]
+        dev_row = c.dev_free[lanes, row]
+        vg_t, dev_t = _local_storage_take_rows(
+            ns.vg_cap[row], ns.vg_name[row], ns.dev_cap[row], ns.dev_ssd[row],
+            vg_row, dev_row, pod,
+        )
+        vg_take = torch.where(ok[:, None], vg_t, 0.0)
+        dev_take = torch.where(ok[:, None], dev_t, 0.0)
+        new["vg_free"] = set_row(c.vg_free, vg_row - vg_t)
+        new["dev_free"] = set_row(c.dev_free, dev_row - dev_t)
+    else:
+        vg_take = torch.zeros((S, c.vg_free.shape[2]), dtype=torch.float32, device=dev)
+        dev_take = torch.zeros((S, c.dev_free.shape[2]), dtype=torch.float32, device=dev)
+    if "ports" in parts:
+        add_any, add_wild, add_ipc = port_adds(c.port_any.shape[1], c.port_ipc.shape[1], pod)
+        new["port_any"] = set_col(c.port_any, col(c.port_any) + add_any)
+        new["port_wild"] = set_col(c.port_wild, col(c.port_wild) + add_wild)
+        new["port_ipc"] = set_col(c.port_ipc, col(c.port_ipc) + add_ipc)
+    return c._replace(**new), gpu_take, vg_take, dev_take
+
+
+def commit_choice(ns: NodeStatic, carry: Carry, pod: PodRow, choice: torch.Tensor):
+    """commit_onehot for a known node index (i32 scalar, -1 = no commit) in
+    O(row) arithmetic: commit_choices_lanes on one lane. Returns (carry,
+    gpu_take f32[G], vg_take f32[V], dev_take f32[DV])."""
+    carry_s = Carry(*(a[None] for a in carry))
+    new_s, gpu_take, vg_take, dev_take = commit_choices_lanes(ns, carry_s, pod, choice.reshape(1))
+    return Carry(*(a[0] for a in new_s)), gpu_take[0], vg_take[0], dev_take[0]

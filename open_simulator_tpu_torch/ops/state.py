@@ -135,3 +135,47 @@ def align_carry(carry: Carry, enc: Encoder, ns: NodeStatic) -> Tuple[Carry, Node
     if have.shape != want.shape or not np.array_equal(have, want):
         ns = ns._replace(anti_topo=_t(want, ns.anti_topo.device))
     return carry, ns
+
+
+def stack_carry(carry: Carry, count: int) -> Carry:
+    """Scenario-stacked Carry: every leaf gains a leading [S] axis holding
+    `count` identical copies, the starting state of a multi-scenario sweep.
+
+    Each leaf is a fresh dense copy (`repeat`, never a stride-0 `expand`
+    view): the stacked carry shares no storage with `carry`, so a write to
+    one lane touches neither the other lanes nor the source, which may be
+    the simulator's live serial carry."""
+    return Carry(*(a.unsqueeze(0).repeat((count,) + (1,) * a.dim()) for a in carry))
+
+
+def _grow_rows_stacked(arr: torch.Tensor, rows: int) -> torch.Tensor:
+    s, old, n = arr.shape
+    if rows <= old:
+        return arr
+    out = torch.zeros((s, rows, n), dtype=arr.dtype, device=arr.device)
+    out[:, :old] = arr
+    return out
+
+
+def align_carry_scenarios(
+    carry_s: Carry, enc: Encoder, ns: NodeStatic
+) -> Tuple[Carry, NodeStatic]:
+    """align_carry for a scenario-stacked carry ([S, rows, N] leaves): grows
+    the selector/port/anti row axes (axis 1) in lockstep across all lanes
+    and refreshes NodeStatic.anti_topo as align_carry does. Returns the same
+    objects when nothing changed."""
+    pid, pip = port_table_sizes(enc)
+    new = {
+        "sel_counts": _grow_rows_stacked(carry_s.sel_counts, selector_table_size(enc)),
+        "port_any": _grow_rows_stacked(carry_s.port_any, pid),
+        "port_wild": _grow_rows_stacked(carry_s.port_wild, pid),
+        "port_ipc": _grow_rows_stacked(carry_s.port_ipc, pip),
+        "anti_counts": _grow_rows_stacked(carry_s.anti_counts, anti_table_size(enc)),
+    }
+    if any(v is not getattr(carry_s, k) for k, v in new.items()):
+        carry_s = carry_s._replace(**new)
+    want = anti_topo_array(enc)
+    have = ns.anti_topo.cpu().numpy()
+    if have.shape != want.shape or not np.array_equal(have, want):
+        ns = ns._replace(anti_topo=_t(want, ns.anti_topo.device))
+    return carry_s, ns

@@ -11,6 +11,12 @@ scheduling, preemption and decode):
   - `preempt`: `bench.py:720 config_preempt` (60 nodes of 8 cpu; 400
     low-priority pods fill them, then 100 pods at priority 100 arrive and
     must evict through DefaultPreemption's batched device probe).
+  - the capacity searches (`engine/capacity.plan_capacity`): `plan_spec()`
+    with `bench.py:475`'s 32 cpu / 64Gi template (`plan_full`), the same
+    shapes at `PLAN_SMALL`, and `bench.py:490 config_capacity_sweep`; and
+    `bench.py:559 config_multi_scenario`'s 64 lanes through
+    `simulate_batch`. `CAPACITY_DIGESTS`, `MULTI_SCENARIO_DIGESTS` and
+    `QUICKSTART_DIGEST` hold the JAX package's answers.
 
 Each `*_spec` returns plain dicts, so the tests can build the same input for
 both packages; `plan` / `preempt` build the port's ClusterResource and apps.
@@ -52,6 +58,70 @@ APPLY_DIGESTS = {
         "cd8f9a5384844aa76bd8e1b97064583a", "6241ba2541837f3f", 0,
     ),
 }
+
+
+# plan_small's size, cut from 10,000 x 1,000 to fit chip_smoke.py's time
+# limit: in auto mode on a card the search runs the wave engine, whose
+# 256-pod waves on this workload all run the 24-round budget and then the
+# serial fallback (7.6-12.7 s a wave at 2,000 x 200, PERF.md §5). At
+# 10,000 x 1,000 that is ~80 waves, 10-17 minutes, more than the whole
+# script may take. ROADMAP.md Queue 2 restores the size once sweeps are faster.
+PLAN_SMALL = (2_000, 200)
+
+# plan_capacity of each workload from the JAX package after reset_name_rng(),
+# keyed "<name>/<sweep_mode>": (nodes_added, attempts, batched_calls,
+# result_digest of the plan's result). plan_full is plan_spec() (100,000 pods
+# x 10,000 nodes), plan_small plan_spec(*PLAN_SMALL), both with
+# template_spec(); capacity_sweep is capacity_sweep_spec() with the same
+# template. (tests/test_torch_capacity.py recomputes them; plan_* are slow.)
+CAPACITY_DIGESTS = {
+    "plan_full/serial": (235, 10, 0, "a35e3c5da4b96e1b84a3e3af20136681"),
+    "plan_small/serial": (5, 5, 0, "8b4552a4758feeb6894ec787d90be850"),
+    "plan_small/auto": (5, 14, 2, "8b4552a4758feeb6894ec787d90be850"),
+    "capacity_sweep/serial": (46, 13, 0, "1c99963293d482e13e8d4dab5c5fdaa2"),
+    "capacity_sweep/batched": (46, 19, 3, "1c99963293d482e13e8d4dab5c5fdaa2"),
+    "capacity_sweep/auto": (46, 19, 3, "1c99963293d482e13e8d4dab5c5fdaa2"),
+}
+# simulate_batch of multi_scenario_spec() over multi_scenario_counts() (64
+# lanes) from the JAX package: each lane's result_digest, by its node count.
+MULTI_SCENARIO_DIGESTS = {
+    32: "29b139c973f53dc9c250d94b9d90d317",
+    33: "744a09755be8d4ea7df4472725c5b005",
+    34: "c19fd8414a7b5283f3af897f9ef7a513",
+    35: "a4c7be5e28d155ec588b925e9064a15a",
+    36: "5e1d7302d2c9879b06a04013a6e83e04",
+    37: "2d7caad30cf2de7448f0103463936206",
+    38: "cc35a348dcfa62629f0a30a8b13ad036",
+    39: "f8ab68f6fbfb10fe1fe85496768d88f4",
+    40: "9d7f7b0e98afa6df8e626ac56bdb7c86",
+    41: "789d2d81a5551ad0677aec03473ba5b2",
+    42: "fe8b9e9b13eb282b2536dfa3df36ec65",
+    43: "88129fee7f0211fb41f4a0cc2e91d8c6",
+    44: "8da93fc3024f55ef6ac07ab5c4560fb9",
+    45: "dff2c786f2b49515bdc3037b8e07a5cc",
+    46: "536eaa54c01deb1700380472616f5eb5",
+    47: "585bd0c867462eae80a60352252604eb",
+    48: "eee6860b3d69287403e7c88dbb483375",
+    49: "4794c1af06d58c161d9ee6bebc5f8351",
+    50: "c48b91fd37de56c323f72b61aebd24db",
+    51: "c34f1e1eb1c6c62299c067df051f6e2e",
+    52: "7caeea062435c299c3cb8662381eafdc",
+    53: "0d3706a37691cf67bfd8c6ca8e0ea147",
+    54: "3667238e87f77c9507efb1d80b9d0db3",
+    55: "4f41e25577358cafdd614abc3d02a8ec",
+    56: "adc41a91c5676e3b03f7a6cc4ddf02a6",
+    57: "20cb232443df22925814668c2c46ae37",
+    58: "e48ca124395f1255e74674d1bae5478a",
+    59: "bd1886442205826c54eefd57a0cc4eb9",
+    60: "97692296ddff536d794cc889bb467a42",
+    61: "5b6db272e6a56514ddbb435bc7a68df5",
+    62: "f6270c6c50b32db148f7f5ac256be9fe",
+    63: "75e3dc94dc509e429f0e540043b8ed0c",
+    64: "db94fd60dc68b2599f4257425ed0059b",
+}
+# example/simon-config.yaml through run_apply(auto_plan=True) in the JAX
+# package: (report_digest, placement_digest, nodes_added, attempts).
+QUICKSTART_DIGEST = ("3140719f1dc40b4e23a84fdb1dbd5530", "65b089aece437ea2", 1, 2)
 
 
 def _mk_node(name, cpu, mem, labels=None) -> dict:
@@ -118,6 +188,43 @@ def preempt_spec(n_nodes: int = 60, n_low: int = 400, n_high: int = 100) -> Spec
     low = _mk_deploy("low-tier", n_low, "1", "1Gi")
     high = _mk_deploy("high-tier", n_high, "2", "1Gi", spec_extra={"priority": 100})
     return nodes, [("bench", [low, high])]
+
+
+def template_spec() -> dict:
+    """The capacity searches' candidate node (`bench.py:475`): 32 cpu, 64Gi."""
+    return _mk_node("new-node", "32", "64Gi")
+
+
+def capacity_sweep_spec(n_base: int = 2, n_replicas: int = 48) -> Spec:
+    """`bench.py:490 config_capacity_sweep`: required hostname anti-affinity
+    makes every replica need its own node, so the demand estimate (~1 node)
+    is far below the answer (n_replicas - n_base)."""
+    anti = {
+        "affinity": {
+            "podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    {
+                        "labelSelector": {"matchLabels": {"app": "lonely"}},
+                        "topologyKey": "kubernetes.io/hostname",
+                    }
+                ]
+            }
+        }
+    }
+    nodes = [_mk_node(f"n-{i}", "32", "64Gi") for i in range(n_base)]
+    return nodes, [("bench", [_mk_deploy("lonely", n_replicas, "500m", "1Gi", spec_extra=anti)])]
+
+
+def multi_scenario_spec(n_nodes: int = 64, n_pods: int = 400) -> Spec:
+    """`bench.py:559 config_multi_scenario`'s cluster and app."""
+    nodes = [_mk_node(f"n-{i}", "16", "32Gi") for i in range(n_nodes)]
+    return nodes, [("bench", [_mk_deploy("web", n_pods, "500m", "1Gi")])]
+
+
+def multi_scenario_counts(n_scenarios: int = 64, n_nodes: int = 64) -> List[int]:
+    """The node count of each of config_multi_scenario's lanes: they cycle
+    over the top half of the cluster."""
+    return [n_nodes // 2 + (i % (n_nodes // 2 + 1)) for i in range(n_scenarios)]
 
 
 def build(spec: Spec, node_cls, cluster_cls, app_cls):

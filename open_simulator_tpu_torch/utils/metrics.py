@@ -1,7 +1,8 @@
 """Scheduler metrics: labeled counters and histograms.
 
 The port's copy of the JAX package's registry, cut to the metrics the
-simulator, preemption and apply paths increment (kube-scheduler names under
+simulator, preemption, capacity search, scenario sweep and apply paths
+increment (kube-scheduler names under
 the `osim_` prefix). No Prometheus exposition: the port has no server yet.
 
     osim_e2e_scheduling_duration_seconds  -> scheduler_e2e_scheduling_duration_seconds
@@ -49,6 +50,24 @@ class Counter:
         key = self._key(labels)
         with self._lock:
             return self._values.get(key, 0.0)
+
+
+class Gauge:
+    """One float, set to the latest value."""
+
+    def __init__(self, name: str, help: str) -> None:
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def value(self) -> float:
+        with self._lock:
+            return self._value
 
 
 class Histogram:
@@ -138,6 +157,61 @@ APPLY_RUNS = Counter(
     "osim_apply_total",
     "simon-apply runs, by outcome.",
     labelnames=("outcome",),
+)
+
+CAPACITY_PROBES = Counter(
+    "osim_capacity_probe_total",
+    "Capacity-planner probes: serial simulate() probes plus the lanes of "
+    "batched sweeps.",
+)
+CAPACITY_NODES_ADDED = Gauge(
+    "osim_capacity_plan_nodes_added",
+    "Nodes added by the most recent capacity plan.",
+)
+NODE_BUCKET = Gauge(
+    "osim_node_bucket",
+    "Node-axis ladder rung (padded node count, ops.encode.node_bucket) of "
+    "the most recent capacity-sweep device call.",
+)
+BATCH_SWEEP_DURATION = Histogram(
+    "osim_batch_sweep_duration_seconds",
+    "Wall-clock duration of one batched multi-scenario sweep call "
+    "(capacity ladder or refinement), seconds.",
+)
+LANE_OCCUPANCY = Histogram(
+    "osim_lane_occupancy_ratio",
+    "Real scenario lanes over padded lanes (s_real / s_pad) per batched "
+    "sweep.",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+)
+SCENARIOS_PER_CALL = Histogram(
+    "osim_scenarios_per_call",
+    "Scenarios evaluated by one batched scheduling call; the sample count "
+    "is the number of batched calls.",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+PLAN_CHUNKS = Counter(
+    "osim_plan_chunks_total",
+    "Commit chunks (or waves) executed by the chunked and wave scenario "
+    "drivers.",
+)
+COMMIT_ROUNDS = Histogram(
+    "osim_commit_rounds",
+    "Rounds to fixpoint per wave of the wave commit engine (ops/wave.py); "
+    "a wave that exhausts its round budget records the rounds it burned "
+    "before the serial fallback.",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+)
+WAVE_CONFLICTS = Counter(
+    "osim_wave_conflicts_total",
+    "Pod decisions revised between wave rounds (choice changes observed in "
+    "rounds >= 2).",
+)
+WAVE_FALLBACKS = Counter(
+    "osim_wave_fallbacks_total",
+    "Waves re-run through the serial chunked scan after missing the "
+    "fixpoint within the round budget (OSIM_WAVE_ROUNDS), by reason.",
+    labelnames=("reason",),
 )
 
 # span names with a dedicated kube-parity histogram

@@ -75,14 +75,90 @@ def test_cli_apply_writes_report(jax_outcomes, tmp_path):
     assert report.read_text().splitlines()[-1] == "device: cpu"
 
 
-def test_apply_capacity_search_not_ported():
-    """With auto_plan (the default) and unscheduled pods, the reference
-    searches for a node count; the port refuses instead of answering less."""
+def test_cli_apply_deadline_exits(monkeypatch, capsys):
+    """A simulation that outlives OSIM_CALL_DEADLINE_S ends the CLI with exit
+    code 3 and the watchdog's message; nothing degrades to another device.
+    (The abandoned worker thread is joined here so that it does not draw
+    names from the shared RNG during later tests.)"""
+    import threading
+
+    monkeypatch.setenv("OSIM_CALL_DEADLINE_S", "1e-6")
     twl.reset_name_rng()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapply.run_apply(load(TConfig, CONFIGS[0]), out=io.StringIO(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapply.run_apply(load(TConfig, CONFIGS[0]), interactive=True, device="cpu")
+    rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[0]), "--device", "cpu"])
+    for t in threading.enumerate():
+        if t.name.startswith("osim-guarded-"):
+            t.join()
+    assert rc == 3
+    err = capsys.readouterr().err
+    assert "error: apply-simulate exceeded 1e-06s deadline; abandoned" in err
+
+
+def _search_runs(path, **kw):
+    """The same run_apply call through both packages: (outcome, printed
+    text) each, name RNG reset first."""
+    runs = {}
+    for pkg, mod, cfg_cls, extra in (("jax", japply, JConfig, {}),
+                                     ("torch", tapply, TConfig, {"device": "cpu"})):
+        (jwl if pkg == "jax" else twl).reset_name_rng()
+        buf = io.StringIO()
+        runs[pkg] = (mod.run_apply(load(cfg_cls, path), out=buf, **kw, **extra), buf.getvalue())
+    return runs
+
+
+def test_apply_capacity_search_matches_jax(tmp_path):
+    """run_apply(auto_plan=True) on the quickstart config: the search lines,
+    the planned cluster's report, placement digest, nodes_added and
+    attempts equal the JAX run's and sim_configs.QUICKSTART_DIGEST; the CLI
+    without --no-auto-plan prints the same."""
+    runs = _search_runs(CONFIGS[0])
+    (jout, jtext), (tout, ttext) = runs["jax"], runs["torch"]
+    strip = [ln for ln in ttext.splitlines() if not ln.startswith("device:")]
+    assert strip == [ln for ln in jtext.splitlines() if not ln.startswith("device:")]
+    assert strip[0].endswith("pod(s) unschedulable; searching for minimum copies of node bigworker...")
+    assert strip[1].startswith("capacity plan: add 1 x bigworker (")
+    want = sc.QUICKSTART_DIGEST
+    got = (sc.report_digest(ttext), tapply.placement_digest(tout.result),
+           tout.plan.nodes_added, tout.plan.attempts)
+    assert got == want
+    assert (tout.plan.nodes_added, tout.plan.attempts) == (jout.plan.nodes_added, jout.plan.attempts)
+    assert not tout.result.unscheduled
+    report = tmp_path / "report.txt"
+    twl.reset_name_rng()
+    rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[0]), "--device", "cpu",
+                   "--output-file", str(report)])
+    assert rc == 0
+    assert sc.report_digest(report.read_text()) == sc.report_digest(jtext)
+
+
+def test_apply_interactive_loop_matches_jax(capsys):
+    """The reference's interactive loop with a scripted input: deploy every
+    app, show the reasons, add nodes, quit; the report, the loop's own lines
+    (on stderr while the report goes to a stream) and the final result
+    equal the JAX loop's."""
+    def scripted():
+        answers = iter(["", "r", "a", "a", "q"])
+        return lambda _prompt: next(answers)
+
+    runs = {}
+    for pkg, mod, cfg_cls, extra in (("jax", japply, JConfig, {}),
+                                     ("torch", tapply, TConfig, {"device": "cpu"})):
+        (jwl if pkg == "jax" else twl).reset_name_rng()
+        buf = io.StringIO()
+        capsys.readouterr()
+        out = mod.run_apply(load(cfg_cls, CONFIGS[0]), interactive=True, out=buf,
+                            input_fn=scripted(), **extra)
+        runs[pkg] = (out, buf.getvalue(), capsys.readouterr().err)
+    (jout, jtext, jerr), (tout, ttext, terr) = runs["jax"], runs["torch"]
+    assert sc.report_digest(ttext) == sc.report_digest(jtext)
+    def loop_lines(err):
+        return [ln for ln in err.splitlines()
+                if ln.startswith(("applications", "  [", "2 pod")) or "nodes are available" in ln]
+
+    loop = loop_lines(terr)
+    assert loop == loop_lines(jerr)
+    assert "2 pod(s) failed to schedule." in loop and any("nodes are available" in ln for ln in loop)
+    assert sc.result_digest(tout.result) == sc.result_digest(jout.result)
+    assert tout.plan is None
 
 
 def test_apply_defaults_to_cuda(monkeypatch):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import open_simulator_tpu_torch  # noqa: F401  (sets the TF32 switches)
-from open_simulator_tpu_torch import headline
+from open_simulator_tpu_torch import headline, sim_configs
 from open_simulator_tpu_torch.ops import domain_pop as dp
 from open_simulator_tpu_torch.ops import encode, fast, kernels, state
 
@@ -27,17 +27,27 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "build_state", "node_static_from_table", "carry_from_table",
-    "pod_rows_from_batch", "weights_array",
+    "pod_rows_from_batch", "weights_array", "plan_capacity", "simulate_batch",
+    "ScenarioSession",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry):
+    from open_simulator_tpu_torch.core.objects import Node
+    from open_simulator_tpu_torch.engine import capacity, simulator
+
     enc = encode.Encoder()
     table = encode.encode_nodes(enc, [])
+    cluster, apps = sim_configs.plan(20, 4)
     calls = {
         "build_state": lambda: headline.build_state(3, 8),
         "node_static_from_table": lambda: state.node_static_from_table(enc, table),
         "carry_from_table": lambda: state.carry_from_table(table),
         "pod_rows_from_batch": lambda: state.pod_rows_from_batch(encode.encode_pods(enc, [])),
         "weights_array": lambda: kernels.weights_array(),
+        "plan_capacity": lambda: capacity.plan_capacity(
+            cluster, apps, Node.from_dict(sim_configs.template_spec())),
+        "simulate_batch": lambda: simulator.simulate_batch(
+            cluster, apps, [simulator.Scenario(node_count=2)]),
+        "ScenarioSession": lambda: simulator.ScenarioSession(cluster, apps),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -108,6 +118,7 @@ def test_port_import_loads_no_jax():
     code = (
         "import sys, open_simulator_tpu_torch.headline, open_simulator_tpu_torch.interop, "
         "open_simulator_tpu_torch.ops.fast, open_simulator_tpu_torch.engine.simulator, "
+        "open_simulator_tpu_torch.engine.capacity, open_simulator_tpu_torch.ops.wave, "
         "open_simulator_tpu_torch.engine.apply, open_simulator_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'open_simulator_tpu' or m.startswith('open_simulator_tpu.')]\n"
