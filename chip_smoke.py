@@ -43,18 +43,32 @@
    multi_scenario's 64 lanes through `simulate_batch`; the quickstart
    config through `run_apply(auto_plan=True)`. Every result is held against
    the JAX package's constants in `sim_configs`.
-6. Holds every kernel against its plain PyTorch version on the card, on the
+6. Drives `simon prove` (analysis/semantics.py): the whole corpus of
+   151,875 universes through the serial universe scan and through the wave
+   engine, each with 0 divergences against the port's oracle and verifying
+   the unchanged budgets/commit_contract.json, then the tiebreak and
+   nocommit mutations on the reference's PINNED universes, which must be
+   caught and minimized; prints wall, device calls, universes/s, wave
+   rounds per chunk and the oracle's share of the wall.
+7. Drives scheduler extenders against stub servers on 127.0.0.1
+   (tools/stubs.py): simulate() behind a filter + prioritize + preempt
+   extender (two full waves of 64 pods and four preemptions),
+   plan_capacity behind an extender with one transient blip injected
+   (retries 1), and run_apply on a kubeConfig served by a stub apiserver,
+   each against the JAX package's constants in `sim_configs`; prints walls,
+   waves, HTTP calls and respills.
+8. Holds every kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it, on those of spread_affinity's DoNotSchedule
    group and of the simulator's plan call, and on extra seeded variants, and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
    pairs).
-7. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+9. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-8. Prints one JSON line of per-kernel numbers (launches summed over the
+10. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
-   preempt call, the apply runs and the capacity phase) and, last, the
-   result line.
+   preempt call, the apply runs, the capacity, prove and extender phases)
+   and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -803,6 +817,177 @@ def capacity_phase(torch, dp, fast):
     return results, failures, launches
 
 
+def prove_phase(torch, dp):
+    """`simon prove` on the card: the whole corpus (151,875 universes)
+    through the serial universe scan and through the wave engine, each with
+    0 divergences against the port's oracle and verifying the unchanged
+    budgets/commit_contract.json; then both commit-rule mutations on the
+    reference's PINNED universes, which must be caught (tiebreak's
+    counterexample minimized, no larger than the universe that diverged).
+    Each engine runs as the CLI runs it, with its own oracle pass. Returns
+    (results, failures, domain_pop launches)."""
+    from open_simulator_tpu_torch.analysis import semantics
+    from open_simulator_tpu_torch.utils import metrics
+
+    results, failures = {}, []
+    dp.launches = 0
+    for engine in ("serial", "wave"):
+        rounds0 = metrics.COMMIT_ROUNDS.child_state()
+        falls0 = metrics.WAVE_FALLBACKS.value(reason="universes_max_rounds")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = semantics.run_prove(engine=engine, device="cuda")
+        wall = time.perf_counter() - t0
+        rounds1 = metrics.COMMIT_ROUNDS.child_state()
+        chunks = rounds1[2] - rounds0[2]
+        rounds = rounds1[1] - rounds0[1]
+        falls = metrics.WAVE_FALLBACKS.value(reason="universes_max_rounds") - falls0
+        stats = {
+            "wall_s": wall, "universes": rep.universes_checked, "device_calls": rep.device_calls,
+            "universes_per_s": rep.universes_checked / wall, "engine_s": rep.engine_s,
+            "oracle_s": rep.oracle_s, "oracle_share": rep.oracle_s / wall,
+            "divergences": rep.divergence_total, "digest": rep.digest,
+            "contract_ok": rep.contract_ok, "wave_chunks": chunks,
+            "rounds_per_chunk": rounds / chunks if chunks else None, "fallbacks": falls,
+        }
+        results[engine] = stats
+        print(f"prove[{engine}] {rep.universes_checked} universes: wall {wall:.3f} s "
+              f"({rep.universes_checked / wall:.1f} universes/s), {rep.device_calls} device "
+              f"calls, engine {rep.engine_s:.3f} s, oracle {rep.oracle_s:.3f} s "
+              f"({100 * rep.oracle_s / wall:.1f} % of the wall), divergences "
+              f"{rep.divergence_total}, contract {'VERIFIED' if rep.contract_ok else 'VIOLATED'} "
+              f"{rep.digest[:15]}..."
+              + (f", {chunks} chunks at {rounds / chunks:.2f} rounds each, {falls:.0f} fell back"
+                 if engine == "wave" else ""), flush=True)
+        if not (rep.ok and rep.contract_ok and rep.divergence_total == 0
+                and rep.universes_checked == 151_875):
+            failures.append(f"prove[{engine}]: {rep.divergence_total} divergences, contract "
+                            f"{rep.contract_ok} {rep.contract_messages}")
+        if engine == "wave" and chunks != rep.device_calls:
+            failures.append(f"prove[wave]: {chunks} wave drives for {rep.device_calls} chunks")
+    scope = semantics.SmallScope()
+    pinned = [semantics.Universe(n, p) for n, p in (
+        ("B---", "ppppp"), ("AA--", "ppppp"), ("D---", "ppppp"), ("B---", "qqqqq"),
+        ("A---", "rrrrr"), ("A---", "ppppq"), ("C---", "rrrrr"))]
+    for mode in semantics.MUTATIONS:
+        t0 = time.perf_counter()
+        rep = semantics.check_universes(scope, pinned, mutate=mode, device="cuda")
+        caught = rep.divergence_total > 0 and not rep.ok
+        small = None
+        if caught:
+            bad = semantics.Universe(*rep.divergences[0].universe.split("/"))
+            small = semantics.minimize(scope, bad, mode, device="cuda")
+            if not (semantics._diverges(scope, small, mode, device="cuda")
+                    and len(small.nodes.replace("-", "")) <= len(bad.nodes.replace("-", ""))
+                    and len(small.pods) <= len(bad.pods)):
+                failures.append(f"prove mutation {mode}: minimized {small.key} does not hold")
+        wall = time.perf_counter() - t0
+        print(f"prove mutation {mode}: caught {caught} ({rep.divergence_total} diverging fields), "
+              f"minimized counterexample {small.key if small else None}, {wall:.3f} s", flush=True)
+        results[f"mutate_{mode}"] = {"caught": caught, "minimized": small.key if small else None,
+                                     "wall_s": wall}
+        if not caught:
+            failures.append(f"prove mutation {mode} was not caught")
+    return results, failures, dp.launches
+
+
+def extender_phase(torch, dp):
+    """Scheduler extenders, their retries and kubeConfig snapshots on the
+    card, against local stub servers on 127.0.0.1 (tools/stubs.py):
+    simulate() of sim_configs.extender_spec() behind a filter + prioritize +
+    preempt extender (two full waves of 64 pods, four preemptions through
+    the preempt verb); plan_capacity behind an extender that admits only
+    the clones, with one transient blip injected (retries must be 1); and
+    run_apply on a kubeConfig served by a stub apiserver. Each result and
+    the stubs' request counts are held against the JAX package's constants.
+    Returns (results, failures, domain_pop launches)."""
+    import io
+    import os
+    import tempfile
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.api.config import SimonConfig
+    from open_simulator_tpu_torch.core import objects, workloads
+    from open_simulator_tpu_torch.engine import apply, capacity, simulator
+    from open_simulator_tpu_torch.models import profiles
+    from open_simulator_tpu_torch.resilience import faults, policy
+    from open_simulator_tpu_torch.tools import stubs
+    from open_simulator_tpu_torch.utils import httppool, metrics
+
+    results, failures = {}, []
+    dp.launches = 0
+    stub = stubs.StubExtender(sc.EXTENDER_BEHAVIOR)
+    cstub = stubs.StubExtender(sc.EXTENDER_CAPACITY_BEHAVIOR)
+    api = stubs.StubApiServer(stubs.KUBE_APIS)
+    saved = {k: os.environ.get(k) for k in ("OSIM_RETRY_BASE_S", "OSIM_BREAKER_THRESHOLD")}
+    try:
+        for run in ("cold", "warm"):
+            workloads.reset_name_rng()
+            policy.reset_breakers()
+            stub.calls.clear()
+            respill0 = metrics.EXTENDER_WAVE_RESPILL.value()
+            waves0 = metrics.EXTENDER_WAVE_SIZE.child_state()[2]
+            t0 = time.perf_counter()
+            res = sc.extender_simulate(simulator, objects, profiles, stub.url, device="cuda")
+            wall = time.perf_counter() - t0
+            got = (sc.result_digest(res), stub.verb_counts())
+            waves = metrics.EXTENDER_WAVE_SIZE.child_state()[2] - waves0
+            respills = metrics.EXTENDER_WAVE_RESPILL.value() - respill0
+            print(f"extenders[simulate {run}] {sc.result_counts(res)} placed/unscheduled/"
+                  f"preempted: wall {wall:.3f} s, {waves} waves, {respills:.0f} respills, "
+                  f"HTTP {got[1]}, digest {got[0]}", flush=True)
+            results[f"simulate_{run}"] = {"wall_s": wall, "waves": waves, "respills": respills,
+                                          "http": got[1], "counts": sc.result_counts(res)}
+            if got != sc.EXTENDER_DIGESTS["simulate"]:
+                failures.append(f"extenders[simulate {run}]: {got} != "
+                                f"{sc.EXTENDER_DIGESTS['simulate']}")
+        # the blip must not open the circuit, and backoff sleeps are noise
+        os.environ["OSIM_RETRY_BASE_S"] = "0"
+        os.environ["OSIM_BREAKER_THRESHOLD"] = "1000"
+        workloads.reset_name_rng()
+        policy.reset_breakers()
+        httppool.reset_pools()
+        faults.install_plan(faults.FaultPlan.from_dict(sc.EXTENDER_FAULT_PLAN))
+        t0 = time.perf_counter()
+        try:
+            plan = sc.extender_capacity(simulator, objects, profiles, capacity, cstub.url,
+                                        device="cuda")
+        finally:
+            faults.uninstall_plan()
+        wall = time.perf_counter() - t0
+        got = (plan.nodes_added, plan.attempts, plan.retries, sc.result_digest(plan.result),
+               cstub.verb_counts())
+        print(f"extenders[capacity] +{plan.nodes_added} nodes in {plan.attempts} simulations, "
+              f"retries {plan.retries}: wall {wall:.3f} s, HTTP {got[4]}", flush=True)
+        results["capacity"] = {"wall_s": wall, "nodes_added": plan.nodes_added,
+                               "attempts": plan.attempts, "retries": plan.retries, "http": got[4]}
+        if got != sc.EXTENDER_DIGESTS["capacity"] or plan.retries != 1:
+            failures.append(f"extenders[capacity]: {got} != {sc.EXTENDER_DIGESTS['capacity']}")
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = SimonConfig.load(stubs.write_kube_apply_config(tmp, api.url))
+            workloads.reset_name_rng()
+            t0 = time.perf_counter()
+            outcome = apply.run_apply(cfg, auto_plan=False, out=io.StringIO(), device="cuda")
+            wall = time.perf_counter() - t0
+        got = (sc.report_digest(outcome.report), apply.placement_digest(outcome.result),
+               len(outcome.result.unscheduled))
+        print(f"extenders[kubeConfig apply] wall {wall:.3f} s, {len(api.auth_seen)} apiserver "
+              f"GETs, report {got[0]}, placement {got[1]}", flush=True)
+        results["kube_apply"] = {"wall_s": wall, "gets": len(api.auth_seen)}
+        if got != sc.KUBE_APPLY_DIGEST:
+            failures.append(f"extenders[kubeConfig apply]: {got} != {sc.KUBE_APPLY_DIGEST}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for srv in (stub, cstub, api):
+            srv.close()
+        httppool.reset_pools()
+    return results, failures, dp.launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -927,6 +1112,20 @@ def main() -> int:
         return 1
     launches += cap_launches
 
+    # -- simon prove: universe engines, oracle, commit-order contract ------
+    prove_results, failures, prove_launches = prove_phase(torch, dp)
+    if failures:
+        print("chip_smoke: prove FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += prove_launches
+
+    # -- scheduler extenders, retries and kubeConfig snapshots -------------
+    ext_results, failures, ext_launches = extender_phase(torch, dp)
+    if failures:
+        print("chip_smoke: extenders FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += ext_launches
+
     # -- kernels vs plain versions on the card -----------------------------
     main_args = captured[0]
     ms, plain_ms, err, placed = check_pop("main-path", main_args, dp, torch, reps=5)
@@ -992,7 +1191,8 @@ def main() -> int:
                 "phase_s": phase_s, "phases": phases, "probe_cycles_per_pop": probe_cycles,
                 "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
                 "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
-                "capacity": cap_results, "kernels": kernel_rows,
+                "capacity": cap_results, "prove": prove_results, "extenders": ext_results,
+                "kernels": kernel_rows,
             }, f, indent=1, default=str)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ config names a new node, searches for the number of new nodes
 (engine/capacity.py) or runs the interactive add-node loop; then prints the
 report.
 
-Not ported yet: a real cluster through `kubeConfig`, the run journal
-(ROADMAP.md Queue 1 item 13). Nothing falls back to another device: a
+A config's `kubeConfig` snapshots a real cluster through
+utils/kubeclient.py. Not ported yet: the run journal (ROADMAP.md Queue 1
+item 13). Nothing falls back to another device: a
 watchdog deadline (OSIM_CALL_DEADLINE_S) reaches the caller as
 DeadlineExceeded.
 """
@@ -46,10 +47,17 @@ class ApplyError(Exception):
 
 def build_cluster(cfg: SimonConfig) -> ClusterResource:
     if cfg.kube_config:
-        raise NotImplementedError(
-            "spec.cluster.kubeConfig (a real cluster snapshot) is not ported to "
-            "open_simulator_tpu_torch yet; use spec.cluster.customConfig"
-        )
+        # a real cluster's snapshot (CreateClusterResourceFromClient,
+        # simulator.go:503-601) through the built-in REST client
+        from ..utils.kubeclient import KubeClientError, create_cluster_resource_from_kubeconfig
+
+        try:
+            cluster = create_cluster_resource_from_kubeconfig(cfg.kube_config)
+        except KubeClientError as e:
+            raise ApplyError(f"spec.cluster.kubeConfig: {e}")
+        if not cluster.nodes:
+            raise ApplyError("cluster snapshot returned no nodes")
+        return cluster
     objs = objects_from_directory(cfg.custom_config)
     cluster = ClusterResource.from_objects(objs)
     if not cluster.nodes:
@@ -203,6 +211,7 @@ def run_apply(
     input_fn=input,
     scheduler_config: str = "",
     use_greed: bool = False,
+    extended_resources: Optional[List[str]] = None,
     device=DEFAULT_DEVICE,
 ) -> ApplyOutcome:
     """Simulate the config's apps on its cluster on `device` (CUDA by
@@ -211,7 +220,8 @@ def run_apply(
     else with `auto_plan`, the capacity search, which prints the
     reference's `N pod(s) unschedulable; searching ...` and `capacity plan:
     add K x <node> (A simulations)` lines and reports the planned cluster.
-    Then the report and a `device:` line."""
+    Then the report (`extended_resources`: the extended views to show, None
+    = every view with data) and a `device:` line."""
     from ..durable.watchdog import call_deadline_s, guarded_call
     from ..models.profiles import load_scheduler_config
 
@@ -266,15 +276,19 @@ def run_apply(
             if plan is None:
                 print("capacity search failed: workload does not fit", file=out)
             else:
+                degraded = (
+                    f", {plan.retries} retried on transient extender errors"
+                    if plan.retries else ""
+                )
                 print(
                     f"capacity plan: add {plan.nodes_added} x {new_node.name} "
-                    f"({plan.attempts} simulations)",
+                    f"({plan.attempts} simulations{degraded})",
                     file=out,
                 )
                 result = plan.result
 
     with span("render-report"):
-        report = full_report(result)
+        report = full_report(result, extended_resources=extended_resources)
     if failed_apps:
         report += "\n" + "\n".join(f"FAILED APP {fa.name}: {fa.error}" for fa in failed_apps)
     outcome = "ok"

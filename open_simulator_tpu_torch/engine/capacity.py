@@ -17,10 +17,10 @@ shapes that return the same plan:
     between sweeps (_TrialReuse).
 
 Either way the winning count is re-simulated serially (`finalize`) and must
-still pass. Not ported yet (ROADMAP.md Queue 1): the run journal and resume
-(item 13), meshes (item 13) and extenders with their transient-retry policy
-(item 11); without extenders no probe can fail transiently, so
-`CapacityPlan.retries` stays 0.
+still pass. A probe whose pods failed on a transient extender error (a
+blip, not a verdict) is re-run once before its verdict is trusted
+(`CapacityPlan.retries` counts those re-runs). Not ported yet (ROADMAP.md
+Queue 1): the run journal and resume (item 13) and meshes (item 13).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ..core.objects import LABEL_NEW_NODE, Node
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..durable.watchdog import call_deadline_s, guarded_call
 from ..ops.encode import clear_node_row, encode_node_into, node_bucket
+from ..resilience.policy import RetryExhaustedError, RetryPolicy
 from ..utils import metrics
 from ..utils.tracing import log, span
 from .simulator import (
@@ -194,11 +195,21 @@ class CapacityPlan:
     nodes_added: int
     result: SimulateResult
     attempts: int
-    # probes re-run after a transient extender failure (extenders are not
-    # ported, so 0)
+    # probes re-run because a transient extender failure (not a scheduling
+    # verdict) left pods unscheduled: nonzero means the search ran degraded
     retries: int = 0
     # batched sweeps the search issued; 0 on the serial bisection
     batched_calls: int = 0
+
+
+class _TransientTrialError(Exception):
+    """A capacity probe left pods unscheduled because of a transient extender
+    failure (UnscheduledPod.transient), not a scheduling verdict. Carries the
+    result so an exhausted retry can still return it honestly."""
+
+    def __init__(self, result: SimulateResult, reason: str) -> None:
+        super().__init__(reason)
+        self.result = result
 
 
 def lower_bound_nodes(result: SimulateResult, template: Node) -> int:
@@ -248,24 +259,27 @@ def plan_capacity(
         raise _not_ported("the capacity run journal and resume", 13, "durability + parallelism")
     if mesh is not None:
         raise _not_ported("a device mesh", 13, "durability + parallelism")
-    if extenders:
-        raise _not_ported("scheduler extenders", 11, "extenders")
     if sweep_mode not in ("auto", "serial", "batched"):
         raise ValueError(f"sweep_mode must be auto|serial|batched, got {sweep_mode!r}")
     dev = resolve_device(device)
 
     attempts = 0
+    retries = 0
     batched_calls = 0
     n_base = len(cluster.nodes)
     # expansion is node-independent for everything but DaemonSets: one
     # cache expands the workload once for the whole search
     expand_cache: dict = {}
+    # a trial whose pods failed on a transient extender error is re-run once
+    # before its node count is trusted: buying nodes for a transport timeout
+    # would mis-size the cluster
+    trial_policy = RetryPolicy.from_env(max_attempts=2)
 
     mode = sweep_mode
     if mode != "serial":
         reason = batch_ineligible_reason(
             cluster, apps, [Scenario(node_count=0)], use_greed=use_greed,
-            profiles=profiles,
+            profiles=profiles, extenders=extenders,
         )
         if reason is not None:
             if mode == "batched":
@@ -285,7 +299,7 @@ def plan_capacity(
     def good(res: SimulateResult) -> bool:
         return not res.unscheduled and satisfy_resource_setting(res)
 
-    def run_trial(k: int, n_pad: Optional[int]) -> SimulateResult:
+    def _probe(k: int, n_pad: Optional[int]) -> SimulateResult:
         trial = ClusterResource(
             nodes=list(cluster.nodes) + new_fake_nodes(new_node, k),
             pods=list(cluster.pods),
@@ -298,15 +312,50 @@ def plan_capacity(
                 "capacity-probe",
                 lambda: simulate(
                     trial, apps, weights=weights, use_greed=use_greed, n_pad=n_pad,
-                    profiles=profiles, expand_cache=expand_cache, device=dev,
+                    profiles=profiles, expand_cache=expand_cache, extenders=extenders,
+                    device=dev,
                 ),
                 call_deadline_s(),
             )
 
+    def run_trial(k: int, n_pad: Optional[int]):
+        """One live probe with transient-blip retry -> (result,
+        attempts_this_trial, retries_this_trial)."""
+        t_attempts = 0
+        t_retries = 0
+
+        def once(_timeout: Optional[float]) -> SimulateResult:
+            nonlocal t_attempts
+            t_attempts += 1
+            res = _probe(k, n_pad)
+            blips = [u for u in res.unscheduled if u.transient]
+            if blips:
+                raise _TransientTrialError(res, blips[0].reason)
+            return res
+
+        def note(_attempt: int, exc: BaseException, _delay: float) -> None:
+            nonlocal t_retries
+            t_retries += 1
+            log.warning(
+                "capacity probe (%d nodes) hit a transient extender failure "
+                "(%s); retrying trial", k, exc,
+            )
+
+        try:
+            res = trial_policy.execute(
+                once, retryable=(_TransientTrialError,), target="capacity-probe", on_retry=note,
+            )
+        except RetryExhaustedError as e:
+            # the retry blipped too: return the degraded result honestly (its
+            # unscheduled list carries the extender error as the reason)
+            res = e.last_exc.result  # type: ignore[union-attr]
+        return res, t_attempts, t_retries
+
     def probe(k: int, n_pad: Optional[int] = None):
-        nonlocal attempts, seed_hi, last_live
-        res = run_trial(k, n_pad)
-        attempts += 1
+        nonlocal attempts, retries, seed_hi, last_live
+        res, t_attempts, t_retries = run_trial(k, n_pad)
+        attempts += t_attempts
+        retries += t_retries
         last_live = res
         g = good(res)
         if k == 0 and not g:
@@ -316,14 +365,24 @@ def plan_capacity(
     def finalize(k: int, n_pad: Optional[int]) -> SimulateResult:
         """Re-simulate the winning count: probes share cached pod objects
         and rebind them, so only the last live result carries true
-        bindings. Not counted in attempts. simulate() is deterministic, so
-        the replay must pass again; a replay that fails is an error."""
-        res = run_trial(k, n_pad)
+        bindings. Not counted in attempts or retries. simulate() is
+        deterministic, so the replay must pass again; a replay that fails is
+        an error, unless extenders are configured: HTTP extenders may answer
+        differently between probes, so then the replayed result is returned
+        as it is."""
+        res, _t_attempts, _t_retries = run_trial(k, n_pad)
         if not good(res):
-            raise RuntimeError(
-                "capacity replay of the winning probe no longer satisfies the "
-                f"plan ({k} nodes): simulate() is nondeterministic"
-            )
+            if extenders:
+                log.warning(
+                    "capacity replay of the winning probe (%d nodes) no longer "
+                    "satisfies the plan (an extender answered differently "
+                    "between probes); returning the replayed result as-is", k,
+                )
+            else:
+                raise RuntimeError(
+                    "capacity replay of the winning probe no longer satisfies the "
+                    f"plan ({k} nodes): simulate() is nondeterministic"
+                )
         return res
 
     reuse = _TrialReuse(new_node, n_base)
@@ -370,7 +429,7 @@ def plan_capacity(
     g0, base = probe(0)
     if g0:
         metrics.CAPACITY_NODES_ADDED.set(0)
-        return CapacityPlan(0, base, attempts)
+        return CapacityPlan(0, base, attempts, retries)
 
     if mode == "batched":
         # geometric ladder, LADDER_LANES counts per sweep, seeded by the
@@ -429,7 +488,7 @@ def plan_capacity(
                     lo = max(bads)
             best_result = finalize(hi, node_bucket(n_base + hi))
             metrics.CAPACITY_NODES_ADDED.set(hi)
-            return CapacityPlan(hi, best_result, attempts, 0, batched_calls)
+            return CapacityPlan(hi, best_result, attempts, retries, batched_calls)
 
     # exponential growth to a bracket from the demand estimate, then a
     # bisection over the FULL [0, hi] with every probe on the bracket's
@@ -457,4 +516,4 @@ def plan_capacity(
     if best_result is None or best_result is not last_live:
         best_result = finalize(best, n_pad)
     metrics.CAPACITY_NODES_ADDED.set(best)
-    return CapacityPlan(best, best_result, attempts)
+    return CapacityPlan(best, best_result, attempts, retries)

@@ -43,7 +43,7 @@ from ..core.matcher import (
     untolerated_taint,
 )
 from ..core.objects import LabelSelector, Node, Pod
-from ..utils.tracing import span
+from ..utils.tracing import log, span
 
 
 @dataclass
@@ -265,12 +265,69 @@ def pick_one_node(candidates: List[PreemptionResult]) -> Optional[PreemptionResu
     return pool[0]
 
 
+def call_preempt_extenders(
+    extenders,
+    pod: Pod,
+    candidates: List[PreemptionResult],
+    bound_by_node: Dict[str, List[Pod]],
+    nodes: Sequence[Node] = (),
+) -> List[PreemptionResult]:
+    """CallExtenders (default_preemption.go:346-394): run the candidate map
+    through every preemption-supporting, interested extender in chain order.
+    Each extender may veto nodes or trim victims; its output feeds the next.
+    An erroring ignorable extender is skipped; a non-ignorable one raises
+    ExtenderError (the reference aborts the whole preemption). An empty map
+    short-circuits — no preemption can happen regardless of later extenders.
+
+    Candidates that pass through an extender come back with
+    num_pdb_violations=0 — the vendored reconversion drops the count
+    (extender.go:211-230); see HTTPExtender.process_preemption."""
+    from .extenders import ExtenderError
+
+    relevant = [
+        e for e in extenders
+        if e.supports_preemption and e.is_interested(pod)
+    ]
+    if not relevant or not candidates:
+        return candidates
+    victims_map = {
+        c.node: (list(c.victims), c.num_pdb_violations) for c in candidates
+    }
+    # NodeInfoLister analog (extender.go:214-217): every cluster node is
+    # resolvable, with an empty pod list when nothing is bound there — an
+    # extender answering with a pod-free node must not be misreported as
+    # "unknown node".
+    pods_on_node = {n.name: bound_by_node.get(n.name, []) for n in nodes}
+    for name, pods in bound_by_node.items():
+        pods_on_node.setdefault(name, pods)
+    for ext in relevant:
+        try:
+            victims_map = ext.process_preemption(
+                pod, victims_map, pods_on_node
+            )
+        except ExtenderError as e:
+            if ext.is_ignorable:
+                log.warning(
+                    "skipping extender %s during preemption: %s (ignorable)",
+                    ext.base, e,
+                )
+                continue
+            raise
+        if not victims_map:
+            break
+    return [
+        PreemptionResult(node=node, victims=victims, num_pdb_violations=nv)
+        for node, (victims, nv) in victims_map.items()
+    ]
+
+
 def try_preempt(
     pod: Pod,
     nodes: Sequence[Node],
     bound_by_node: Dict[str, List[Pod]],
     pdbs: Sequence[PodDisruptionBudget],
     fits_many_fn=None,
+    extenders=(),
 ) -> Optional[PreemptionResult]:
     """Full PostFilter: find the best node + minimal victim set, or None.
 
@@ -309,7 +366,12 @@ def try_preempt(
             lanes.append(_Lane(node=node, remaining=list(keep), queue=queue,
                                victims=[]))
         sp.meta["lanes"] = len(lanes)
-        # scheduler extenders (CallExtenders between dry run and pick,
-        # default_preemption.go:141-176) are not ported yet: the Simulator
-        # refuses them
-        return pick_one_node(_drive_lanes(pod, lanes, fits_many_fn))
+        candidates = _drive_lanes(pod, lanes, fits_many_fn)
+        # dryRunPreemption -> CallExtenders -> SelectCandidate (preempt(),
+        # default_preemption.go:141-176): extenders see the full candidate
+        # map between victim selection and the final pick
+        candidates = call_preempt_extenders(extenders, pod, candidates, bound_by_node, nodes)
+        # an extender may empty a node's victim list while keeping the node;
+        # the pod reached preemption because it failed, so drop victimless
+        # candidates as _drive_lanes does
+        return pick_one_node([c for c in candidates if c.victims])

@@ -185,22 +185,32 @@ def unscheduled_report(result: SimulateResult) -> str:
     return render_table(headers, rows)
 
 
-def full_report(result: SimulateResult) -> str:
-    """Assembled report, with every extended view that has data (the JAX
-    package's default: a superset of the reference's hide-by-default
-    --extended-resources, apply.go:777-789)."""
+def full_report(
+    result: SimulateResult,
+    extended: bool = True,
+    extended_resources=None,
+) -> str:
+    """Assembled report. `extended_resources` is the reference's
+    --extended-resources flag (cmd/apply/apply.go:32; containLocalStorage /
+    containGpu gate the tables, apply.go:777-789): an explicit list shows
+    exactly the requested views ("open-local", "gpu"). None keeps every
+    extended view that has data (the JAX package's default, a superset of
+    the reference's hide-by-default)."""
     parts = [
         "=== Cluster ===",
         cluster_report(result),
         "=== Placements ===",
         placement_report(result),
     ]
-    stor = storage_report(result)
-    if stor:
-        parts += ["=== Local Storage ===", stor]
-    gpu = gpu_report(result)
-    if gpu:
-        parts += ["=== GPU Share ===", gpu]
+    if extended:
+        want_storage = extended_resources is None or "open-local" in extended_resources
+        want_gpu = extended_resources is None or "gpu" in extended_resources
+        stor = storage_report(result) if want_storage else ""
+        if stor:
+            parts += ["=== Local Storage ===", stor]
+        gpu = gpu_report(result) if want_gpu else ""
+        if gpu:
+            parts += ["=== GPU Share ===", gpu]
     pre = preempted_report(result)
     if pre:
         parts += ["=== Preempted ===", pre]

@@ -12,6 +12,9 @@ Parity map (upstream → here):
     engine/preemption.py) with every candidate post-eviction node state
     checked by the real filters in one batched device call per reprieve round
     (`_device_fits_many`).
+  - `WithExtenders` (`simulator.go:211-216`) → the HTTP extender chain
+    between the device filters and the score combine, through the wave
+    pipeline (engine/extender_wave.py) or a per-pod loop.
 
 The device is the caller's (`device=`, CUDA by default; see
 `device.resolve_device`). Results are bit-identical to the JAX package's
@@ -19,8 +22,8 @@ The device is the caller's (`device=`, CUDA by default; see
 `Simulator.run_scenarios`, `simulate_batch`, `ScenarioSession`) runs S
 what-if lanes over one shared node table in one batched sweep
 (ops/fast.py:schedule_scenarios_host). Not ported yet, and refused with
-NotImplementedError naming their ROADMAP.md Queue 1 item: a device mesh,
-scheduler extenders and resident cluster state.
+NotImplementedError naming their ROADMAP.md Queue 1 item: a device mesh
+and resident cluster state.
 
 Pod ordering parity: core/ordering.py (AffinityQueue then TolerationQueue,
 plus the GreedQueue behind use_greed).
@@ -69,6 +72,8 @@ from ..ops.kernels import (
     NUM_FILTERS,
     Carry,
     PodRow,
+    commit_step,
+    probe_step,
     run_filters,
     weights_array,
 )
@@ -191,6 +196,10 @@ class ScenarioOutcome:
 class UnscheduledPod:
     pod: Pod
     reason: str
+    # True when the failure is a transient external-I/O error (exhausted
+    # extender retries) rather than a scheduling verdict: the capacity
+    # search retries such trials instead of buying nodes for a blip
+    transient: bool = False
 
 
 @dataclass
@@ -217,6 +226,12 @@ class SimulateResult:
     # carry: node name -> NodeLocalStorage with updated vg.requested /
     # device.is_allocated.
     storage: Dict[str, NodeLocalStorage] = field(default_factory=dict)
+
+    def pods_on(self, node_name: str) -> List[Pod]:
+        for st in self.node_status:
+            if st.node.name == node_name:
+                return st.pods
+        return []
 
 
 def _reason_string(n_nodes: int, counts: np.ndarray) -> str:
@@ -301,14 +316,18 @@ class Simulator:
         (WithPatchPodsFuncMap parity)."""
         if mesh is not None:
             raise _not_ported("a device mesh", 13, "durability + parallelism")
-        if extenders:
-            raise _not_ported("scheduler extenders", 11, "extenders")
         if resident is not None:
             raise _not_ported("resident cluster state", 12, "resident state + serving")
         self.device = resolve_device(device)
         self.cluster = cluster
         self.use_greed = use_greed
         self._extra_filters, self._extra_scores = split_registry(plugins or ())
+        # scheduler extenders (WithExtenders parity, simulator.go:211-216):
+        # config-global HTTP filter/prioritize callbacks; pods an extender
+        # is interested in take the probe -> extend -> commit path
+        from .extenders import build_extenders
+
+        self._extenders = build_extenders(extenders)
         self._patch_pods = dict(patch_pods or {})
         self._expand_cache = expand_cache
         non_ds_hooks = [k for k in self._patch_pods if k != "DaemonSet"]
@@ -354,7 +373,12 @@ class Simulator:
                 )
             self.enc = preencoded[0]
         else:
-            self.enc = Encoder(topology_keys=("kubernetes.io/hostname",))
+            # extender-managed ignoredByScheduler resources never enter the
+            # fit tensors (factory.go:105-130)
+            self.enc = Encoder(
+                topology_keys=("kubernetes.io/hostname",),
+                ignored_resources=[r for e in self._extenders for r in e.cfg.ignored_resources],
+            )
         self._bound: List[Tuple[Pod, str]] = []   # (pod, node name)
         self._pending_cluster: List[Pod] = []
         for pod in cluster.pods:
@@ -454,10 +478,31 @@ class Simulator:
 
     def _schedule_run(self, pods: List[Pod], weights, filter_on) -> List[UnscheduledPod]:
         """Encode one profile run, schedule it on the device, decode
-        placements (the reference's extender split is not ported)."""
+        placements. With extenders, only pods some extender is interested in
+        take the per-pod HTTP path; consecutive uninterested runs keep the
+        batch scan, so the sequential commit order holds across the batch."""
         if not pods:
             return []
-        return self._schedule_run_batch(pods, weights, filter_on)
+        if not self._extenders:
+            return self._schedule_run_batch(pods, weights, filter_on)
+        # the per-pod per-extender interest vector, computed once and reused
+        # by the wave engine / serial loop
+        interest = [tuple(e.is_interested(p) for e in self._extenders) for p in pods]
+        failed: List[UnscheduledPod] = []
+        i = 0
+        while i < len(pods):
+            j = i
+            interested = any(interest[i])
+            while j < len(pods) and interested == any(interest[j]):
+                j += 1
+            if interested:
+                failed.extend(self._schedule_run_extenders(
+                    pods[i:j], weights, filter_on, interest[i:j]
+                ))
+            else:
+                failed.extend(self._schedule_run_batch(pods[i:j], weights, filter_on))
+            i = j
+        return failed
 
     def _schedule_run_batch(
         self, pods: List[Pod], weights, filter_on
@@ -527,6 +572,153 @@ class Simulator:
             )
         self._bound.append((pod, pod.node_name))
         metrics.SCHEDULE_RESULT.inc(result="scheduled")
+
+    def _schedule_run_extenders(
+        self, pods: List[Pod], weights, filter_on, interest
+    ) -> List[UnscheduledPod]:
+        """Scheduling with extenders folded in, at the split point
+        generic_scheduler.go sits at: device filters -> extender Filter
+        chain (findNodesThatPassExtenders, :345-374) -> device scores +
+        extender Prioritize x weight x MaxNodeScore/MaxExtenderPriority
+        (:521-555) -> argmax -> device commit. Default: the wave pipeline
+        (engine/extender_wave.py); OSIM_EXTENDER_WAVE=0 runs the per-pod loop
+        below. Both give the same placements."""
+        from . import extender_wave
+        from .extenders import EXTENDER_SCORE_SCALE, ExtenderError, TransientExtenderError
+
+        self._carry, self._ns = align_carry(self._carry, self.enc, self._ns)
+        with span("encode", pods=len(pods)):
+            batch = encode_pods(self.enc, pods)
+            rows = pod_rows_from_batch(batch, self.device)
+        failed: List[UnscheduledPod] = []
+        n_nodes = len(self.cluster.nodes)
+        scheduled = 0
+        wave = extender_wave.wave_size()
+        with span("schedule-extenders", pods=len(pods)) as sp:
+            if wave > 0:
+                failed, scheduled = extender_wave.run_waves(
+                    self, pods, rows, weights, filter_on, interest, wave
+                )
+                pods_iter: List[Pod] = []
+            else:
+                pods_iter = pods
+            for i, pod in enumerate(pods_iter):
+                interested = [e for e, hit in zip(self._extenders, interest[i]) if hit]
+                row = PodRow(*(a[i] for a in rows))
+                mask, score, first_fail = probe_step(
+                    self._ns, self._carry, row, weights, filter_on,
+                    self._extra_filters, self._extra_scores,
+                )
+                mask_np, score_np, ff_np = (
+                    t.cpu().numpy() for t in (mask, score, first_fail)
+                )
+                feasible = [self.cluster.nodes[j] for j in range(n_nodes) if mask_np[j]]
+                n_device_feasible = len(feasible)
+                ext_msgs: Dict[str, str] = {}   # node -> extender failure msg
+                error: Optional[str] = None
+                error_transient = False
+                for ext in interested:
+                    if not feasible:
+                        break
+                    try:
+                        feasible, failed_map = ext.filter(pod, feasible)
+                    except ExtenderError as e:
+                        if ext.is_ignorable:
+                            # an erroring (or circuit-open) ignorable
+                            # extender is skipped, not fatal
+                            metrics.EXTENDER_SKIPPED.inc(endpoint=ext.base)
+                            log.warning("skipping ignorable extender: %s", e)
+                            continue
+                        error = str(e)
+                        error_transient = isinstance(e, TransientExtenderError)
+                        break
+                    for name, msg in failed_map.items():
+                        ext_msgs.setdefault(name, msg)
+                if error is not None:
+                    failed.append(UnscheduledPod(pod, error, transient=error_transient))
+                    continue
+                if not feasible:
+                    failed.append(UnscheduledPod(pod, self._extender_reason(
+                        n_nodes, mask_np, ff_np, ext_msgs, n_device_feasible,
+                    )))
+                    continue
+                combined = {n.name: 0.0 for n in feasible}
+                for ext in interested:
+                    if not ext.cfg.prioritize_verb:
+                        continue
+                    try:
+                        for host, sc in ext.prioritize(pod, feasible).items():
+                            if host in combined:
+                                combined[host] += sc
+                    except ExtenderError as e:
+                        # prioritize errors are dropped (generic_scheduler.go
+                        # :529-536 logs them)
+                        metrics.EXTENDER_SKIPPED.inc(endpoint=ext.base)
+                        log.warning("extender prioritize failed: %s", e)
+                # lowest node index wins ties, as the scan's argmax; the f32
+                # add mirrors commit_wave's `score + ext_score`
+                name_index = self._name_index_map()
+                best_ni, best_total = -1, -np.inf
+                for j in sorted(name_index[n.name] for n in feasible):
+                    total = score_np[j] + np.float32(
+                        combined[self.cluster.nodes[j].name] * EXTENDER_SCORE_SCALE
+                    )
+                    if total > best_total:
+                        best_ni, best_total = j, total
+                self._carry, take, vg_take, dev_take = commit_step(
+                    self._ns, self._carry, row,
+                    torch.tensor(best_ni, dtype=torch.int32, device=self.device),
+                )
+                self._bind_placed(
+                    pod, best_ni, take.cpu().numpy(), vg_take.cpu().numpy(), dev_take.cpu().numpy()
+                )
+                scheduled += 1
+            sp.meta["scheduled"] = scheduled
+        progress(
+            "scheduled batch (extenders): %d/%d pods placed in %.2fs",
+            scheduled, len(pods), sp.duration,
+        )
+        metrics.SCHEDULING_ATTEMPTS.inc(len(pods))
+        return failed
+
+    @staticmethod
+    def _extender_reason(
+        n_nodes: int,
+        mask_np: np.ndarray,
+        ff_np: np.ndarray,
+        ext_msgs: Dict[str, str],
+        n_device_feasible: int,
+    ) -> str:
+        """Reason string when the extender chain empties the feasible set:
+        device per-filter counts for device-failed nodes + extender failedMap
+        messages; nodes an extender dropped without a message get the
+        generic 'didn't pass extender filter' count (the JAX package's
+        deviation from the reference, which leaves them out)."""
+        counts = np.zeros(NUM_FILTERS, np.int64)
+        for j in range(min(n_nodes, mask_np.shape[0])):
+            if not mask_np[j] and ff_np[j] < NUM_FILTERS:
+                counts[ff_np[j]] += 1
+        _count_filter_failures(counts)
+        if n_device_feasible > 0:
+            # one bounded reason label (extender messages are free-form)
+            metrics.FILTER_FAILURE.inc(
+                n_device_feasible, reason="node(s) didn't pass extender filter"
+            )
+        parts = [
+            f"{int(counts[f])} {FILTER_MESSAGES[f]}"
+            for f in range(NUM_FILTERS)
+            if counts[f] > 0
+        ]
+        by_msg: Dict[str, int] = {}
+        for msg in ext_msgs.values():
+            by_msg[msg] = by_msg.get(msg, 0) + 1
+        for msg in sorted(by_msg):
+            parts.append(f"{by_msg[msg]} node(s) {msg}")
+        unexplained = n_device_feasible - len(ext_msgs)
+        if unexplained > 0:
+            parts.append(f"{unexplained} node(s) didn't pass extender filter")
+        detail = ", ".join(parts) if parts else "no nodes in cluster"
+        return f"0/{n_nodes} nodes are available: {detail}."
 
     def _name_index_map(self) -> Dict[str, int]:
         if self._name_index is None:
@@ -703,6 +895,8 @@ class Simulator:
         priority > 0 may evict lower-priority pods (engine/preemption.py).
         Successful preemptors are rescheduled at once; victims leave the
         cluster (the reference deletes them, PrepareCandidate)."""
+        from .extenders import ExtenderError
+
         still_failed: List[UnscheduledPod] = []
         bound_by_node: Optional[Dict[str, List[Pod]]] = None
         fits_many_fn = None
@@ -716,10 +910,19 @@ class Simulator:
                 for p, node_name in self._bound:
                     bound_by_node.setdefault(node_name, []).append(p)
                 fits_many_fn = self._device_fits_many(bound_by_node)
-            res = try_preempt(
-                pod, self.cluster.nodes, bound_by_node, self._pdbs,
-                fits_many_fn=fits_many_fn,
-            )
+            try:
+                res = try_preempt(
+                    pod, self.cluster.nodes, bound_by_node, self._pdbs,
+                    fits_many_fn=fits_many_fn, extenders=self._extenders,
+                )
+            except ExtenderError as e:
+                # a non-ignorable extender failed ProcessPreemption: the
+                # reference aborts this pod's preemption with the error
+                # (default_preemption.go:373-374); the pod stays failed with
+                # the extender's message appended
+                metrics.PREEMPTION_ATTEMPTS.inc(outcome="extender_error")
+                still_failed.append(UnscheduledPod(pod=pod, reason=f"{u.reason}; {e}"))
+                continue
             if res is None or not res.victims:
                 metrics.PREEMPTION_ATTEMPTS.inc(outcome="no_candidates")
                 still_failed.append(u)

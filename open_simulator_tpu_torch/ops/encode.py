@@ -771,8 +771,8 @@ def _encode_term_exprs(enc: Encoder, exprs, EXPR: int, VAL: int):
     return op, key, val, num
 
 
-def encode_pods(enc: Encoder, pods: Sequence[Pod]) -> PodBatch:
-    """Encode a pod batch.
+def encode_pods(enc: Encoder, pods: Sequence[Pod], p_pad: Optional[int] = None) -> PodBatch:
+    """Encode a pod batch; the pod axis pads to `p_pad`, or to round_up(p).
 
     Row-level dedup: workload replicas are prototype clones whose encoded rows
     are identical (name excluded — it never becomes a feature), so only one
@@ -781,7 +781,7 @@ def encode_pods(enc: Encoder, pods: Sequence[Pod]) -> PodBatch:
     keeps 100k-pod × hundreds-of-workloads encodes in seconds."""
     enc.register_pods(pods)
     p = len(pods)
-    P = round_up(p)
+    P = p_pad if p_pad is not None else round_up(p)
     R = len(enc.resources)
     S = selector_table_size(enc)
 

@@ -1387,6 +1387,88 @@ def commit_choices(
     return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*takes))
 
 
+def _universe_step(filter_on):
+    """schedule_step on S universes: every leaf of the node table, weights,
+    carry and pod varies per lane, so the pod's topology keys are computed
+    inside the vmapped function, against its own lane's table."""
+
+    def one(ns, weights, carry, pod):
+        return schedule_step(ns, weights, carry, pod, filter_on, (), (), pod_keys(ns, pod))
+
+    return torch.func.vmap(one)
+
+
+def schedule_universes(
+    ns_s: NodeStatic,
+    carry_s: Carry,
+    pods_s: PodRow,
+    weights_s: torch.Tensor,
+    filter_on=None,
+):
+    """The sequential commit scan on S whole universes: every NodeStatic,
+    Carry and PodRow leaf stacked on axis 0 (0-d leaves widened to [S]),
+    `pods_s` [S, P, ...] and `weights_s` [S, W]. One Python loop over the P
+    pods, each step `schedule_step` under `torch.func.vmap` over the lanes,
+    so lane u equals a serial schedule_batch over universe u's table.
+
+    Returns (carry_s, nodes i32[S,P], reasons i32[S,P,F], gpu_take
+    i32[S,P,G], vg_take f32[S,P,V], dev_take f32[S,P,DV]) as tensors."""
+    step = _universe_step(filter_on)
+    outs = []
+    for i in range(pods_s.req.shape[1]):
+        pod = PodRow(*(a[:, i] for a in pods_s))
+        carry_s, out = step(ns_s, weights_s, carry_s, pod)
+        outs.append(out)
+    return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*outs))
+
+
+def universe_parts(pods_s: PodRow) -> list:
+    """Per pod position w, the carry parts pod w of ANY universe can change
+    (kernels.commit_parts over the lane axis)."""
+    fields = ("match_sel", "own_anti", "gpu_mem", "gpu_num", "lvm_req", "dev_req", "hp_pid")
+    by_pos = {f: np.swapaxes(getattr(pods_s, f).cpu().numpy(), 0, 1) for f in fields}
+    return [commit_parts(by_pos, w) for w in range(pods_s.req.shape[1])]
+
+
+def schedule_universes_wave_host(
+    ns_s: NodeStatic,
+    carry_s: Carry,
+    pods_s: PodRow,
+    weights_s: torch.Tensor,
+    filter_on=None,
+):
+    """Drive the wave round body (ops/wave.py universe_round: one Jacobi
+    round for S whole universes, the whole pod sequence as a single wave,
+    no count gate) to its fixpoint: the same arguments and return tuple as
+    schedule_universes. The input carry is re-read by every round and the
+    converged round's exit carry is returned. A chunk
+    converges within P + 1 rounds (ops/wave.py); one still moving after that
+    falls back to schedule_universes from its input carry (counted in
+    osim_wave_fallbacks_total{reason="universes_max_rounds"})."""
+    s_pad, p_pad = pods_s.req.shape[:2]
+    parts = universe_parts(pods_s)
+    choices = torch.full((s_pad, p_pad), -1, dtype=torch.int32, device=pods_s.req.device)
+    prev = np.full((s_pad, p_pad), -1, np.int32)
+    rounds = 0
+    while True:
+        rounds += 1
+        _progress(f"universes-wave S={s_pad} P={p_pad} round {rounds}")
+        carry_w, choices_new, *out = _wave.universe_round(
+            ns_s, weights_s, carry_s, pods_s, choices, parts, filter_on
+        )
+        ch = choices_new.cpu().numpy()
+        if np.array_equal(ch, prev):
+            break
+        if rounds > 1:
+            _metrics.WAVE_CONFLICTS.inc(int((ch != prev).sum()))
+        if rounds > p_pad + 1:
+            _metrics.WAVE_FALLBACKS.inc(reason="universes_max_rounds")
+            return schedule_universes(ns_s, carry_s, pods_s, weights_s, filter_on)
+        choices, prev = choices_new, ch
+    _metrics.COMMIT_ROUNDS.observe(rounds)
+    return (carry_w, choices_new) + tuple(out)
+
+
 def scenario_carry_digest(carry_s: Carry) -> int:
     """Digest of a (stacked) carry: one device `digest_fold` per leaf,
     chained in Carry._fields order; equal to scenario_carry_digest_host of

@@ -621,11 +621,14 @@ def ports_mask(carry: Carry, pod: PodRow) -> torch.Tensor:
 
 
 def _scatter_drop(rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """zeros(rows).at[idx].add(vals, mode="drop"): out-of-range indices add
-    nothing (their values are zeroed, so no host sync is needed)."""
+    """zeros(rows).at[idx].add(vals, mode="drop") for 0/1 counts:
+    out-of-range indices add nothing. A one-hot sum, not index_add: under
+    torch.func.vmap with a batched pod, index_add's batching rule loops over
+    the lanes one by one. The sums are of small whole numbers, so exact in
+    any order."""
     keep = (idx >= 0) & (idx < rows)
-    out = torch.zeros(rows, dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, idx.clamp(0, rows - 1), torch.where(keep, vals, 0.0))
+    hit = (torch.arange(rows, device=idx.device)[:, None] == idx[None, :]) & keep[None, :]
+    return torch.where(hit, vals[None, :], 0.0).sum(dim=1)
 
 
 def port_adds(pid_rows: int, pip_rows: int, pod: PodRow):
@@ -639,9 +642,10 @@ def port_adds(pid_rows: int, pip_rows: int, pod: PodRow):
         active * (~pod.hp_wild).to(torch.float32) * (pod.hp_ipid > 0),
     )
     # never count into the pad row — keep row 0 identically zero
-    for a in (add_any, add_wild, add_ipc):
-        a[0] = 0.0
-    return add_any, add_wild, add_ipc
+    def no_pad(a):
+        return torch.where(torch.arange(a.shape[0], device=a.device) == 0, 0.0, a)
+
+    return no_pad(add_any), no_pad(add_wild), no_pad(add_ipc)
 
 
 def ports_commit(carry: Carry, pod: PodRow, onehot: torch.Tensor):
@@ -950,6 +954,70 @@ def commit_step(ns: NodeStatic, carry: Carry, pod: PodRow, node: torch.Tensor):
     return new_carry, gpu_take.to(torch.int32), vg_take, dev_take
 
 
+def probe_many(
+    ns: NodeStatic, carry: Carry, rows: PodRow, weights: torch.Tensor, filter_on=None,
+    extra_filters=(), extra_scores=(),
+):
+    """probe_step under torch.func.vmap over a wave of W pods against ONE
+    carry -> (mask bool[W,N], score f32[W,N] with -inf on infeasible nodes,
+    first_fail i32[W,N]). The extender wave engine probes a whole wave up
+    front so the per-pod HTTP chains can run concurrently."""
+
+    def one(pod):
+        return probe_step(ns, carry, pod, weights, filter_on, extra_filters, extra_scores)
+
+    return torch.func.vmap(one)(rows)
+
+
+def commit_wave(
+    ns: NodeStatic, carry: Carry, rows: PodRow, weights: torch.Tensor,
+    expected_mask: torch.Tensor, expected_ff: torch.Tensor, ext_allowed: torch.Tensor,
+    ext_score: torch.Tensor, want_commit: torch.Tensor, filter_on=None,
+    extra_filters=(), extra_scores=(),
+):
+    """The pod-order commit loop of one extender wave, with a conflict
+    recheck. The wave's HTTP filter/prioritize calls saw masks probed at the
+    wave-start carry (probe_many); by the time pod i commits, pods 0..i-1
+    have changed the carry. So each step re-runs the filters on the LIVE
+    carry and compares the mask and first failures with what the HTTP chain
+    saw (`expected_mask` bool[W,N], `expected_ff` i32[W,N]). A match proves
+    the serial per-pod path would have sent the same extender requests, so
+    committing argmax(score' + ext_score) here, score' recomputed on the
+    live carry, IS the serial placement. The first mismatch sets a sticky
+    `blocked` flag: that pod and every later pod of the wave respill.
+
+    `ext_allowed` bool[W,N] are the nodes surviving the extender filter
+    chain, `ext_score` f32[W,N] the combined extender priority x weight x
+    scale (0 elsewhere), `want_commit` bool[W] the pods whose chain
+    succeeded with a non-empty feasible set. No value leaves the device.
+    Returns (carry, nodes i32[W] (-1 = no commit), respill bool[W],
+    gpu_take i32[W,G], vg_take f32[W,V], dev_take f32[W,DV])."""
+    n = ns.valid.shape[0]
+    dev = ns.valid.device
+    nodes_idx = torch.arange(n, device=dev)
+    blocked = torch.zeros((), dtype=torch.bool, device=dev)
+    outs = []
+    for w in range(rows.req.shape[0]):
+        pod = PodRow(*(a[w] for a in rows))
+        mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters)
+        mask = mask & ns.valid
+        match = (mask == expected_mask[w]).all() & (first_fail == expected_ff[w]).all()
+        respill = blocked | ~match
+        score = run_scores(ns, carry, pod, weights, extra_scores)
+        allow = mask & ext_allowed[w]
+        total = torch.where(allow, score + ext_score[w], -_INF)
+        node = total.argmax()   # first max: lowest node index wins ties
+        ok = want_commit[w] & ~respill & allow.any() & pod.valid
+        onehot = (nodes_idx == node) & ok
+        carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
+        outs.append((
+            torch.where(ok, node, -1).to(torch.int32), respill,
+            gpu_take.to(torch.int32), vg_take, dev_take,
+        ))
+        blocked = respill
+    return (carry,) + tuple(torch.stack(col) for col in zip(*outs))
+
+
 # ---------------------------------------------------------------------------
 # Row-wise commit (the wave engine's replay)
 # ---------------------------------------------------------------------------
@@ -961,13 +1029,15 @@ COMMIT_PARTS = frozenset(("sel", "anti", "gpu", "storage", "ports"))
 
 def commit_parts(rows_np: dict, i: int) -> frozenset:
     """The parts of COMMIT_PARTS pod i of a PodBatch (host numpy arrays, by
-    PodRow field) can change when it commits."""
+    PodRow field) can change when it commits; where each row i stacks
+    several pods along a further leading axis, the parts any of them can
+    change."""
     parts = set()
     if rows_np["match_sel"][i].any():
         parts.add("sel")
     if rows_np["own_anti"][i].any():
         parts.add("anti")
-    if rows_np["gpu_mem"][i] > 0 and rows_np["gpu_num"][i] >= 1:
+    if ((rows_np["gpu_mem"][i] > 0) & (rows_np["gpu_num"][i] >= 1)).any():
         parts.add("gpu")
     if (rows_np["lvm_req"][i] > 0).any() or (rows_np["dev_req"][i] > 0).any():
         parts.add("storage")
@@ -1096,10 +1166,15 @@ def commit_choices_lanes(
     return c._replace(**new), gpu_take, vg_take, dev_take
 
 
-def commit_choice(ns: NodeStatic, carry: Carry, pod: PodRow, choice: torch.Tensor):
+def commit_choice(
+    ns: NodeStatic, carry: Carry, pod: PodRow, choice: torch.Tensor,
+    parts: frozenset = COMMIT_PARTS,
+):
     """commit_onehot for a known node index (i32 scalar, -1 = no commit) in
     O(row) arithmetic: commit_choices_lanes on one lane. Returns (carry,
     gpu_take f32[G], vg_take f32[V], dev_take f32[DV])."""
     carry_s = Carry(*(a[None] for a in carry))
-    new_s, gpu_take, vg_take, dev_take = commit_choices_lanes(ns, carry_s, pod, choice.reshape(1))
+    new_s, gpu_take, vg_take, dev_take = commit_choices_lanes(
+        ns, carry_s, pod, choice.reshape(1), parts
+    )
     return Carry(*(a[0] for a in new_s)), gpu_take[0], vg_take[0], dev_take[0]

@@ -39,6 +39,7 @@ from .kernels import (
     Carry,
     NodeStatic,
     PodRow,
+    commit_choice,
     commit_choices_lanes,
     reason_row,
     run_filters,
@@ -197,3 +198,62 @@ def wave_round(
         torch.stack(gpu, dim=1).to(torch.int32), torch.stack(vg, dim=1), torch.stack(dv, dim=1),
     )
 
+
+
+def _universe_probe(filter_on):
+    """probe_choice over [S universes, W pods]: every NodeStatic, weight,
+    carry and pod leaf varies per universe; the carry and the pod vary per
+    pod within one."""
+
+    def one(ns, weights, carry, pod):
+        return probe_choice(ns, weights, carry, pod, filter_on)
+
+    per_pod = torch.func.vmap(one, in_dims=(None, None, 0, 0))
+    return torch.func.vmap(per_pod, in_dims=(0, 0, 0, 0))
+
+
+def _universe_commit(parts: frozenset):
+    """commit_choice on S universes, each with its own node table and pod."""
+
+    def one(ns, carry, pod, choice):
+        return commit_choice(ns, carry, pod, choice, parts)
+
+    return torch.func.vmap(one)
+
+
+def universe_round(
+    ns_s: NodeStatic,
+    weights_s: torch.Tensor,
+    carry_s: Carry,
+    pods_s: PodRow,
+    choices_s: torch.Tensor,
+    parts: Sequence[frozenset],
+    filter_on=None,
+):
+    """One Jacobi round on S whole universes (every leaf of `ns_s`,
+    `weights_s`, `carry_s` stacked on axis 0; `pods_s` [S, W, ...]), the
+    whole pod sequence as one wave, every pod live. `parts[w]` must cover
+    pod w of EVERY universe (fast.universe_parts):
+    a plane that only another lane's pod changes would otherwise be
+    skipped in that lane's replay.
+
+    Returns the tuple of wave_round: (exit carry_s, new_choices i32[S,W],
+    reasons i32[S,W,F], gpu_take i32[S,W,G], vg_take f32[S,W,V], dev_take
+    f32[S,W,DV])."""
+    W = choices_s.shape[1]
+    pre: List[Carry] = []
+    gpu, vg, dv = [], [], []
+    c = carry_s
+    for w in range(W):
+        pre.append(c)
+        pod = PodRow(*(a[:, w] for a in pods_s))
+        c, g, v, d = _universe_commit(parts[w])(ns_s, c, pod, choices_s[:, w])
+        gpu.append(g)
+        vg.append(v)
+        dv.append(d)
+    pre_s = Carry(*(_stack_prefix([getattr(p, f) for p in pre]) for f in Carry._fields))
+    new_choices, reasons = _universe_probe(filter_on)(ns_s, weights_s, pre_s, pods_s)
+    return (
+        c, new_choices, reasons,
+        torch.stack(gpu, dim=1).to(torch.int32), torch.stack(vg, dim=1), torch.stack(dv, dim=1),
+    )

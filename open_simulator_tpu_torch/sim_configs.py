@@ -17,6 +17,16 @@ scheduling, preemption and decode):
     `bench.py:559 config_multi_scenario`'s 64 lanes through
     `simulate_batch`. `CAPACITY_DIGESTS`, `MULTI_SCENARIO_DIGESTS` and
     `QUICKSTART_DIGEST` hold the JAX package's answers.
+  - the extender phase: `extender_spec()` (48 nodes each holding a bound
+    low-priority pod, 160 pods of `web` (two full extender waves and a
+    half) and 4 `urgent` pods that must preempt) against the stub extender
+    `EXTENDER_BEHAVIOR` with filter, prioritize and preempt verbs;
+    `extender_capacity_spec()` through plan_capacity with an extender that
+    admits only the clones and `EXTENDER_FAULT_PLAN`'s one transient blip;
+    and `run_apply` on a kubeConfig (tools/stubs.py
+    `write_kube_apply_config`) served by a stub apiserver holding
+    `KUBE_APIS`. `EXTENDER_DIGESTS` and
+    `KUBE_APPLY_DIGEST` hold the JAX package's answers.
 
 Each `*_spec` returns plain dicts, so the tests can build the same input for
 both packages; `plan` / `preempt` build the port's ClusterResource and apps.
@@ -65,7 +75,8 @@ APPLY_DIGESTS = {
 # 256-pod waves on this workload all run the 24-round budget and then the
 # serial fallback (7.6-12.7 s a wave at 2,000 x 200, PERF.md §5). At
 # 10,000 x 1,000 that is ~80 waves, 10-17 minutes, more than the whole
-# script may take. ROADMAP.md Queue 2 restores the size once sweeps are faster.
+# script may take. ROADMAP.md Perf candidate 2 restores the size once sweeps
+# are faster.
 PLAN_SMALL = (2_000, 200)
 
 # plan_capacity of each workload from the JAX package after reset_name_rng(),
@@ -282,3 +293,111 @@ def report_digest(text: str) -> str:
     that names the backend)."""
     kept = "\n".join(line for line in text.splitlines() if not line.startswith("device:"))
     return hashlib.blake2b(kept.encode(), digest_size=16).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# Extenders and kubeConfig (chip_smoke.py's extender phase)
+# ---------------------------------------------------------------------------
+
+# The stub extender's behavior (tools/stubs.py): every fourth node is
+# refused with a message, e-1 and e-2 score a little higher, and the preempt
+# verb keeps only even-numbered candidate nodes.
+EXTENDER_BEHAVIOR = {
+    "allow": {f"e-{i}" for i in range(48) if i % 4 != 3},
+    "failed": {f"e-{i}": "reserved by quota" for i in range(48) if i % 4 == 3},
+    "scores": {"e-1": 2, "e-2": 1},
+    "preempt_allow": {f"e-{i}" for i in range(0, 48, 2)},
+}
+EXTENDER_VERBS = ("filter", "prioritize", "preempt")
+
+
+def extender_spec(n_nodes: int = 48, n_web: int = 160, n_urgent: int = 4):
+    """(node dicts, bound pod dicts, [(app name, workload dicts)]): nodes of
+    8 cpu each hold a bound 6-cpu pod at priority 0; `web` pods (250m)
+    spread over the nodes the extender allows; `urgent` pods (6 cpu,
+    priority 100) fit nowhere without evicting."""
+    nodes = [_mk_node(f"e-{i}", "8", "32Gi", labels={"zone": f"z-{i % 3}"}) for i in range(n_nodes)]
+    bound = [
+        {
+            "metadata": {"name": f"low-{i}", "namespace": "bench", "labels": {"app": "low"}},
+            "spec": {
+                "nodeName": f"e-{i}", "priority": 0,
+                "containers": [{"name": "c", "image": "img",
+                                "resources": {"requests": {"cpu": "6", "memory": "1Gi"}}}],
+            },
+        }
+        for i in range(n_nodes)
+    ]
+    apps = [("bench", [
+        _mk_deploy("web", n_web, "250m", "512Mi"),
+        _mk_deploy("urgent", n_urgent, "6", "1Gi", spec_extra={"priority": 100}),
+    ])]
+    return nodes, bound, apps
+
+
+def extender_capacity_spec(n_base: int = 8, n_pods: int = 60) -> Spec:
+    """The capacity search behind an extender that admits only the clones:
+    8 nodes of 16 cpu that the extender refuses, 60 pods of 4 cpu."""
+    nodes = [_mk_node(f"c-{i}", "16", "64Gi") for i in range(n_base)]
+    return nodes, [("bench", [_mk_deploy("job", n_pods, "4", "1Gi")])]
+
+
+EXTENDER_CAPACITY_BEHAVIOR = {"allow": {f"simon-{i:05d}" for i in range(64)}}
+# one transient blip: each pod's first three filter calls are refused, so
+# the extender's own retries (3 attempts) run out in the first probe and the
+# capacity search re-runs that probe once (CapacityPlan.retries == 1); the
+# breaker threshold must be raised (OSIM_BREAKER_THRESHOLD) so that the
+# blip does not open the circuit
+EXTENDER_FAULT_PLAN = {
+    "seed": 1,
+    "rules": [{"target": "extender", "op": "filter", "kind": "connection_error", "times": 3}],
+}
+
+# The JAX package's answers after reset_name_rng():
+#   "simulate": (result_digest, stub requests per verb)
+#   "capacity": (nodes_added, attempts, retries, result_digest of the plan's
+#                result, stub requests per verb)
+EXTENDER_DIGESTS = {
+    "simulate": ("64f525acbf6986f9d014e78fd3eb9392",
+                 {"filter": 243, "prioritize": 243, "preempt": 4}),
+    "capacity": (8, 6, 1, "a9e68e2219a65d571aca6db967f7d430",
+                 {"filter": 626, "prioritize": 522}),
+}
+
+
+def extender_config(profiles_mod, url: str, verbs=EXTENDER_VERBS):
+    """The phase's ExtenderConfig in one package's models.profiles."""
+    names = {"filter": "filter_verb", "prioritize": "prioritize_verb", "preempt": "preempt_verb"}
+    return profiles_mod.ExtenderConfig(url_prefix=url, **{names[v]: v for v in verbs})
+
+
+def extender_simulate(sim_mod, objects_mod, profiles_mod, url: str, **kw):
+    """simulate() of extender_spec() against the extender at `url`, through
+    one package's engine.simulator / core.objects / models.profiles (the
+    caller resets that package's name RNG first)."""
+    node_dicts, bound, apps = extender_spec()
+    cluster = sim_mod.ClusterResource(
+        nodes=[objects_mod.Node.from_dict(d) for d in node_dicts],
+        pods=[objects_mod.Pod.from_dict(p) for p in bound],
+    )
+    return sim_mod.simulate(
+        cluster, [sim_mod.AppResource(name=n, objects=o) for n, o in apps],
+        extenders=[extender_config(profiles_mod, url)], **kw,
+    )
+
+
+def extender_capacity(sim_mod, objects_mod, profiles_mod, capacity_mod, url: str, **kw):
+    """plan_capacity of extender_capacity_spec() with template_spec() behind
+    a filter+prioritize extender at `url`, in one package."""
+    node_dicts, apps = extender_capacity_spec()
+    cluster = sim_mod.ClusterResource(nodes=[objects_mod.Node.from_dict(d) for d in node_dicts])
+    return capacity_mod.plan_capacity(
+        cluster, [sim_mod.AppResource(name=n, objects=o) for n, o in apps],
+        objects_mod.Node.from_dict(template_spec()),
+        extenders=[extender_config(profiles_mod, url, ("filter", "prioritize"))], **kw,
+    )
+
+
+# run_apply(auto_plan=False) on tools/stubs.py write_kube_apply_config's
+# config, served from its KUBE_APIS, in the JAX package: (report_digest, placement_digest, unscheduled pods)
+KUBE_APPLY_DIGEST = ("93538885b8390aaf8d4e644c110e04ea", "aca5823f4ec53d46", 0)

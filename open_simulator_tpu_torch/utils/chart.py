@@ -1458,6 +1458,11 @@ def process_chart(path: str, release_name: Optional[str] = None) -> List[dict]:
     """Render a chart into decoded manifest objects in Helm install order
     (parity: chart.ProcessChart, pkg/chart/chart.go:27-118). release_name is
     the app name from the Simon config; defaults to the chart's own name."""
+    from ..resilience import faults
+
+    rule = faults.maybe_inject("chart", release_name or path)
+    if rule is not None:
+        faults.apply_chart_fault(rule, release_name or path)
     chart = load_chart(path)
     if release_name:
         # chart.go:23: `chartRequested.Metadata.Name = name` — the app name

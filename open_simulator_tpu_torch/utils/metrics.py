@@ -1,8 +1,8 @@
 """Scheduler metrics: labeled counters and histograms.
 
 The port's copy of the JAX package's registry, cut to the metrics the
-simulator, preemption, capacity search, scenario sweep and apply paths
-increment (kube-scheduler names under
+simulator, preemption, capacity search, scenario sweep, apply, extender
+and resilience paths increment (kube-scheduler names under
 the `osim_` prefix). No Prometheus exposition: the port has no server yet.
 
     osim_e2e_scheduling_duration_seconds  -> scheduler_e2e_scheduling_duration_seconds
@@ -53,21 +53,40 @@ class Counter:
 
 
 class Gauge:
-    """One float, set to the latest value."""
+    """One float per label-value tuple, set to the latest value (or moved by
+    inc/dec)."""
 
-    def __init__(self, name: str, help: str) -> None:
+    def __init__(self, name: str, help: str, labelnames: Sequence[str] = ()) -> None:
         self.name = name
         self.help = help
+        self.labelnames = tuple(labelnames)
         self._lock = threading.Lock()
-        self._value = 0.0
+        self._values: Dict[Tuple[str, ...], float] = {}
 
-    def set(self, value: float) -> None:
-        with self._lock:
-            self._value = float(value)
+    def _key(self, labels: Dict[str, str]) -> Tuple[str, ...]:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: labels {sorted(labels)} != declared {sorted(self.labelnames)}"
+            )
+        return tuple(str(labels[n]) for n in self.labelnames)
 
-    def value(self) -> float:
+    def set(self, value: float, **labels: str) -> None:
+        key = self._key(labels)
         with self._lock:
-            return self._value
+            self._values[key] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
+
+    def value(self, **labels: str) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return self._values.get(key, 0.0)
 
 
 class Histogram:
@@ -212,6 +231,51 @@ WAVE_FALLBACKS = Counter(
     "Waves re-run through the serial chunked scan after missing the "
     "fixpoint within the round budget (OSIM_WAVE_ROUNDS), by reason.",
     labelnames=("reason",),
+)
+RETRY_ATTEMPTS = Counter(
+    "osim_retry_attempts_total",
+    "Retries performed by resilience.RetryPolicy, by call target.",
+    labelnames=("target",),
+)
+CIRCUIT_STATE = Gauge(
+    "osim_circuit_state",
+    "Per-endpoint circuit-breaker state (0=closed, 1=open, 2=half-open).",
+    labelnames=("endpoint",),
+)
+FAULTS_INJECTED = Counter(
+    "osim_faults_injected_total",
+    "Faults injected by the resilience fault-injection harness.",
+    labelnames=("target", "kind"),
+)
+EXTENDER_REQUESTS = Counter(
+    "osim_extender_requests_total",
+    "HTTP scheduler-extender round trips, by verb and outcome.",
+    labelnames=("verb", "outcome"),
+)
+EXTENDER_DURATION = Histogram(
+    "osim_extender_duration_seconds",
+    "HTTP scheduler-extender round-trip duration, seconds, by verb and "
+    "outcome (ok / error / circuit_open).",
+    labelnames=("verb", "outcome"),
+)
+EXTENDER_INFLIGHT = Gauge(
+    "osim_extender_inflight",
+    "Per-pod extender HTTP chains currently in flight in the wave engine.",
+)
+EXTENDER_WAVE_SIZE = Histogram(
+    "osim_extender_wave_size",
+    "Pods per dispatched extender wave (real lanes, excluding bucket pad).",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+)
+EXTENDER_WAVE_RESPILL = Counter(
+    "osim_extender_wave_respill_total",
+    "Wave pods respilled to the next wave after the commit-time feasibility "
+    "recheck saw a mask changed by earlier commits.",
+)
+EXTENDER_SKIPPED = Counter(
+    "osim_extender_skipped_total",
+    "Ignorable extenders skipped after an error or an open circuit breaker.",
+    labelnames=("endpoint",),
 )
 
 # span names with a dedicated kube-parity histogram

@@ -1,8 +1,9 @@
 """Timing spans and logging.
 
-The port's copy of the JAX package's span tree, without the trace-context
-propagation, the Chrome-trace export and the crash flight recorder (those
-come with the server and durability slices). Spans nest through a
+The port's copy of the JAX package's span tree, without trace identity
+(W3C traceparent), the Chrome-trace export and the crash flight recorder
+(those come with the tooling slice). A worker thread nests its spans under
+a span of the dispatching thread through current_context() / activate(). Spans nest through a
 thread-local stack; every finished span feeds the metrics histograms, and
 each finished root tree is kept in a bounded ring (`recent_timings`), which
 is where `chip_smoke.py` reads the simulator's phase split from. A root span
@@ -94,6 +95,33 @@ def span(name: str, **meta):
                 log.warning("slow trace (> %.1fs):\n%s", SLOW_TRACE_S, s.render())
             else:
                 log.debug("trace:\n%s", s.render())
+
+
+def current_context() -> Optional[Span]:
+    """The calling thread's innermost open span (None outside any span): a
+    dispatching thread captures it so worker threads can nest under it."""
+    return _tracer.stack[-1] if _tracer.stack else None
+
+
+@contextmanager
+def activate(ctx: Optional[Span]):
+    """Open spans of this (worker) thread as children of `ctx`, a span
+    captured on another thread by current_context(), for the block."""
+    if ctx is None:
+        yield
+        return
+    _tracer.stack.append(ctx)
+    try:
+        yield
+    finally:
+        _tracer.stack.pop()
+
+
+def current_traceparent() -> Optional[str]:
+    """The W3C traceparent of the calling thread's trace. The port's spans
+    carry no trace identity yet (ROADMAP item 14), so there is none: HTTP
+    callers send no traceparent header."""
+    return None
 
 
 def recent_timings() -> List[dict]:

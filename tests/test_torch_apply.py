@@ -168,12 +168,113 @@ def test_apply_defaults_to_cuda(monkeypatch):
 
 
 def test_scheduler_config_with_extenders_is_refused(tmp_path):
-    """Extenders parse (as the reference's config does) and are then refused
-    by the engine, which does not call them yet."""
+    """A scheduler config naming an extender that refuses every node: the
+    engine now calls it, so every pod is refused with the extender's
+    FailedNodes message, as in the JAX package."""
+    from open_simulator_tpu_torch.tools.stubs import StubExtender
+
+    stub = StubExtender({"allow": set(), "failed": {}})
+    try:
+        sched = tmp_path / "sched.yaml"
+        sched.write_text(
+            "kind: KubeSchedulerConfiguration\n"
+            f"extenders:\n  - urlPrefix: {stub.url}\n    filterVerb: filter\n"
+        )
+        tout, _ = port_apply(CONFIGS[1], scheduler_config=str(sched))
+        jwl.reset_name_rng()
+        jout = japply.run_apply(load(JConfig, CONFIGS[1]), auto_plan=False, out=io.StringIO(),
+                                scheduler_config=str(sched))
+    finally:
+        stub.close()
+    assert tout.report == jout.report
+    assert tout.result.unscheduled and stub.calls
+    assert all("didn't pass extender filter" in u.reason for u in tout.result.unscheduled)
+
+
+SCHED_CFG = """
+kind: KubeSchedulerConfiguration
+profiles:
+  - schedulerName: default-scheduler
+    plugins:
+      score:
+        disabled:
+          - name: NodeResourcesLeastAllocated
+        enabled:
+          - name: NodeResourcesBalancedAllocation
+            weight: 5
+"""
+
+
+@pytest.mark.parametrize("path, ext, plan", [
+    (CONFIGS[0], "gpu", []), (CONFIGS[1], "gpu", ["--no-auto-plan"]),
+    (CONFIGS[1], "open-local", ["--no-auto-plan"]), (CONFIGS[1], "gpu,open-local", ["--no-auto-plan"]),
+])
+def test_cli_reference_flags_match_jax_cli(tmp_path, path, ext, plan):
+    """The reference's own command line: --default-scheduler-config and
+    --extended-resources give the JAX CLI's report byte for byte (the
+    device line apart), with the capacity search or without; the port's
+    --scheduler-config stays an alias."""
+    from open_simulator_tpu.cli import main as jcli
+
     sched = tmp_path / "sched.yaml"
-    sched.write_text(
-        "kind: KubeSchedulerConfiguration\n"
-        "extenders:\n  - urlPrefix: http://localhost:8888/\n    filterVerb: filter\n"
-    )
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_apply(CONFIGS[1], scheduler_config=str(sched))
+    sched.write_text(SCHED_CFG)
+    reports = {}
+    for name, mod, wl, flags in (("jax", jcli, jwl, []), ("torch", cli, twl, ["--device", "cpu"]),
+                                 ("alias", cli, twl, ["--device", "cpu"])):
+        out = tmp_path / f"{name}.txt"
+        flag = "--scheduler-config" if name == "alias" else "--default-scheduler-config"
+        wl.reset_name_rng()
+        rc = mod.main(["apply", "-f", str(ROOT / path), flag, str(sched),
+                       "--extended-resources", ext, "--output-file", str(out)] + plan + flags)
+        reports[name] = (rc, _without_device_line(out.read_text()))
+    assert reports["torch"] == reports["jax"] == reports["alias"]
+    text = "\n".join(reports["torch"][1])
+    assert "gpu" in ext or "=== GPU Share ===" not in text
+    assert "open-local" in ext or "=== Local Storage ===" not in text
+
+
+def test_full_report_extended_views():
+    """full_report's extended / extended_resources parameters select the
+    views as the JAX package's do."""
+    from open_simulator_tpu.engine import report as jreport
+    from open_simulator_tpu_torch.engine import report as treport
+
+    tout, _ = port_apply(CONFIGS[1])
+    jwl.reset_name_rng()
+    jout = japply.run_apply(load(JConfig, CONFIGS[1]), auto_plan=False, out=io.StringIO())
+    for kw in ({}, {"extended": False}, {"extended_resources": []},
+               {"extended_resources": ["gpu"]}, {"extended_resources": ["open-local"]}):
+        assert treport.full_report(tout.result, **kw) == jreport.full_report(jout.result, **kw)
+
+
+def test_cli_rejects_unknown_extended_resource(capsys):
+    rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--device", "cpu",
+                   "--extended-resources", "gpu,tpu"])
+    assert rc == 1
+    assert "--extended-resources: unknown resource(s) ['tpu']; expected gpu, open-local" in \
+        capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--devices", "2"], 13), (["--devices", "0"], 13), (["--run-dir", "runs/x"], 13),
+    (["--resume", "runs/x"], 13), (["--run-dir", "runs/x", "--resume"], 13),
+    (["--metrics-file", "m.json"], 14),
+])
+def test_cli_unported_flags_name_their_item(capsys, flags, item):
+    """The reference's flags of unported items parse, then fail with the
+    port's not-ported message naming the ROADMAP item (no argparse error)."""
+    rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--device", "cpu"] + flags)
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert "is not ported to open_simulator_tpu_torch yet" in err
+    assert f"ROADMAP.md Queue 1 item {item}:" in err
+
+
+def test_simulate_result_pods_on():
+    tout, _ = port_apply(CONFIGS[1])
+    jwl.reset_name_rng()
+    jout = japply.run_apply(load(JConfig, CONFIGS[1]), auto_plan=False, out=io.StringIO())
+    for st in jout.result.node_status:
+        assert ([p.key for p in tout.result.pods_on(st.node.name)]
+                == [p.key for p in jout.result.pods_on(st.node.name)])
+    assert tout.result.pods_on("no-such-node") == []

@@ -192,7 +192,7 @@ def test_plan_capacity_max_cpu_gate(monkeypatch):
 def test_plan_capacity_unported_arguments_raise():
     cluster, apps, template = _sweep_inputs("torch")
     for kw, item in (({"journal": object()}, "item 13"), ({"resume": True}, "item 13"),
-                     ({"mesh": object()}, "item 13"), ({"extenders": [object()]}, "item 11")):
+                     ({"mesh": object()}, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             tcap.plan_capacity(cluster, apps, template, device="cpu", **kw)
     with pytest.raises(ValueError, match="sweep_mode"):

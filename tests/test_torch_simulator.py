@@ -364,19 +364,21 @@ def test_lane_rounds_match_jax_preemption():
 
 @pytest.mark.parametrize("kwargs, item", [
     ({"mesh": object()}, "item 13"),
-    ({"extenders": [object()]}, "item 11"),
+    ({"capacity_mesh": object()}, "item 13"),
     ({"resident": object()}, "item 12"),
     ({"journal": object()}, "item 13"),
     ({"resume": True}, "item 13"),
 ])
 def test_unported_arguments_raise(kwargs, item):
     """Simulator's and plan_capacity's unported arguments (n_pad and
-    preencoded are ported with the capacity search)."""
+    preencoded are ported with the capacity search, extenders with
+    ROADMAP item 11)."""
     from open_simulator_tpu_torch.engine import capacity as tcap
 
     with pytest.raises(NotImplementedError, match=item):
-        if "journal" in kwargs or "resume" in kwargs:
-            tcap.plan_capacity(tsim.ClusterResource(), [], None, device="cpu", **kwargs)
+        if {"journal", "resume", "capacity_mesh"} & set(kwargs):
+            kw = {("mesh" if k == "capacity_mesh" else k): v for k, v in kwargs.items()}
+            tcap.plan_capacity(tsim.ClusterResource(), [], None, device="cpu", **kw)
         else:
             tsim.Simulator(tsim.ClusterResource(), device="cpu", **kwargs)
 
@@ -387,7 +389,7 @@ def test_scenario_axis_raises(call):
     NotImplementedError naming the ROADMAP item."""
     calls = {
         "run_scenarios": lambda: tsim.Simulator(
-            tsim.ClusterResource(), extenders=[object()], device="cpu"
+            tsim.ClusterResource(), mesh=object(), device="cpu"
         ).run_scenarios([], []),
         "simulate_batch": lambda: tsim.simulate_batch(
             tsim.ClusterResource(), [], [tsim.Scenario()], mesh=object(), device="cpu"
