@@ -57,18 +57,36 @@
    (retries 1), and run_apply on a kubeConfig served by a stub apiserver,
    each against the JAX package's constants in `sim_configs`; prints walls,
    waves, HTTP calls and respills.
-8. Holds every kernel against its plain PyTorch version on the card, on the
+8. Drives durable runs (durable_phase): the chunked scenario scan at
+   plan_full's first ladder width (6 lanes padded to 8 x 20,480 node rows,
+   its first 512 pods, chunks of 64) under a run journal and carry
+   checkpoints, with two and three injected device losses, resumes from a
+   good and from a torn snapshot, each bit-equal to the monolithic scan
+   and its JAX carry digest; the wave driver with a checkpointer and one
+   loss; `sweep --capacity` and `apply --run-dir` killed in a subprocess
+   (SIGKILL from a fault plan) and finished by `runs resume`, their
+   placement digests equal to the clean runs' and the JAX CLI's; an apply
+   past its deadline (exit 3, no CPU retry) resumed the same way. Prints
+   the walls, snapshot bytes, restore and digest milliseconds.
+9. Drives the resident cluster state (resident_phase): 32 seeded delta
+   rounds of 64 node changes over config_plan's 10,000 nodes, verified
+   every 8 rounds, one torn delta and one digest mismatch repaired; the
+   final digest_table equal to the JAX constant; then simulate() of
+   config_plan's apps on the changed cluster with and without the
+   resident, equal to the JAX digest, one domain_pop launch a call. Prints
+   the sync milliseconds against a full encode_nodes.
+10. Holds every kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it, on those of spread_affinity's DoNotSchedule
    group and of the simulator's plan call, and on extra seeded variants, and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
    pairs).
-9. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+11. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-10. Prints one JSON line of per-kernel numbers (launches summed over the
+12. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
-   preempt call, the apply runs, the capacity, prove and extender phases)
-   and, last, the result line.
+   preempt call, the apply runs, the capacity, prove, extender, durable and
+   resident phases) and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -611,35 +629,27 @@ def plan_once(torch, dp, fast, spec, mode, label):
     return key, wall, dp.launches, stats
 
 
-def wave_width_check(torch, fast, spec, n_pods=1024, n_converge=256, converge_wave=16):
-    """plan_full's first ladder sweep at its lanes (6, padded to 8) and node
-    bucket, run twice through the wave driver, each against the lane-batched
-    serial scan on the same pods (every output and the carry digest
-    bit-equal):
-    - timing: the first `n_pods` pods (4 waves of 256) at the default knobs,
-      each engine timed, every wave round split into its probe and its
-      replay. Here every wave runs the 24-round budget and falls back to the
-      scan, so its outputs are the scan's own: this run times the rounds;
-    - convergence: the first `n_converge` pods in waves of `converge_wave`
-      (OSIM_WAVE_SIZE; a wave reaches its fixpoint within W + 1 rounds, under
-      the budget), so every wave's outputs and exit carry are the probe's and
-      the replay's. No wave may fall back."""
-    import contextlib
-    import os
+_FULL_WIDTH: dict = {}
 
+
+def full_width_lanes(torch):
+    """plan_full's first ladder sweep at its lanes (6, padded to 8) and node
+    bucket (20,480 rows), built once and kept for the phases that scan it:
+    the Simulator (encoder, node table, carry), the expanded app pods, the
+    lanes' valid masks and weights."""
+    if _FULL_WIDTH:
+        return _FULL_WIDTH
     from open_simulator_tpu_torch import sim_configs as sc
     from open_simulator_tpu_torch.core.objects import Node
     from open_simulator_tpu_torch.core.workloads import reset_name_rng
     from open_simulator_tpu_torch.engine.capacity import (
         LADDER_LANES, _TrialReuse, lower_bound_nodes,
     )
-    from open_simulator_tpu_torch.ops.fast import scenario_bucket
     from open_simulator_tpu_torch.engine.simulator import Simulator, simulate
-    from open_simulator_tpu_torch.ops import wave
-    from open_simulator_tpu_torch.ops.encode import encode_pods, node_bucket
-    from open_simulator_tpu_torch.ops.state import stack_carry
-    from open_simulator_tpu_torch.utils import metrics
+    from open_simulator_tpu_torch.ops.encode import node_bucket
+    from open_simulator_tpu_torch.ops.fast import scenario_bucket
 
+    spec = sc.plan_spec()
     reset_name_rng()
     cluster, apps = sc._port_build(spec)
     template = Node.from_dict(sc.template_spec())
@@ -663,17 +673,43 @@ def wave_width_check(torch, fast, spec, n_pods=1024, n_converge=256, converge_wa
     s = len(ladder)
     s_pad = scenario_bucket(s)
     valid += [valid[0]] * (s_pad - s)   # pad lanes copy lane 0, as run_scenarios does
-    valid_s = torch.from_numpy(np.stack(valid)).cuda()
-    weights_s = sim.weights[None].repeat(s_pad, 1)
+    _FULL_WIDTH.update(
+        sim=sim, app_pods=app_pods, n_base=n_base, n_pad=n_pad, ladder=ladder, s=s, s_pad=s_pad,
+        valid_s=torch.from_numpy(np.stack(valid)).cuda(),
+        weights_s=sim.weights[None].repeat(s_pad, 1),
+    )
+    return _FULL_WIDTH
+
+
+def wave_width_check(torch, fast, n_pods=1024, n_converge=256, converge_wave=16):
+    """plan_full's first ladder sweep at its lanes (6, padded to 8) and node
+    bucket (full_width_lanes), run twice through the wave driver, each
+    against the lane-batched serial scan on the same pods (every output and
+    the carry digest bit-equal):
+    - timing: the first `n_pods` pods (4 waves of 256) at the default knobs,
+      each engine timed, every wave round split into its probe and its
+      replay. Here every wave runs the 24-round budget and falls back to the
+      scan, so its outputs are the scan's own: this run times the rounds;
+    - convergence: the first `n_converge` pods in waves of `converge_wave`
+      (OSIM_WAVE_SIZE; a wave reaches its fixpoint within W + 1 rounds, under
+      the budget), so every wave's outputs and exit carry are the probe's and
+      the replay's. No wave may fall back."""
+    import contextlib
+
+    from open_simulator_tpu_torch.ops import wave
+    from open_simulator_tpu_torch.ops.encode import encode_pods
+    from open_simulator_tpu_torch.ops.state import stack_carry
+    from open_simulator_tpu_torch.utils import metrics
+
+    lanes = full_width_lanes(torch)
+    sim, app_pods, s, s_pad = lanes["sim"], lanes["app_pods"], lanes["s"], lanes["s_pad"]
+    valid_s, weights_s = lanes["valid_s"], lanes["weights_s"]
+    n_base, n_pad, ladder = lanes["n_base"], lanes["n_pad"], lanes["ladder"]
 
     def run(batch, knobs, clock=None):
-        saved = {v: os.environ.get(v) for v in
-                 ("OSIM_WAVE_COMMIT", "OSIM_WAVE_SIZE", "OSIM_COMMIT_CHUNK")}
-        for v in saved:
-            os.environ.pop(v, None)
-        os.environ.update(knobs)
         before = _wave_counters(metrics)
-        try:
+        with _Env(**{"OSIM_WAVE_COMMIT": None, "OSIM_WAVE_SIZE": None,
+                     "OSIM_COMMIT_CHUNK": None, **knobs}):
             carry_s = stack_carry(sim._carry, s_pad)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -681,12 +717,6 @@ def wave_width_check(torch, fast, spec, n_pods=1024, n_converge=256, converge_wa
                 out = fast.schedule_scenarios_host(sim._ns, carry_s, batch, weights_s, valid_s, s)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        finally:
-            for v, old in saved.items():
-                if old is None:
-                    os.environ.pop(v, None)
-                else:
-                    os.environ[v] = old
         after = _wave_counters(metrics)
         counts = {c: after[c] - before[c] for c in ("waves", "fallbacks")}
         return (fast.scenario_carry_digest(out[0]),) + tuple(out[1:]), secs, counts
@@ -771,7 +801,7 @@ def capacity_phase(torch, dp, fast):
         if label == "plan_small" and mode == "auto" and not stats.get("rounds_mean"):
             failures.append("plan_small/auto: the wave engine never ran")
         failures += [f"{want}: {b}" for b in stats["clock_bad"]]
-    results["wave_full_width"] = stats = wave_width_check(torch, fast, sc.plan_spec())
+    results["wave_full_width"] = stats = wave_width_check(torch, fast)
     conv = stats["converge"]
     if not stats["equal"]:
         failures.append("wave driver and lane-batched scan differ at full width")
@@ -988,6 +1018,480 @@ def extender_phase(torch, dp):
     return results, failures, dp.launches
 
 
+class _Env:
+    """Set environment variables for a block (None unsets one), then put
+    every one back."""
+
+    def __init__(self, **knobs):
+        self.knobs = knobs
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.knobs}
+        for k, v in self.knobs.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _CallClock:
+    """Times every call of a module function (synced before and after) for
+    a block: wraps `mod.name`, restores it on exit."""
+
+    def __init__(self, torch, mod, name):
+        self.torch, self.mod, self.name = torch, mod, name
+        self.real = getattr(mod, name)
+        self.seconds: list = []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.mod, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+    def ms(self) -> float:
+        return sum(self.seconds) / len(self.seconds) * 1e3 if self.seconds else 0.0
+
+
+def _cli_quiet(argv):
+    """The port's CLI in this process with its stdout kept, and the osim
+    logger back at ERROR afterwards (the CLI sets it from LogLevel)."""
+    import contextlib
+    import io
+    import logging
+
+    from open_simulator_tpu_torch import cli
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        logging.getLogger("osim").setLevel(logging.ERROR)
+    return rc, buf.getvalue()
+
+
+def durable_phase(torch, dp, fast):
+    """Durable runs on the card.
+    1. The chunked scan at full width: plan_full's first ladder sweep (6
+       lanes padded to 8 x 20,480 node rows) over its first CHUNK_SCAN_PODS
+       pods, OSIM_COMMIT_CHUNK=64, snapshots every 2 chunks; each run
+       bit-equal to the monolithic scan (carry digest and all five
+       outputs), whose digest is the JAX package's constant: (a) chunked
+       under a PlanCheckpointer, (b) device_lost twice at chunk 5, recovered
+       in place, (c) device_lost three times at chunk 5, which raises with
+       chunks 0-4 journaled, then a resume that skips the 5 chunks its
+       newest snapshot covers, (d) the same crash with its newest snapshot
+       torn, whose resume falls back to the previous one (4 chunks skipped).
+    2. The wave driver under a checkpointer: 256 pods in waves of 16 with one
+       device_lost at wave 6; every wave adopted, bit-equal to the scan.
+    3. Process kills on the card: `sweep --capacity` on the sweep fixture
+       killed by a chunk_kill rule, and `apply --run-dir` on the quickstart
+       killed by a journal kill rule at its second trial record, each in a
+       subprocess, then `runs resume`; placement digests equal to the clean
+       runs' and the JAX CLI's; and `apply --run-dir` past a tiny
+       OSIM_CALL_DEADLINE_S, which exits 3 with the fire journaled, then
+       `runs resume` to the same digest.
+    Returns (results, failures, domain_pop launches)."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.durable import RunJournal, replay
+    from open_simulator_tpu_torch.durable.checkpoint import PlanCheckpointer, installed
+    from open_simulator_tpu_torch.ops.encode import encode_pods
+    from open_simulator_tpu_torch.ops.state import stack_carry
+    from open_simulator_tpu_torch.resilience import faults
+    from open_simulator_tpu_torch.utils import metrics
+
+    results, failures, launches = {}, [], 0
+    t_setup = time.perf_counter()
+    lanes = full_width_lanes(torch)
+    sim, s, s_pad = lanes["sim"], lanes["s"], lanes["s_pad"]
+    batch = encode_pods(sim.enc, lanes["app_pods"][0][:sc.CHUNK_SCAN_PODS])
+    results["setup_s"] = time.perf_counter() - t_setup
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-durable-")
+    chunk, every = 64, 2
+    n_chunks = -(-int(batch.p) // chunk)
+    chunked = dict(OSIM_WAVE_COMMIT="0", OSIM_COMMIT_CHUNK=chunk, OSIM_WAVE_SIZE=None,
+                   OSIM_FLIGHT_DIR=os.path.join(tmp, "flight"))
+
+    def device_lost(i, times):
+        return faults.FaultPlan.from_dict({"rules": [{
+            "target": "device", "op": f"commit-chunk:{i}", "kind": "device_lost",
+            "times": times}]})
+
+    def run(b, knobs, run_dir=None, resume=False, plan=None):
+        """One schedule_scenarios_host call on a fresh stacked carry ->
+        ((carry digest, *outputs), wall s)."""
+        journal = RunJournal.open(run_dir) if run_dir else None
+        if plan is not None:
+            faults.install_plan(plan)
+        try:
+            with _Env(**knobs):
+                carry_s = stack_carry(sim._carry, s_pad)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if journal is None:
+                    out = fast.schedule_scenarios_host(
+                        sim._ns, carry_s, b, lanes["weights_s"], lanes["valid_s"], s)
+                else:
+                    with installed(PlanCheckpointer(journal, resume=resume, every=every)):
+                        out = fast.schedule_scenarios_host(
+                            sim._ns, carry_s, b, lanes["weights_s"], lanes["valid_s"], s)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            if plan is not None:
+                faults.uninstall_plan()
+            if journal is not None:
+                journal.close()
+        return (fast.scenario_carry_digest(out[0]),) + tuple(out[1:]), wall
+
+    def same(a, b):
+        return a[0] == b[0] and all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+    def chunks_of(d):
+        return [e["chunk"] for e in replay(d) if e["event"] == "plan_chunk"]
+
+    try:
+        mono, mono_s = run(batch, dict(chunked, OSIM_COMMIT_CHUNK=None))
+        walls = {"monolithic": mono_s}
+        if mono[0] != sc.CHUNK_SCAN_DIGEST:
+            failures.append(f"monolithic scan digest {mono[0]:08x} != JAX "
+                            f"{sc.CHUNK_SCAN_DIGEST:08x}")
+        bytes0 = metrics.CHECKPOINT_BYTES.value()
+        with _CallClock(torch, fast, "scenario_carry_digest") as dclock, \
+                _CallClock(torch, fast, "carry_from_host") as rclock:
+            got, walls["a_chunked"] = run(batch, chunked, os.path.join(tmp, "a"))
+            snap_bytes = metrics.CHECKPOINT_BYTES.value() - bytes0
+            if not same(got, mono) or chunks_of(os.path.join(tmp, "a")) != list(range(n_chunks)):
+                failures.append("(a) chunked run under a checkpointer differs from the scan")
+            yes0 = metrics.DEVICE_LOST.value(handled="yes")
+            got, walls["b_device_lost"] = run(batch, chunked, os.path.join(tmp, "b"),
+                                              plan=device_lost(5, 2))
+            lost = metrics.DEVICE_LOST.value(handled="yes") - yes0
+            if not same(got, mono) or lost != 2:
+                failures.append(f"(b) two device losses: {lost} handled, equal "
+                                f"{same(got, mono)}")
+            crash = os.path.join(tmp, "c")
+            t0 = time.perf_counter()
+            try:
+                run(batch, chunked, crash, plan=device_lost(5, 3))
+                failures.append("(c) a third device loss did not raise")
+            except faults.DeviceLostError:
+                pass
+            walls["c_crash"] = time.perf_counter() - t0
+            if sorted(set(chunks_of(crash))) != [0, 1, 2, 3, 4]:
+                failures.append(f"(c) journaled chunks {chunks_of(crash)}")
+            torn = os.path.join(tmp, "d")
+            shutil.copytree(crash, torn)
+            # the rollbacks re-ran chunk 4, and its second run closed a
+            # snapshot interval (the reference's counter counts re-runs),
+            # so the newest snapshot covers chunks 0-4, the previous 0-3
+            snaps = sorted(os.listdir(os.path.join(crash, "ckpt")))
+            skip0 = metrics.RESUME_CHUNKS_SKIPPED.value()
+            got, walls["c_resume"] = run(batch, chunked, crash, resume=True)
+            skipped_c = metrics.RESUME_CHUNKS_SKIPPED.value() - skip0
+            if not same(got, mono) or skipped_c != 5 or \
+                    [n[-10:-4] for n in snaps] != ["000004", "000005"]:
+                failures.append(f"(c) resume skipped {skipped_c} chunks, snapshots {snaps}, "
+                                f"equal {same(got, mono)}")
+            newest = sorted(os.listdir(os.path.join(torn, "ckpt")))[-1]
+            path = os.path.join(torn, "ckpt", newest)
+            with open(path, "rb+") as fh:
+                fh.truncate(os.path.getsize(path) // 2)
+            skip0 = metrics.RESUME_CHUNKS_SKIPPED.value()
+            got, walls["d_torn_resume"] = run(batch, chunked, torn, resume=True)
+            skipped_d = metrics.RESUME_CHUNKS_SKIPPED.value() - skip0
+            if not same(got, mono) or skipped_d != 4:
+                failures.append(f"(d) torn snapshot: resume skipped {skipped_d} chunks, equal "
+                                f"{same(got, mono)}")
+        digest_ms, restore_ms = dclock.ms(), rclock.ms()
+        print(f"durable[chunked scan] {int(batch.p)} pods x {s} lanes ({s_pad} padded) x "
+              f"{lanes['n_pad']} node rows, {n_chunks} chunks of {chunk}, snapshot every {every}: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+              + f"; snapshots {snap_bytes / 1e6:.1f} MB in run (a), carry digest "
+              f"{digest_ms:.2f} ms a call ({len(dclock.seconds)} calls), restore "
+              f"{restore_ms:.2f} ms a call ({len(rclock.seconds)} calls); resumes skipped "
+              f"{skipped_c} and {skipped_d} chunks; carry digest {mono[0]:08x}", flush=True)
+        results["chunked"] = {"pods": int(batch.p), "chunks": n_chunks, "walls_s": walls,
+                              "scan_us_per_pod": mono_s / int(batch.p) * 1e6,
+                              "snapshot_bytes": snap_bytes, "digest_ms": digest_ms,
+                              "restore_ms": restore_ms, "digest": f"{mono[0]:08x}"}
+
+        batch_w = encode_pods(sim.enc, lanes["app_pods"][0][:256])
+        scan, scan_s = run(batch_w, dict(chunked, OSIM_COMMIT_CHUNK=None))
+        before = _wave_counters(metrics)
+        yes0 = metrics.DEVICE_LOST.value(handled="yes")
+        got, wave_s = run(batch_w, dict(chunked, OSIM_WAVE_COMMIT="1", OSIM_COMMIT_CHUNK=None,
+                                        OSIM_WAVE_SIZE=16),
+                          os.path.join(tmp, "w"), plan=device_lost(6, 1))
+        after = _wave_counters(metrics)
+        waves, fallbacks = after["waves"] - before["waves"], after["fallbacks"] - before["fallbacks"]
+        lost = metrics.DEVICE_LOST.value(handled="yes") - yes0
+        print(f"durable[wave] 256 pods in waves of 16 with a device_lost at wave 6: wave driver "
+              f"{wave_s:.3f} s ({int(waves)} waves committed, {int(fallbacks)} fell back, "
+              f"{int(lost)} losses recovered), scan {scan_s:.3f} s, "
+              f"{'bit-equal' if same(got, scan) else 'DIFFERENT'}", flush=True)
+        results["wave"] = {"wave_s": wave_s, "scan_s": scan_s, "waves": waves,
+                           "fallbacks": fallbacks, "lost": lost}
+        if not (same(got, scan) and fallbacks == 0 and lost == 1 and waves >= 16):
+            failures.append(f"wave driver with a checkpointer: {int(waves)} waves, "
+                            f"{int(fallbacks)} fallbacks, {int(lost)} losses, equal "
+                            f"{same(got, scan)}")
+
+        # -- process kills and `runs resume` ----------------------------------
+        kill_sweep = ("rules:\n  - target: device\n    op: \"commit-chunk:2\"\n"
+                      "    kind: chunk_kill\n    times: 1\n")
+        kill_apply = ("rules:\n  - target: journal\n    op: trial\n    kind: kill\n"
+                      "    after: 1\n    times: 1\n")
+        legs = (
+            ("sweep", ["sweep", "--capacity", "-f", "tests/fixtures/sweep/simon-config.yaml"],
+             kill_sweep, "plan_chunk"),
+            ("apply", ["apply", "-f", "example/simon-config.yaml"], kill_apply, "trial"),
+        )
+        knobs = dict(OSIM_COMMIT_CHUNK=8, OSIM_CKPT_EVERY=every, OSIM_WAVE_COMMIT=None,
+                     OSIM_FAULT_PLAN=None, OSIM_FLIGHT_DIR=os.path.join(tmp, "flight"),
+                     OSIM_CALL_DEADLINE_S=None, LogLevel="error")
+        root = os.path.dirname(os.path.abspath(__file__))
+        for name, argv, kill_plan, record in legs:
+            clean, killed = os.path.join(tmp, f"{name}-clean"), os.path.join(tmp, f"{name}-kill")
+            plan_path = os.path.join(tmp, f"{name}-plan.yaml")
+            with open(plan_path, "w") as fh:
+                fh.write(kill_plan)
+            dp.launches = 0
+            with _Env(**knobs):
+                t0 = time.perf_counter()
+                rc_clean, _ = _cli_quiet(argv + ["--run-dir", clean, "--device", "cuda"])
+                clean_s = time.perf_counter() - t0
+                env = dict(os.environ, OSIM_FAULT_PLAN=plan_path, PYTHONPATH=root)
+                t0 = time.perf_counter()
+                child = subprocess.run(
+                    [sys.executable, "-m", "open_simulator_tpu_torch.cli"] + argv
+                    + ["--run-dir", killed, "--device", "cuda"],
+                    env=env, cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True)
+                killed_s = time.perf_counter() - t0
+                records = sum(e["event"] == record for e in replay(killed))
+                t0 = time.perf_counter()
+                rc_resume, _ = _cli_quiet(["runs", "resume", killed, "--device", "cuda"])
+                resume_s = time.perf_counter() - t0
+            launches += dp.launches
+            digests = []
+            for d in (clean, killed):
+                try:
+                    with open(os.path.join(d, "outcome.json")) as fh:
+                        digests.append(json.load(fh)["placement_digest"])
+                except (OSError, ValueError, KeyError):
+                    digests.append(None)
+            print(f"durable[kill {name}] clean run {clean_s:.3f} s (rc {rc_clean}); killed "
+                  f"subprocess {killed_s:.3f} s (rc {child.returncode}, {records} {record} "
+                  f"records journaled); runs resume {resume_s:.3f} s (rc {rc_resume}); "
+                  f"placement digests {digests} vs JAX {sc.RUN_DIR_DIGESTS[name]}; domain_pop "
+                  f"launches {dp.launches}", flush=True)
+            results[f"kill_{name}"] = {"clean_s": clean_s, "killed_s": killed_s,
+                                       "resume_s": resume_s, "records": records,
+                                       "launches": dp.launches}
+            if child.returncode not in (-9, 137):
+                failures.append(f"kill {name}: rc {child.returncode}, expected SIGKILL; "
+                                f"stderr tail {child.stderr[-400:]!r}")
+            if not records or (name == "apply" and records != 1):
+                failures.append(f"kill {name}: {records} {record} records journaled")
+            if (rc_clean, rc_resume) != (0, 0) or digests != [sc.RUN_DIR_DIGESTS[name]] * 2:
+                failures.append(f"kill {name}: rc clean {rc_clean}, resume {rc_resume}, "
+                                f"digests {digests} != {sc.RUN_DIR_DIGESTS[name]}")
+
+        # a mid-run deadline: the child exits 3 with the fire journaled (no
+        # CPU retry), and `runs resume` finishes the run on the card
+        late = os.path.join(tmp, "apply-deadline")
+        with _Env(**knobs):
+            env = dict(os.environ, OSIM_CALL_DEADLINE_S="0.001", PYTHONPATH=root)
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, "-m", "open_simulator_tpu_torch.cli", "apply", "-f",
+                 "example/simon-config.yaml", "--run-dir", late, "--device", "cuda"],
+                env=env, cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            late_s = time.perf_counter() - t0
+            events = replay(late)
+            t0 = time.perf_counter()
+            rc_resume, _ = _cli_quiet(["runs", "resume", late, "--device", "cuda"])
+            resume_s = time.perf_counter() - t0
+        stages = [e["stage"] for e in events if e["event"] == "watchdog"]
+        try:
+            with open(os.path.join(late, "outcome.json")) as fh:
+                digest = json.load(fh)["placement_digest"]
+        except (OSError, ValueError, KeyError):
+            digest = None
+        print(f"durable[deadline apply] subprocess {late_s:.3f} s (rc {child.returncode}, "
+              f"watchdog records {stages}, fallback records "
+              f"{sum(e['event'] == 'backend_fallback' for e in events)}); runs resume "
+              f"{resume_s:.3f} s (rc {rc_resume}); placement digest {digest}", flush=True)
+        results["deadline_apply"] = {"subprocess_s": late_s, "resume_s": resume_s}
+        if child.returncode != 3 or stages != ["apply-simulate"] or rc_resume != 0 or \
+                digest != sc.RUN_DIR_DIGESTS["apply"]:
+            failures.append(f"deadline apply: rc {child.returncode}, watchdog {stages}, resume "
+                            f"rc {rc_resume}, digest {digest}; stderr tail "
+                            f"{child.stderr[-400:]!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _FULL_WIDTH.clear()
+    return results, failures, launches
+
+
+def _planes_equal(res, encode_nodes):
+    """The resident's host mirror and device planes against a fresh encode
+    of its nodes and bound pods at its shapes, byte for byte."""
+    import dataclasses
+
+    from open_simulator_tpu_torch.engine.resident import DEVICE_PLANES
+    from open_simulator_tpu_torch.ops.encode import NodeTable
+
+    fresh = encode_nodes(res.enc, res._nodes, existing_usage=res._usage,
+                         existing_gpu=res._gpu_usage, n_pad=res._host.n, min_axes=res._axes)
+    for f in dataclasses.fields(NodeTable):
+        if f.name != "names" and getattr(res._host, f.name).tobytes() != \
+                getattr(fresh, f.name).tobytes():
+            return False
+    return all(res._dev[n].cpu().numpy().tobytes() == getattr(fresh, n).tobytes()
+               for n in DEVICE_PLANES)
+
+
+def resident_phase(torch, dp, fast):
+    """Resident cluster state on the card: a ResidentCluster over
+    sim_configs.plan's 10,000 nodes through RESIDENT_ROUNDS seeded delta
+    rounds of RESIDENT_CHANGES node changes (labels, taints, allocatable,
+    bound-pod usage, nodes added within the bucket), verify_now every 8
+    rounds, one torn_delta and one digest_mismatch injected (both repaired
+    and counted); the final digest_table equal to the JAX constant and the
+    planes to a fresh encode. Then simulate() of plan's apps on the cluster
+    after the rounds, with the resident (twice) and without: equal result
+    digests, the JAX constant, one domain_pop launch per call. Returns
+    (results, failures, domain_pop launches)."""
+    import copy
+    import tempfile
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.core.objects import Node, Pod
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.resident import ResidentCluster, digest_table
+    from open_simulator_tpu_torch.engine.simulator import AppResource, ClusterResource, simulate
+    from open_simulator_tpu_torch.ops.encode import Encoder, encode_nodes
+    from open_simulator_tpu_torch.resilience import faults
+    from open_simulator_tpu_torch.utils import metrics
+
+    results, failures, launches = {}, [], 0
+    nodes, apps = sc.plan_spec()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-resident-")
+    walk = sc.ResidentWalk(Node, Pod, nodes)
+    encode_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode_nodes(Encoder(topology_keys=("kubernetes.io/hostname",)), walk.nodes)
+        encode_s.append(time.perf_counter() - t0)
+    res = ResidentCluster(journal_dir=tmp, device="cuda")
+    t0 = time.perf_counter()
+    res.sync(walk.nodes, [])
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    repairs0 = {r: metrics.RESIDENT_DRIFT_REPAIRS.value(reason=r)
+                for r in ("torn_delta", "digest_mismatch")}
+    deltas0 = {k: metrics.RESIDENT_DELTAS.value(kind=k)
+               for k in ("node_row", "node_added", "pod_usage")}
+    torn = faults.FaultPlan.from_dict({"rules": [
+        {"target": "resident", "op": "apply", "kind": "torn_delta", "times": 1}]})
+    mismatch = faults.FaultPlan.from_dict({"rules": [
+        {"target": "resident", "op": "verify", "kind": "digest_mismatch", "times": 1}]})
+    sync_s, verify_s, verdicts = [], [], []
+    for r, (changed, pods) in enumerate(sc.resident_rounds(nodes)):
+        n, p = walk.apply(changed, pods)
+        if r == 10:
+            faults.install_plan(torn)
+        t0 = time.perf_counter()
+        res.sync(n, p)
+        torch.cuda.synchronize()
+        sync_s.append(time.perf_counter() - t0)
+        faults.uninstall_plan()
+        if (r + 1) % 8 == 0:
+            if r + 1 == 16:
+                faults.install_plan(mismatch)
+            t0 = time.perf_counter()
+            verdicts.append(res.verify_now())
+            verify_s.append(time.perf_counter() - t0)
+            faults.uninstall_plan()
+    repaired = {k: metrics.RESIDENT_DRIFT_REPAIRS.value(reason=k) - v for k, v in repairs0.items()}
+    deltas = {k: metrics.RESIDENT_DELTAS.value(kind=k) - v for k, v in deltas0.items()}
+    digest = digest_table(res._host, res._dev)
+    equal = _planes_equal(res, encode_nodes)
+    steady = sorted(sync_s[:10] + sync_s[11:])
+    print("resident[rounds] sync ms per round: "
+          + ", ".join(f"{v * 1e3:.1f}" for v in sync_s), flush=True)
+    print(f"resident[rounds] {len(n)} nodes, {len(p)} bound pods after {len(sync_s)} rounds of "
+          f"{sc.RESIDENT_CHANGES} changes: cold sync {cold_s * 1e3:.1f} ms; delta sync median "
+          f"{steady[len(steady) // 2] * 1e3:.1f} ms, max {steady[-1] * 1e3:.1f} ms; the torn "
+          f"round {sync_s[10] * 1e3:.1f} ms; verify {', '.join(f'{v * 1e3:.0f}' for v in verify_s)}"
+          f" ms ({verdicts}); full encode_nodes {min(encode_s) * 1e3:.1f} ms (best of 3); "
+          f"deltas {deltas}; repairs {repaired}; digest_table {digest} (JAX "
+          f"{sc.RESIDENT_DIGEST}), planes {'equal' if equal else 'DIFFERENT'} to a fresh encode",
+          flush=True)
+    results["rounds"] = {"cold_sync_s": cold_s, "sync_s": sync_s, "verify_s": verify_s,
+                         "encode_s": encode_s, "deltas": deltas, "repairs": repaired,
+                         "digest": digest}
+    if digest != sc.RESIDENT_DIGEST or not equal:
+        failures.append(f"resident digest {digest} != {sc.RESIDENT_DIGEST} or planes differ")
+    if repaired != {"torn_delta": 1, "digest_mismatch": 1} or res.repairs != 2:
+        failures.append(f"resident repairs {repaired}, {res.repairs} in all")
+    if verdicts != [True, False, True, True]:
+        failures.append(f"resident verify_now verdicts {verdicts}")
+
+    not_covering = metrics.RESIDENT_FALLBACKS.value(reason="not_covering")
+    for label, kw in (("resident", {"resident": res}), ("resident warm", {"resident": res}),
+                      ("plain", {})):
+        reset_name_rng()
+        cluster = ClusterResource(nodes=list(n), pods=list(p))
+        app_objs = [AppResource(name=a, objects=copy.deepcopy(o)) for a, o in apps]
+        dp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = simulate(cluster, app_objs, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches += dp.launches
+        got = sc.result_digest(result)
+        print(f"resident[simulate {label}] {wall:.3f} s, placed/unscheduled/preempted "
+              f"{sc.result_counts(result)}, digest {got}, domain_pop launches {dp.launches}",
+              flush=True)
+        results[f"simulate_{label.replace(' ', '_')}"] = {"wall_s": wall, "launches": dp.launches}
+        if got != sc.RESIDENT_SIM_DIGEST or dp.launches != 1:
+            failures.append(f"resident simulate {label}: digest {got} (JAX "
+                            f"{sc.RESIDENT_SIM_DIGEST}), {dp.launches} domain_pop launches")
+    if metrics.RESIDENT_FALLBACKS.value(reason="not_covering") != not_covering:
+        failures.append("simulate(resident=) fell back to a full encode")
+    return results, failures, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -1126,6 +1630,20 @@ def main() -> int:
         return 1
     launches += ext_launches
 
+    # -- durable runs: chunk checkpoints, device loss, process kills -------
+    durable_results, failures, durable_launches = durable_phase(torch, dp, fast)
+    if failures:
+        print("chip_smoke: durable FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += durable_launches
+
+    # -- resident cluster state with row-delta sync -------------------------
+    resident_results, failures, resident_launches = resident_phase(torch, dp, fast)
+    if failures:
+        print("chip_smoke: resident FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += resident_launches
+
     # -- kernels vs plain versions on the card -----------------------------
     main_args = captured[0]
     ms, plain_ms, err, placed = check_pop("main-path", main_args, dp, torch, reps=5)
@@ -1192,6 +1710,7 @@ def main() -> int:
                 "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
                 "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
                 "capacity": cap_results, "prove": prove_results, "extenders": ext_results,
+                "durable": durable_results, "resident": resident_results,
                 "kernels": kernel_rows,
             }, f, indent=1, default=str)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -9,15 +9,19 @@ config names a new node, searches for the number of new nodes
 report.
 
 A config's `kubeConfig` snapshots a real cluster through
-utils/kubeclient.py. Not ported yet: the run journal (ROADMAP.md Queue 1
-item 13). Nothing falls back to another device: a
-watchdog deadline (OSIM_CALL_DEADLINE_S) reaches the caller as
-DeadlineExceeded.
+utils/kubeclient.py. With a run directory the run is journaled
+(durable/journal.py) and resumable. Nothing falls back to another device:
+the backend is reached through the watchdog's acquisition ladder, and a
+watchdog deadline (OSIM_CALL_DEADLINE_S) is journaled and reaches the
+caller as DeadlineExceeded; `simon runs resume` then continues the run on
+the same device from what its journal committed.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
+import os
 import shutil
 import subprocess
 import sys
@@ -148,7 +152,12 @@ class ApplyOutcome:
     plan: Optional[CapacityPlan] = None
     report: str = ""
     failed_apps: List[FailedApp] = dataclass_field(default_factory=list)
-    device: str = ""   # the torch device the simulation ran on
+    # provenance: the device the simulation ran on (the card's name on
+    # CUDA). The reference's CPU-fallback fields stay, always empty: the
+    # port never moves a run to another device.
+    device: str = ""
+    fallback: str = ""
+    fallback_reason: str = ""
 
 
 def placement_digest(result: SimulateResult) -> str:
@@ -212,6 +221,9 @@ def run_apply(
     scheduler_config: str = "",
     use_greed: bool = False,
     extended_resources: Optional[List[str]] = None,
+    run_dir: Optional[str] = None,
+    resume: bool = False,
+    config_path: str = "",
     device=DEFAULT_DEVICE,
 ) -> ApplyOutcome:
     """Simulate the config's apps on its cluster on `device` (CUDA by
@@ -221,8 +233,22 @@ def run_apply(
     reference's `N pod(s) unschedulable; searching ...` and `capacity plan:
     add K x <node> (A simulations)` lines and reports the planned cluster.
     Then the report (`extended_resources`: the extended views to show, None
-    = every view with data) and a `device:` line."""
-    from ..durable.watchdog import call_deadline_s, guarded_call
+    = every view with data) and a `device:` line.
+
+    With `run_dir`, the run is journaled: `run_start` (or `run_resume`
+    with `resume=True`), the backend acquisition, every capacity trial and
+    the outcome record, and a timestamp-free `outcome.json` with the
+    placement digest is written atomically; `resume=True` replays the
+    journal so a crashed run re-simulates only what it never committed. A
+    watchdog deadline is journaled (`watchdog`) and re-raised."""
+    from ..durable import (
+        DeadlineExceeded,
+        RunJournal,
+        acquire_backend,
+        atomic_write,
+        call_deadline_s,
+        guarded_call,
+    )
     from ..models.profiles import load_scheduler_config
 
     dev = resolve_device(device)
@@ -231,6 +257,17 @@ def run_apply(
     # interactive prompts stay on the terminal when the report goes to a file
     ui_out = sys.stderr if report_to_file else out
 
+    journal: Optional[RunJournal] = None
+    if run_dir:
+        journal = RunJournal.open(run_dir)
+        if not journal.has("run_start"):
+            journal.append("run_start", kind="apply", name=cfg.name, simon_config=config_path)
+        if resume:
+            metrics.RUN_RESUMED.inc()
+            journal.append("run_resume")
+
+    with span("backend-acquire"):
+        backend = acquire_backend(journal=journal, device=dev)
     with span("build-cluster"):
         cluster = build_cluster(cfg)
     failed_apps: List[FailedApp] = []
@@ -247,45 +284,53 @@ def run_apply(
     sched_cfg = load_scheduler_config(scheduler_config)
     profiles = sched_cfg.profiles
     extenders = sched_cfg.extenders
-    result = guarded_call(
-        "apply-simulate",
-        lambda: simulate(
-            cluster, apps, profiles=profiles, use_greed=use_greed,
-            extenders=extenders, device=dev,
-        ),
-        call_deadline_s(),
-    )
     plan: Optional[CapacityPlan] = None
-    if result.unscheduled and new_node is not None:
-        if interactive:
-            result = _interactive_loop(
-                cluster, apps, new_node, result, ui_out, input_fn,
-                profiles=profiles, use_greed=use_greed, extenders=extenders, device=dev,
-            )
-        elif auto_plan:
-            print(
-                f"{len(result.unscheduled)} pod(s) unschedulable; "
-                f"searching for minimum copies of node {new_node.name}...",
-                file=out,
-            )
-            with span("capacity-search"):
-                plan = plan_capacity(
-                    cluster, apps, new_node, profiles=profiles, use_greed=use_greed,
-                    extenders=extenders, device=dev,
+    try:
+        result = guarded_call(
+            "apply-simulate",
+            lambda: simulate(
+                cluster, apps, profiles=profiles, use_greed=use_greed,
+                extenders=extenders, device=dev,
+            ),
+            call_deadline_s(),
+        )
+        if result.unscheduled and new_node is not None:
+            if interactive:
+                result = _interactive_loop(
+                    cluster, apps, new_node, result, ui_out, input_fn,
+                    profiles=profiles, use_greed=use_greed, extenders=extenders, device=dev,
                 )
-            if plan is None:
-                print("capacity search failed: workload does not fit", file=out)
-            else:
-                degraded = (
-                    f", {plan.retries} retried on transient extender errors"
-                    if plan.retries else ""
-                )
+            elif auto_plan:
                 print(
-                    f"capacity plan: add {plan.nodes_added} x {new_node.name} "
-                    f"({plan.attempts} simulations{degraded})",
+                    f"{len(result.unscheduled)} pod(s) unschedulable; "
+                    f"searching for minimum copies of node {new_node.name}...",
                     file=out,
                 )
-                result = plan.result
+                with span("capacity-search"):
+                    plan = plan_capacity(
+                        cluster, apps, new_node, profiles=profiles, use_greed=use_greed,
+                        extenders=extenders, journal=journal, resume=resume, device=dev,
+                    )
+                if plan is None:
+                    print("capacity search failed: workload does not fit", file=out)
+                else:
+                    degraded = (
+                        f", {plan.retries} retried on transient extender errors"
+                        if plan.retries else ""
+                    )
+                    print(
+                        f"capacity plan: add {plan.nodes_added} x {new_node.name} "
+                        f"({plan.attempts} simulations{degraded})",
+                        file=out,
+                    )
+                    result = plan.result
+    except DeadlineExceeded as e:
+        # the reference retries on the CPU here; the port records the fire
+        # and stops, and `simon runs resume` continues on the same device
+        if journal is not None:
+            journal.append("watchdog", stage=e.stage, deadline_s=e.deadline_s)
+            journal.close()
+        raise
 
     with span("render-report"):
         report = full_report(result, extended_resources=extended_resources)
@@ -305,9 +350,39 @@ def run_apply(
 
         display = colorize_report(report)
     print(display, file=out)
-    print(f"device: {dev}", file=out)
+    print(f"device: {backend['device']}", file=out)
+
+    digest = placement_digest(result)
+    if journal is not None:
+        journal.append(
+            "run_end", outcome=outcome, nodes_added=(plan.nodes_added if plan else 0),
+            digest=digest,
+        )
+        # timestamp-free, so an interrupted and resumed run writes the
+        # same bytes as an uninterrupted one
+        atomic_write(
+            os.path.join(journal.run_dir, "outcome.json"),
+            json.dumps(
+                {
+                    "outcome": outcome,
+                    "device": backend["device"],
+                    "fallback": "",
+                    "fallback_reason": "",
+                    "nodes_added": plan.nodes_added if plan else 0,
+                    "attempts": plan.attempts if plan else 0,
+                    "retries": plan.retries if plan else 0,
+                    "unscheduled": len(result.unscheduled),
+                    "failed_apps": [fa.name for fa in failed_apps],
+                    "placement_digest": digest,
+                },
+                indent=2,
+                sort_keys=True,
+            ) + "\n",
+        )
+        journal.close()
     return ApplyOutcome(
-        result=result, plan=plan, report=report, failed_apps=failed_apps, device=str(dev),
+        result=result, plan=plan, report=report, failed_apps=failed_apps,
+        device=backend["device"],
     )
 
 

@@ -19,8 +19,9 @@ shapes that return the same plan:
 Either way the winning count is re-simulated serially (`finalize`) and must
 still pass. A probe whose pods failed on a transient extender error (a
 blip, not a verdict) is re-run once before its verdict is trusted
-(`CapacityPlan.retries` counts those re-runs). Not ported yet (ROADMAP.md
-Queue 1): the run journal and resume (item 13) and meshes (item 13).
+(`CapacityPlan.retries` counts those re-runs). A journaled search commits
+every verdict as it lands and resumes from them (see plan_capacity). Not
+ported yet (ROADMAP.md Queue 1): meshes (item 13b).
 """
 
 from __future__ import annotations
@@ -254,11 +255,41 @@ def plan_capacity(
     workload is batch-eligible (batch_ineligible_reason), and a batched
     sweep that meets preemption-eligible pods falls back to serial. Both
     return the same plan, and `attempts` / `batched_calls` count as the
-    reference's do."""
-    if journal is not None or resume:
-        raise _not_ported("the capacity run journal and resume", 13, "durability + parallelism")
+    reference's do.
+
+    Durability: with a `journal` (durable.RunJournal), a PlanCheckpointer
+    is installed for the call, so the chunked and wave drivers journal
+    `plan_chunk` records and snapshot their carry; every trial's verdict is
+    committed as a `trial` record after it completes, every batched sweep
+    as one `sweep` record with all its lane verdicts. With `resume=True`
+    the journaled verdicts are consumed (FIFO per node count, FIFO sweeps)
+    instead of re-running them, and a resumed run replays the crashed run's
+    search shape: journaled `sweep` records force batched mode, journaled
+    non-base `trial` records force serial. The materializing replay of the
+    winner is journaled as `final` and never counted in `attempts`, so an
+    interrupted and resumed search returns the plan an uninterrupted one
+    does."""
     if mesh is not None:
-        raise _not_ported("a device mesh", 13, "durability + parallelism")
+        raise _not_ported("a device mesh", "13b", "parallelism")
+    if journal is None:
+        return _plan_capacity_impl(
+            cluster, apps, new_node, max_new_nodes, weights, use_greed, profiles,
+            extenders, None, resume, sweep_mode, device,
+        )
+    from ..durable.checkpoint import PlanCheckpointer, installed
+
+    with installed(PlanCheckpointer(journal, resume=resume)):
+        return _plan_capacity_impl(
+            cluster, apps, new_node, max_new_nodes, weights, use_greed, profiles,
+            extenders, journal, resume, sweep_mode, device,
+        )
+
+
+def _plan_capacity_impl(
+    cluster, apps, new_node, max_new_nodes, weights, use_greed, profiles, extenders,
+    journal, resume, sweep_mode, device,
+) -> Optional[CapacityPlan]:
+    """plan_capacity's search, with the checkpointer (if any) installed."""
     if sweep_mode not in ("auto", "serial", "batched"):
         raise ValueError(f"sweep_mode must be auto|serial|batched, got {sweep_mode!r}")
     dev = resolve_device(device)
@@ -275,7 +306,23 @@ def plan_capacity(
     # would mis-size the cluster
     trial_policy = RetryPolicy.from_env(max_attempts=2)
 
+    # node_count -> FIFO of journaled trial records of the crashed run(s);
+    # sweep_cache: FIFO of its journaled sweep records
+    resume_cache: dict = {}
+    sweep_cache: list = []
+    if resume and journal is not None:
+        for e in journal.events("trial"):
+            resume_cache.setdefault(int(e["node_count"]), []).append(e)
+        sweep_cache = list(journal.events("sweep"))
+
+    # a resume replays the crashed run's search shape: its verdicts only
+    # line up with the search that produced them
     mode = sweep_mode
+    if resume and journal is not None:
+        if sweep_cache:
+            mode = "batched"
+        elif any(int(e.get("node_count", 0)) > 0 for e in journal.events("trial")):
+            mode = "serial"
     if mode != "serial":
         reason = batch_ineligible_reason(
             cluster, apps, [Scenario(node_count=0)], use_greed=use_greed,
@@ -352,14 +399,31 @@ def plan_capacity(
         return res, t_attempts, t_retries
 
     def probe(k: int, n_pad: Optional[int] = None):
+        """One committed trial: a journaled verdict, or a journal hit on
+        resume -> (good, result), the result None when the verdict came from
+        the journal (no simulation ran)."""
         nonlocal attempts, retries, seed_hi, last_live
+        pending = resume_cache.get(k)
+        if pending:
+            e = pending.pop(0)
+            if not pending:
+                resume_cache.pop(k, None)
+            attempts += int(e.get("attempt", 1))
+            retries += int(e.get("retries", 0))
+            if k == 0 and e.get("seed_hi") is not None:
+                seed_hi = int(e["seed_hi"])
+            return bool(e.get("good")), None
         res, t_attempts, t_retries = run_trial(k, n_pad)
         attempts += t_attempts
         retries += t_retries
         last_live = res
         g = good(res)
+        payload = dict(node_count=k, good=g, attempt=t_attempts, retries=t_retries)
         if k == 0 and not g:
             seed_hi = max(min(lower_bound_nodes(res, new_node), max_new_nodes), 1)
+            payload["seed_hi"] = seed_hi
+        if journal is not None:
+            journal.append("trial", **payload)
         return g, res
 
     def finalize(k: int, n_pad: Optional[int]) -> SimulateResult:
@@ -371,7 +435,10 @@ def plan_capacity(
         differently between probes, so then the replayed result is returned
         as it is."""
         res, _t_attempts, _t_retries = run_trial(k, n_pad)
-        if not good(res):
+        g = good(res)
+        if journal is not None:
+            journal.append("final", node_count=k, good=g)
+        if not g:
             if extenders:
                 log.warning(
                     "capacity replay of the winning probe (%d nodes) no longer "
@@ -391,9 +458,26 @@ def plan_capacity(
         """One batched sweep: verdicts for a ladder of node counts. Lane k
         is the base cluster plus the first k clones of the largest trial
         (Scenario.node_count masks the rest). Returns [good?] per count, or
-        None when run_scenarios refused (preemption-eligible pods)."""
+        None when run_scenarios refused (preemption-eligible pods), before
+        anything was journaled. On resume, the next journaled sweep record
+        answers instead when its counts are these."""
         nonlocal attempts, batched_calls
         counts = list(counts)
+        if sweep_cache:
+            e = sweep_cache.pop(0)
+            if list(map(int, e.get("counts", []))) == counts:
+                attempts += len(counts)
+                batched_calls += 1
+                return [bool(g) for g in e.get("good", [])]
+            # the journaled search diverged from this one (utilization
+            # limits changed between runs, say): no later record can line
+            # up either, so everything from here runs live
+            log.warning(
+                "plan_capacity resume: journaled sweep counts %s do not match planned %s; "
+                "discarding the remaining sweep records and re-running live",
+                e.get("counts"), counts,
+            )
+            sweep_cache.clear()
         trial = ClusterResource(
             nodes=list(cluster.nodes) + reuse.fakes(max(counts)),
             pods=list(cluster.pods),
@@ -422,12 +506,18 @@ def plan_capacity(
             return None
         reuse.capture(holder["sim"], n_base + max(counts), n_pad_sweep)
         metrics.BATCH_SWEEP_DURATION.observe(time.monotonic() - t0)
+        verdicts = [_good_outcome(o) for o in outs]
         attempts += len(counts)
         batched_calls += 1
-        return [_good_outcome(o) for o in outs]
+        if journal is not None:
+            journal.append("sweep", phase=phase, counts=counts, good=verdicts,
+                           n_pad=n_pad_sweep)
+        return verdicts
 
     g0, base = probe(0)
     if g0:
+        if base is None:
+            base = finalize(0, None)
         metrics.CAPACITY_NODES_ADDED.set(0)
         return CapacityPlan(0, base, attempts, retries)
 

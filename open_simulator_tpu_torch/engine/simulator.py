@@ -21,9 +21,11 @@ The device is the caller's (`device=`, CUDA by default; see
 `simulate()` on the same inputs. The scenario axis (`Scenario`,
 `Simulator.run_scenarios`, `simulate_batch`, `ScenarioSession`) runs S
 what-if lanes over one shared node table in one batched sweep
-(ops/fast.py:schedule_scenarios_host). Not ported yet, and refused with
-NotImplementedError naming their ROADMAP.md Queue 1 item: a device mesh
-and resident cluster state.
+(ops/fast.py:schedule_scenarios_host). With `resident=` (a covering
+engine/resident.ResidentCluster) the node table comes from the resident
+device planes instead of a fresh encode. Not ported yet, and refused with
+NotImplementedError naming its ROADMAP.md Queue 1 item: a device mesh
+(item 13b).
 
 Pod ordering parity: core/ordering.py (AffinityQueue then TolerationQueue,
 plus the GreedQueue behind use_greed).
@@ -91,7 +93,7 @@ from ..utils.tracing import log, progress, span
 from .preemption import PodDisruptionBudget, try_preempt
 
 
-def _not_ported(what: str, item: int, name: str) -> NotImplementedError:
+def _not_ported(what: str, item, name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to open_simulator_tpu_torch yet "
         f"(ROADMAP.md Queue 1 item {item}: {name})"
@@ -310,14 +312,20 @@ class Simulator:
         composes with `patch_pods` only for DaemonSets: other hooks would run
         once per cache lifetime, so that combination raises.
 
+        `resident` (engine/resident.ResidentCluster or None, on this
+        simulation's device): when it covers this exact cluster and bound-pod
+        set, the node table and NodeStatic come from its device planes
+        instead of an encode_nodes pass. Gated off under extenders and n_pad
+        (they change the encoding); a resident that does not cover the
+        cluster falls back to the full encode, counted in
+        osim_resident_fallbacks_total. Coverage is checked by content.
+
         `profiles`: SchedulerProfile list (models/profiles.py), keyed by
         schedulerName. `plugins`: DevicePlugin list (plugins/__init__.py).
         `patch_pods`: {workload kind: fn(List[Pod])} mutation hooks
         (WithPatchPodsFuncMap parity)."""
         if mesh is not None:
-            raise _not_ported("a device mesh", 13, "durability + parallelism")
-        if resident is not None:
-            raise _not_ported("resident cluster state", 12, "resident state + serving")
+            raise _not_ported("a device mesh", "13b", "parallelism")
         self.device = resolve_device(device)
         self.cluster = cluster
         self.use_greed = use_greed
@@ -330,6 +338,16 @@ class Simulator:
         self._extenders = build_extenders(extenders)
         self._patch_pods = dict(patch_pods or {})
         self._expand_cache = expand_cache
+        # the resident path is gated off under extenders and n_pad, which
+        # change the encoding
+        self._resident = (
+            resident if resident is not None and not self._extenders and n_pad is None else None
+        )
+        if self._resident is not None and self._resident.device != self.device:
+            raise ValueError(
+                f"resident state lives on {self._resident.device}, the simulation "
+                f"runs on {self.device}"
+            )
         non_ds_hooks = [k for k in self._patch_pods if k != "DaemonSet"]
         if expand_cache is not None and non_ds_hooks:
             raise ValueError(
@@ -417,7 +435,30 @@ class Simulator:
     def _build_device_state(self, all_pods: Sequence[Pod]) -> None:
         """Register every pod that will ever be scheduled, then ship the node
         table once; registering everything up front keeps the resource axis
-        and selector ids stable across app batches."""
+        and selector ids stable across app batches.
+
+        With a covering ResidentCluster the node table and NodeStatic come
+        from the resident device planes (no encode_nodes pass, no node-plane
+        transfer); the selector, port and anti counts are built here from
+        this request's pods. A resident that does not cover the cluster is
+        counted in osim_resident_fallbacks_total{reason} and the normal
+        encode runs."""
+        res = self._resident
+        if res is not None:
+            reason = res.covers_reason(self.cluster.nodes, self._bound)
+            if reason is None:
+                self.enc = res.enc
+                self._table, self._ns = res.device_state(list(all_pods), self._bound)
+                self._name_index = None
+                self._carry = carry_from_table(
+                    self._table,
+                    initial_selector_counts(self.enc, self._table, self._bound),
+                    port_counts=initial_port_counts(self.enc, self._table, self._bound),
+                    anti_counts=initial_anti_counts(self.enc, self._table, self._bound),
+                    device=self.device,
+                )
+                return
+            metrics.RESIDENT_FALLBACKS.inc(reason=reason)
         self.enc.register_pods(list(all_pods))
         for pod, _ in self._bound:
             self.enc.register_pods([pod])

@@ -1,13 +1,24 @@
-"""Carry digests: a u32 position-weighted checksum of a tensor, on the
-device and on the host.
+"""Delta kernels of the resident cluster state (engine/resident.py), and
+the u32 position-weighted digest of a tensor on the device and on the host.
 
-The port of the digest half of the JAX package's ops/delta.py (the resident
-state's row scatters are not ported). Float tensors are read as their raw
-u32 bit patterns (NaN payloads and signed zeros included), ints and bools
-are widened; element i is weighted by the odd constant 2i+1 and the
-products are summed mod 2**32. `digest_fold` runs on the tensor's device
-and `digest_fold_host` is its numpy twin: both give the same value, bit for
-bit, as the reference's. `combine_digests` chains per-leaf digests in a
+The port of the JAX package's ops/delta.py.
+
+`apply_rows` / `apply_flags` scatter freshly re-encoded rows into the
+resident planes. Row *contents* are always recomputed on the host by the
+exact encode_node_into code path, so the device work is pure data movement.
+Index vectors are bucket-padded (`pad_indices`); a pad slot holds n, one past
+the last row, and is dropped, never clamped: only the live slots are
+scattered (the reference relies on XLA's scatter `mode="drop"`; PyTorch's
+index_put_ would fail or, clamped, smash the last row). The reference
+donates the plane; here the plane passed in is written in place and
+returned, so the caller passes a fresh copy whenever a reader may still hold
+the old one (engine/resident._apply_rows).
+
+`digest_fold` reads float tensors as their raw u32 bit patterns (NaN
+payloads and signed zeros included) and widens ints and bools; element i is
+weighted by the odd constant 2i+1 and the products are summed mod 2**32. It
+runs on the tensor's device and `digest_fold_host` is its numpy twin: both
+give the same value, bit for bit, as the reference's. `combine_digests` chains per-leaf digests in a
 fixed order (FNV-1a over u32 words).
 
 PyTorch has no general uint32 arithmetic, so the device fold works in int64
@@ -22,7 +33,37 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from .encode import round_up
+
 _MASK32 = 0xFFFFFFFF
+
+
+def pad_indices(idx: Iterable[int], n: int) -> np.ndarray:
+    """A host index list bucket-padded to i32[round_up(U, 8)]; pad slots
+    hold n (one past the last row), which apply_rows drops."""
+    raw = np.asarray(list(idx), np.int32)
+    u = round_up(max(len(raw), 1), 8)
+    out = np.full(u, n, np.int32)
+    out[: len(raw)] = raw
+    return out
+
+
+def apply_rows(arr: torch.Tensor, idx: np.ndarray, rows: np.ndarray) -> torch.Tensor:
+    """arr[idx[u]] = rows[u] for every live slot u (idx[u] < len(arr)); the
+    pad slots are dropped. The live slots are picked on the host and only
+    their rows travel. Writes into `arr` and returns it: the caller treats
+    the plane it passed as consumed, as the reference's donation does."""
+    live = idx < arr.shape[0]
+    idx_t = torch.from_numpy(idx[live].astype(np.int64)).to(arr.device)
+    rows_t = torch.from_numpy(np.ascontiguousarray(rows[live])).to(arr.device, arr.dtype)
+    arr.index_put_((idx_t,), rows_t)
+    return arr
+
+
+def apply_flags(arr: torch.Tensor, idx: np.ndarray, vals: np.ndarray) -> torch.Tensor:
+    """apply_rows for 1-D per-node vectors (flags, name ids); the same
+    contract: `arr` is written and returned."""
+    return apply_rows(arr, idx, vals)
 
 
 def _bits_u32(x: torch.Tensor) -> torch.Tensor:

@@ -594,12 +594,15 @@ def encode_nodes(
     existing_usage: Optional[Dict[str, Dict[str, int]]] = None,
     existing_gpu: Optional[Dict[str, np.ndarray]] = None,
     n_pad: Optional[int] = None,
+    min_axes: Optional[Tuple[int, int, int, int, int]] = None,
     stamp: Optional[bool] = None,
 ) -> NodeTable:
     """Build the node table. existing_usage maps node name -> canonical
     request totals of already-bound pods (subtracted into `free`);
     existing_gpu maps node name -> used MiB per device. The node axis pads
-    to `n_pad`, or to the node_bucket ladder.
+    to `n_pad`, or to the node_bucket ladder. `min_axes` is an optional
+    (L, T, G, V, DV) floor: the resident state pins it to its own bucket
+    sizes so a verification re-encode lands in the same shapes.
 
     `stamp` (None reads OSIM_STAMP_ENCODE, default on) is the template
     stamping pass: each distinct node spec is encoded once with
@@ -666,6 +669,8 @@ def encode_nodes(
         storages = [nd.local_storage() for nd in nodes]
         L, T, G, V, DV = node_axes(enc, nodes, storages)
         names_list = [nd.meta.name for nd in nodes]
+    if min_axes is not None:
+        L, T, G, V, DV = (max(a, b) for a, b in zip((L, T, G, V, DV), min_axes))
     table = NodeTable(
         alloc=np.zeros((N, R), np.float32),
         free=np.zeros((N, R), np.float32),

@@ -1489,6 +1489,27 @@ def carry_to_host(carry_s: Carry) -> dict:
     return {f: getattr(carry_s, f).cpu().numpy() for f in Carry._fields}
 
 
+def carry_from_host(carry_s: Carry, leaves: dict) -> Carry:
+    """Host snapshot leaves ({field: np.ndarray}) back on the device of
+    `carry_s`, the carry the resuming (or recovering) process built; only
+    its leaves' shapes and devices are used. A leaf whose shape differs
+    raises ValueError: the snapshot is from another plan shape. (The
+    reference also re-pins onto a mesh's shardings; the port has no mesh
+    yet, ROADMAP.md item 13b.)"""
+    for f in Carry._fields:
+        want = tuple(getattr(carry_s, f).shape)
+        have = tuple(np.asarray(leaves[f]).shape)
+        if want != have:
+            raise ValueError(
+                f"carry snapshot leaf {f!r} has shape {have}, current plan "
+                f"expects {want} — snapshot is from a different plan shape"
+            )
+    return Carry(*(
+        torch.from_numpy(np.array(leaves[f], copy=True)).to(getattr(carry_s, f).device)
+        for f in Carry._fields
+    ))
+
+
 def _to_host(tensors) -> tuple:
     return tuple(t.cpu().numpy() for t in tensors)
 
@@ -1538,16 +1559,120 @@ def _progress(msg: str) -> None:
     _log.debug("%s", msg)
 
 
+def _pad_rows(rows: PodRow, p_pad: int) -> PodRow:
+    """Pod rows padded to `p_pad` with copies of row 0 (the count gate
+    keeps pad steps out of the carry)."""
+    p_real = int(rows.req.shape[0])
+    if p_pad == p_real:
+        return rows
+    return PodRow(*(torch.cat([a, a[:1].expand((p_pad - p_real,) + a.shape[1:])]) for a in rows))
+
+
+class _PlanDriver:
+    """What the chunked and wave drivers share around their chunk loop:
+    the active checkpointer's plan (restore of a verified snapshot, a
+    `plan_chunk` record and a periodic snapshot per chunk, the final
+    `plan_done`), the `device` fault point before each chunk, and the
+    device-loss rollback to the last good carry (in memory, or the last
+    snapshot), which restores the carry and truncates the outputs. A third
+    strike re-raises DeviceLostError."""
+
+    def __init__(self, N, p_real, s_pad, chunk, n_chunks):
+        from ..durable import checkpoint as _checkpoint
+        from ..resilience import faults as _faults
+        from ..utils import flightrec as _flightrec
+
+        self.faults, self.flightrec = _faults, _flightrec
+        self.cp = _checkpoint.active_checkpointer()
+        self.plan = None
+        self.start = 0
+        self.outs: list = []  # host (nodes, reasons, gpu, vg, dev) tuples, in order
+        if self.cp is not None:
+            self.plan = self.cp.begin_plan(
+                n_nodes=N, p_real=p_real, s_pad=s_pad, chunk=chunk, n_chunks=n_chunks,
+            )
+        self.last_good = None  # (chunk index, host carry leaves, len(outs), digest)
+        self.strikes = 0
+
+    @property
+    def run_dir(self):
+        return self.cp.run_dir if self.cp is not None else None
+
+    def restore(self, carry_s: Carry) -> Carry:
+        """Put a verified snapshot back (its chunks are skipped), and take
+        the in-memory rollback point when a checkpointer or a device fault
+        rule can need it."""
+        restore = self.plan.restore if self.plan is not None else None
+        if restore is not None:
+            self.start = restore.chunks_done
+            carry_s = carry_from_host(carry_s, restore.carry)
+            self.outs.append(restore.outputs)
+            _metrics.RESUME_CHUNKS_SKIPPED.inc(self.start)
+            self.flightrec.note("plan-restore", plan=self.plan.key, chunk=self.start - 1,
+                                digest=f"{restore.digest:08x}")
+            self.flightrec.dump("chunk-restore", run_dir=self.run_dir)
+        if self.cp is not None or self.faults.has_rules("device"):
+            host0 = carry_to_host(carry_s)
+            self.last_good = (self.start, host0, len(self.outs), scenario_carry_digest_host(host0))
+        return carry_s
+
+    def device_fault(self, i: int, carry_s: Carry):
+        """The `device` fault point before chunk i: None to run chunk i, or
+        (chunk to go back to, restored carry) after a recovered loss."""
+        rule = self.faults.maybe_inject("device", f"commit-chunk:{i}")
+        if rule is None:
+            return None
+        try:
+            self.faults.apply_device_fault(rule)
+            return None
+        except self.faults.DeviceLostError:
+            self.strikes += 1
+            if self.last_good is None or self.strikes >= 3:
+                _metrics.DEVICE_LOST.inc(handled="no")
+                raise
+            _metrics.DEVICE_LOST.inc(handled="yes")
+            g_chunk, g_carry, g_outs, g_digest = self.last_good
+            self.flightrec.note("device-lost", chunk=i, restored_to=g_chunk,
+                                digest=f"{g_digest:08x}")
+            self.flightrec.dump("device-lost", run_dir=self.run_dir)
+            del self.outs[g_outs:]
+            return g_chunk, carry_from_host(carry_s, g_carry)
+
+    def chunk_done(self, i: int, pods_done: int, carry_s: Carry) -> None:
+        _metrics.PLAN_CHUNKS.inc()
+        if self.cp is not None:
+            digest = scenario_carry_digest(carry_s)
+            hostc = self.cp.on_chunk(self.plan, i, pods_done, digest, carry_s, self.outs)
+            if hostc is not None:
+                self.last_good = (i + 1, hostc, len(self.outs), digest)
+
+    def finish(self, carry_s: Carry, s_real: int):
+        if self.cp is not None:
+            self.cp.finish_plan(self.plan, scenario_carry_digest(carry_s))
+        cat = tuple(np.concatenate([o[k] for o in self.outs], axis=1) for k in range(5))
+        return (carry_s,) + tuple(a[:s_real] for a in cat)
+
+
 def _schedule_scenarios_chunked_host(
     ns, carry_s, rows, weights_s, valid_s, s_real, s_pad, p_real, chunk, filter_on=None,
 ):
     """The chunked scan's host loop: ceil(P/C) count-gated chunk calls whose
-    chained result equals the single scan."""
+    chained result equals the single scan, over rows padded to whole
+    chunks. Between chunks, the checkpoint hooks and the device-fault
+    recovery of _PlanDriver; on resume only the chunks a verified snapshot
+    does not cover run again, each digest-checked against the journal."""
     N = int(ns.valid.shape[0])
     n_chunks = -(-p_real // chunk)
+    rows = _pad_rows(rows, n_chunks * chunk)
     _SCENARIO_PROGRAMS.setdefault((N, chunk), set()).add(s_pad)
-    outs = []
-    for i in range(n_chunks):
+    drv = _PlanDriver(N, p_real, s_pad, chunk, n_chunks)
+    carry_s = drv.restore(carry_s)
+    i = drv.start
+    while i < n_chunks:
+        back = drv.device_fault(i, carry_s)
+        if back is not None:
+            i, carry_s = back
+            continue
         lo = i * chunk
         count = min(chunk, p_real - lo)
         _progress(f"scenarios S={s_real}/{s_pad} N={N} chunk {i + 1}/{n_chunks} "
@@ -1556,10 +1681,10 @@ def _schedule_scenarios_chunked_host(
             ns, carry_s, PodRow(*(a[lo:lo + chunk] for a in rows)),
             weights_s, valid_s, count, filter_on,
         )
-        outs.append(_to_host(out))
-        _metrics.PLAN_CHUNKS.inc()
-    cat = tuple(np.concatenate([o[k] for o in outs], axis=1) for k in range(5))
-    return (carry_s,) + tuple(a[:s_real] for a in cat)
+        drv.outs.append(_to_host(out))
+        drv.chunk_done(i, lo + count, carry_s)
+        i += 1
+    return drv.finish(carry_s, s_real)
 
 
 def _schedule_scenarios_wave_host(
@@ -1570,17 +1695,27 @@ def _schedule_scenarios_wave_host(
     fixpoint, bitwise the serial scan), then adopt that round's exit carry
     and outputs. A wave still moving after OSIM_WAVE_ROUNDS rounds is re-run
     through the serial chunked scan from its input carry (counted in
-    osim_wave_fallbacks_total)."""
+    osim_wave_fallbacks_total). Durability is the chunked driver's: one
+    `plan_chunk` record per committed wave with the digest chain a chunked
+    run of C = wave journals, and a device loss rolls back to the last good
+    committed wave (rounds change nothing until a fixpoint is adopted)."""
     N = int(ns.valid.shape[0])
     n_waves = -(-p_real // wave)
+    rows = _pad_rows(rows, n_waves * wave)
     _SCENARIO_PROGRAMS.setdefault((N, wave), set()).add(s_pad)
     max_rounds = _wave.wave_max_rounds()
     rows_np = {f: np.asarray(getattr(batch, f)) for f in ("match_sel", "own_anti", "gpu_mem",
                                                            "gpu_num", "lvm_req", "dev_req", "hp_pid")}
     parts_all = [commit_parts(rows_np, i) for i in range(p_real)]
     dev = valid_s.device
-    outs = []
-    for i in range(n_waves):
+    drv = _PlanDriver(N, p_real, s_pad, wave, n_waves)
+    carry_s = drv.restore(carry_s)
+    i = drv.start
+    while i < n_waves:
+        back = drv.device_fault(i, carry_s)
+        if back is not None:
+            i, carry_s = back
+            continue
         lo = i * wave
         count = min(wave, p_real - lo)
         rows_w = PodRow(*(a[lo:lo + count] for a in rows))
@@ -1608,7 +1743,7 @@ def _schedule_scenarios_wave_host(
         _metrics.COMMIT_ROUNDS.observe(rounds)
         if converged:
             carry_s = carry_w
-            outs.append((np.ascontiguousarray(ch),) + _to_host(out))
+            drv.outs.append((np.ascontiguousarray(ch),) + _to_host(out))
         else:
             _metrics.WAVE_FALLBACKS.inc(reason="max_rounds")
             _progress(f"wave {i + 1}/{n_waves}: no fixpoint in {rounds} rounds; "
@@ -1616,7 +1751,7 @@ def _schedule_scenarios_wave_host(
             carry_s, *out = schedule_scenarios_chunked(
                 ns, carry_s, rows_w, weights_s, valid_s, count, filter_on,
             )
-            outs.append(_to_host(out))
-        _metrics.PLAN_CHUNKS.inc()
-    cat = tuple(np.concatenate([o[k] for o in outs], axis=1) for k in range(5))
-    return (carry_s,) + tuple(a[:s_real] for a in cat)
+            drv.outs.append(_to_host(out))
+        drv.chunk_done(i, lo + count, carry_s)
+        i += 1
+    return drv.finish(carry_s, s_real)

@@ -26,6 +26,10 @@ from .kernels import Carry, NodeStatic, PodRow
 
 
 def _t(arr, dev: torch.device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        # a resident plane (engine/resident.table_view): a copy on its
+        # device, so the carry never aliases the resident state
+        return arr.to(dev).clone()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 

@@ -1,9 +1,8 @@
 """Deterministic fault injection for the external-I/O surfaces.
 
-The port's copy of the JAX package's resilience/faults.py with the targets
-the port has: `extender`, `kubeclient` and `chart`. A rule naming a target
-of an unported item (`backend`, `journal`, `device`: ROADMAP item 13;
-`admission`, `resident`: item 12) raises NotImplementedError naming it.
+The port's copy of the JAX package's resilience/faults.py. Every target of
+the reference is here but `admission`, whose server is not ported yet: a
+rule naming it raises NotImplementedError naming ROADMAP.md item 12b.
 
 A `FaultPlan` (YAML file, or the OSIM_FAULT_PLAN env var holding a path or
 inline YAML) names rules that inject latency, connection errors, HTTP 5xx,
@@ -58,20 +57,16 @@ import urllib.error
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
-import yaml
 
 from ..utils import metrics
 
-TARGETS = ("extender", "kubeclient", "chart")
-# targets of the JAX package the port has not reached: target -> (ROADMAP
+TARGETS = (
+    "extender", "kubeclient", "chart", "backend", "journal", "admission",
+    "resident", "device",
+)
+# targets whose call sites the port has not reached: target -> (ROADMAP
 # item, its name)
-UNPORTED_TARGETS = {
-    "backend": (13, "durability + parallelism"),
-    "journal": (13, "durability + parallelism"),
-    "device": (13, "durability + parallelism"),
-    "admission": (12, "resident state + serving"),
-    "resident": (12, "resident state + serving"),
-}
+UNPORTED_TARGETS = {"admission": ("12b", "serving")}
 KINDS = (
     "latency", "connection_error", "http_error", "malformed_json", "error",
     "kill", "queue_full", "slow_drain", "deadline_storm",
@@ -82,6 +77,12 @@ KINDS = (
 
 class FaultInjectionError(Exception):
     """A fault plan could not be loaded or is invalid."""
+
+
+class DeviceLostError(Exception):
+    """The device holding the carry disappeared mid-plan. Raised by the
+    `device_lost` fault kind; the chunked and wave drivers restore the last
+    good carry and replay, or re-raise once out of strikes."""
 
 
 @dataclass
@@ -169,6 +170,8 @@ class FaultPlan:
 
     @staticmethod
     def load(path: str) -> "FaultPlan":
+        import yaml  # read only when a plan is loaded: the card may lack PyYAML
+
         try:
             with open(path) as fh:
                 doc = yaml.safe_load(fh)
@@ -186,6 +189,8 @@ class FaultPlan:
             return None
         if os.path.exists(raw):
             return FaultPlan.load(raw)
+        import yaml
+
         try:
             doc = yaml.safe_load(raw)
         except yaml.YAMLError as e:
@@ -438,3 +443,52 @@ def apply_chart_fault(rule: FaultRule, what: str) -> None:
     from ..utils.chart import ChartError
 
     raise ChartError(f"injected by fault plan ({rule.kind}) rendering {what}")
+
+
+def apply_backend_fault(rule: FaultRule) -> None:
+    """Backend acquisition faults: latency models a wedged first contact
+    (the watchdog must fire), kill ends the process, every other kind is an
+    immediate failure."""
+    import time as _time
+
+    if rule.kind == "latency":
+        if rule.latency_s > 0:
+            _time.sleep(rule.latency_s)
+        return
+    if rule.kind == "kill":
+        os.kill(os.getpid(), 9)
+    raise RuntimeError(f"injected by fault plan ({rule.kind}): backend init failed")
+
+
+def apply_device_fault(rule: FaultRule) -> None:
+    """Device faults against the chunked and wave drivers (ops/fast.py).
+    `chunk_kill` (and `kill`) SIGKILLs the process *before* the chunk's
+    `plan_chunk` record is journaled: the deterministic mid-plan kill the
+    crash-resume checks use. `device_lost` raises DeviceLostError as if the
+    device dropped the carry, which the driver recovers from its last good
+    host snapshot; other kinds raise it too."""
+    import time as _time
+
+    if rule.kind == "latency":
+        if rule.latency_s > 0:
+            _time.sleep(rule.latency_s)
+        return
+    if rule.kind in ("chunk_kill", "kill"):
+        os.kill(os.getpid(), 9)
+    raise DeviceLostError(f"injected by fault plan ({rule.kind}): device lost mid-plan")
+
+
+def apply_journal_fault(rule: FaultRule) -> None:
+    """Journal faults model a dying host: `kill` SIGKILLs the process
+    *before* the record is written (the k-th trial is then not committed,
+    like a preemption between probe and commit); other kinds raise an
+    OSError the journal wraps in JournalError."""
+    import time as _time
+
+    if rule.kind == "latency":
+        if rule.latency_s > 0:
+            _time.sleep(rule.latency_s)
+        return
+    if rule.kind == "kill":
+        os.kill(os.getpid(), 9)
+    raise OSError(f"injected by fault plan ({rule.kind}): journal write failed")

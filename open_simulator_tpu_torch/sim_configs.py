@@ -401,3 +401,121 @@ def extender_capacity(sim_mod, objects_mod, profiles_mod, capacity_mod, url: str
 # run_apply(auto_plan=False) on tools/stubs.py write_kube_apply_config's
 # config, served from its KUBE_APIS, in the JAX package: (report_digest, placement_digest, unscheduled pods)
 KUBE_APPLY_DIGEST = ("93538885b8390aaf8d4e644c110e04ea", "aca5823f4ec53d46", 0)
+
+
+# ---------------------------------------------------------------------------
+# Durable runs and resident state (chip_smoke.py's durable and resident
+# phases)
+# ---------------------------------------------------------------------------
+
+# The chunked scan at full width: plan_full's first ladder sweep (6 lanes,
+# padded to 8, over 20,480 node rows, as chip_smoke.py's wave_width_check
+# builds it) and the first CHUNK_SCAN_PODS pods of its workload, scanned
+# whole. scenario_carry_digest of the exit carry, from the JAX package
+# (tests/test_torch_checkpoint.py::test_full_width_scan_digest_matches_jax,
+# marked slow, recomputes it).
+CHUNK_SCAN_PODS = 512
+CHUNK_SCAN_DIGEST = 0x6048C1FF
+
+# simon sweep --capacity -f tests/fixtures/sweep/simon-config.yaml --run-dir D
+# and simon apply -f example/simon-config.yaml --run-dir D through the JAX
+# package's CLI: outcome.json's placement_digest
+RUN_DIR_DIGESTS = {
+    "sweep": "af6f8c4c489fb711",
+    "apply": "65b089aece437ea2",
+}
+
+# The resident phase: RESIDENT_ROUNDS rounds of RESIDENT_CHANGES seeded
+# changes each to plan_spec()'s 10,000 nodes (resident_rounds), synced into a
+# ResidentCluster. RESIDENT_DIGEST is digest_table of the final state and
+# RESIDENT_SIM_DIGEST the result_digest of simulate() of plan_spec()'s apps on
+# the cluster after the rounds, both from the JAX package
+# (tests/test_torch_resident.py::test_plan_rounds_match_jax, marked slow).
+RESIDENT_ROUNDS = 32
+RESIDENT_CHANGES = 64
+RESIDENT_SEED = 7
+RESIDENT_DIGEST = 3475267394
+RESIDENT_SIM_DIGEST = "ac1f226693b87f73b49ce58397d76c2e"
+
+
+def resident_rounds(node_dicts: List[dict], n_rounds: int = RESIDENT_ROUNDS,
+                    per_round: int = RESIDENT_CHANGES, seed: int = RESIDENT_SEED):
+    """Seeded delta rounds over a cluster: yields, per round, ({node index:
+    its new node dict}, [bound pod dicts]). Each change is one of: a label
+    set on a node (a third label), a NoSchedule taint put on or taken off,
+    the node's allocatable cpu and memory changed, a pod bound to the node
+    (or, one time in four, a bound pod removed), or a node added at the
+    end (within the node bucket). At most three labels and one taint per
+    node keep every row within the resident's axis buckets. `node_dicts` is
+    not modified."""
+    import copy as _copy
+    import random
+
+    rng = random.Random(seed)
+    nodes = list(node_dicts)
+    pods: List[dict] = []
+    serial = 0
+    for r in range(n_rounds):
+        changed = {}
+        for _ in range(per_round):
+            kind = rng.choices(("label", "taint", "alloc", "bind", "add"),
+                               weights=(25, 15, 20, 30, 10))[0]
+            i = rng.randrange(len(nodes))
+            if kind == "add":
+                i = len(nodes)
+                nodes.append(_mk_node(f"n-{i}", "3", "6Gi",
+                                      labels={"topology.kubernetes.io/zone": f"az-{i % 3}"}))
+            elif kind == "bind":
+                if pods and rng.random() < 0.25:
+                    pods.pop(rng.randrange(len(pods)))
+                else:
+                    serial += 1
+                    pods.append({
+                        "metadata": {"name": f"bound-{serial}", "namespace": "resident"},
+                        "spec": {"nodeName": nodes[i]["metadata"]["name"], "containers": [
+                            {"name": "c", "image": "img", "resources": {"requests": {
+                                "cpu": rng.choice(("250m", "500m", "1")),
+                                "memory": rng.choice(("256Mi", "512Mi"))}}}]},
+                    })
+                continue
+            else:
+                d = _copy.deepcopy(nodes[i])
+                if kind == "label":
+                    d["metadata"]["labels"]["tier"] = f"t{r % 4}"
+                elif kind == "taint":
+                    spec = d.setdefault("spec", {})
+                    spec["taints"] = [] if spec.get("taints") else [
+                        {"key": "maintenance", "value": f"r{r}", "effect": "NoSchedule"}]
+                else:
+                    res = {"cpu": rng.choice(("2", "3", "4")),
+                           "memory": rng.choice(("4Gi", "6Gi", "8Gi")), "pods": "110"}
+                    d["status"] = {"allocatable": dict(res), "capacity": dict(res)}
+                nodes[i] = d
+            changed[i] = nodes[i]
+        yield changed, list(pods)
+
+
+class ResidentWalk:
+    """One package's Node and Pod objects along resident_rounds: apply()
+    takes a round and returns (nodes, pods), reusing the objects of nodes
+    and pods that did not change (the resident's identity fast path)."""
+
+    def __init__(self, node_cls, pod_cls, node_dicts: List[dict]) -> None:
+        self.node_cls, self.pod_cls = node_cls, pod_cls
+        self.nodes = [node_cls.from_dict(d) for d in node_dicts]
+        self._pods: dict = {}
+
+    def apply(self, changed: dict, pod_dicts: List[dict]):
+        for i, d in sorted(changed.items()):
+            nd = self.node_cls.from_dict(d)
+            if i < len(self.nodes):
+                self.nodes[i] = nd
+            else:
+                self.nodes.append(nd)
+        pods = []
+        for d in pod_dicts:
+            name = d["metadata"]["name"]
+            if name not in self._pods:
+                self._pods[name] = self.pod_cls.from_dict(d)
+            pods.append(self._pods[name])
+        return list(self.nodes), pods

@@ -1,12 +1,14 @@
 """Timing spans and logging.
 
-The port's copy of the JAX package's span tree, without trace identity
-(W3C traceparent), the Chrome-trace export and the crash flight recorder
-(those come with the tooling slice). A worker thread nests its spans under
+The port's copy of the JAX package's span tree, without the W3C
+traceparent on the wire and the Chrome-trace export (those come with the
+tooling slice). Every span carries a trace id (32 hex digits, shared by its
+tree) and a span id (16 hex digits). A worker thread nests its spans under
 a span of the dispatching thread through current_context() / activate(). Spans nest through a
 thread-local stack; every finished span feeds the metrics histograms, and
 each finished root tree is kept in a bounded ring (`recent_timings`), which
-is where `chip_smoke.py` reads the simulator's phase split from. A root span
+is where `chip_smoke.py` reads the simulator's phase split from, and fed
+to the crash flight recorder (utils/flightrec.py). A root span
 slower than OSIM_SLOW_TRACE seconds (default 1.0) logs its tree at WARNING,
 the reference's LogIfLong.
 
@@ -33,21 +35,30 @@ HISTORY_MAX = 64
 
 
 class Span:
-    __slots__ = ("name", "start", "end", "children", "meta")
+    __slots__ = ("name", "start", "end", "children", "meta", "wall_start",
+                 "trace_id", "span_id", "parent_id")
 
     def __init__(self, name: str) -> None:
         self.name = name
         self.start = time.perf_counter()
+        self.wall_start = time.time()
         self.end: Optional[float] = None
         self.children: List["Span"] = []
         self.meta: dict = {}
+        self.trace_id = ""
+        self.span_id = os.urandom(8).hex()
+        self.parent_id: Optional[str] = None
 
     @property
     def duration(self) -> float:
         return (self.end or time.perf_counter()) - self.start
 
     def to_dict(self) -> dict:
-        d = {"name": self.name, "duration_s": self.duration}
+        d = {"name": self.name, "start": round(self.wall_start, 6),
+             "duration_s": self.duration, "trace_id": self.trace_id,
+             "span_id": self.span_id}
+        if self.parent_id:
+            d["parent_id"] = self.parent_id
         if self.meta:
             d["meta"] = dict(self.meta)
         if self.children:
@@ -80,6 +91,10 @@ def span(name: str, **meta):
     parent = _tracer.stack[-1] if _tracer.stack else None
     if parent is not None:
         parent.children.append(s)
+        s.trace_id = parent.trace_id
+        s.parent_id = parent.span_id
+    else:
+        s.trace_id = os.urandom(16).hex()
     _tracer.stack.append(s)
     try:
         yield s
@@ -88,9 +103,11 @@ def span(name: str, **meta):
         _tracer.stack.pop()
         metrics.observe_span(s.name, s.end - s.start)
         if parent is None:
+            root = s.to_dict()
             with _history_lock:
-                _history.append(s.to_dict())
+                _history.append(root)
                 del _history[:-HISTORY_MAX]
+            _record_flight(root)
             if s.duration > SLOW_TRACE_S:
                 log.warning("slow trace (> %.1fs):\n%s", SLOW_TRACE_S, s.render())
             else:
@@ -117,10 +134,26 @@ def activate(ctx: Optional[Span]):
         _tracer.stack.pop()
 
 
+def current_trace_id() -> Optional[str]:
+    """The trace id of the calling thread's innermost open span, if any."""
+    return _tracer.stack[-1].trace_id if _tracer.stack else None
+
+
+def _record_flight(root: dict) -> None:
+    """Feed a finished root tree into the crash flight recorder. Lazy
+    import: flightrec reads trace ids back through this module."""
+    try:
+        from . import flightrec
+
+        flightrec.record_span(root)
+    except Exception:  # the recorder must never break tracing
+        pass
+
+
 def current_traceparent() -> Optional[str]:
-    """The W3C traceparent of the calling thread's trace. The port's spans
-    carry no trace identity yet (ROADMAP item 14), so there is none: HTTP
-    callers send no traceparent header."""
+    """The W3C traceparent of the calling thread's trace. The port does not
+    put trace identity on the wire yet (ROADMAP item 14), so there is none:
+    HTTP callers send no traceparent header."""
     return None
 
 

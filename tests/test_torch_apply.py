@@ -256,18 +256,21 @@ def test_cli_rejects_unknown_extended_resource(capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--devices", "2"], 13), (["--devices", "0"], 13), (["--run-dir", "runs/x"], 13),
-    (["--resume", "runs/x"], 13), (["--run-dir", "runs/x", "--resume"], 13),
-    (["--metrics-file", "m.json"], 14),
+    (["--devices", "2"], 13), (["--devices", "0"], 13), (["--run-dir", "runs/x", "--devices", "2"], 13),
+    (["--resume", "runs/x", "--devices", "2"], 13), (["--run-dir", "runs/x", "--resume", "--devices", "0"], 13),
+    (["--run-dir", "runs/x", "--resume", "--metrics-file", "m.json"], 14),
 ])
 def test_cli_unported_flags_name_their_item(capsys, flags, item):
     """The reference's flags of unported items parse, then fail with the
-    port's not-ported message naming the ROADMAP item (no argparse error)."""
+    port's not-ported message naming the ROADMAP item (no argparse error):
+    13b for a mesh, 14 for the metrics file, also beside the ported
+    `--run-dir` / `--resume`, before a run directory is opened."""
     rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--device", "cpu"] + flags)
     assert rc == 1
     err = capsys.readouterr().err
     assert "is not ported to open_simulator_tpu_torch yet" in err
-    assert f"ROADMAP.md Queue 1 item {item}:" in err
+    assert f"ROADMAP.md Queue 1 item {item}{'b' if item == 13 else ''}:" in err
+    assert not (ROOT / "runs").exists()
 
 
 def test_simulate_result_pods_on():

@@ -190,10 +190,12 @@ def test_plan_capacity_max_cpu_gate(monkeypatch):
 
 
 def test_plan_capacity_unported_arguments_raise():
+    """A mesh waits for ROADMAP.md item 13b (the journal and resume are
+    ported: tests/test_torch_durable.py), also with a journal given."""
     cluster, apps, template = _sweep_inputs("torch")
-    for kw, item in (({"journal": object()}, "item 13"), ({"resume": True}, "item 13"),
-                     ({"mesh": object()}, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in ({"mesh": object()}, {"mesh": object(), "journal": object()},
+               {"mesh": object(), "resume": True}):
+        with pytest.raises(NotImplementedError, match="item 13b"):
             tcap.plan_capacity(cluster, apps, template, device="cpu", **kw)
     with pytest.raises(ValueError, match="sweep_mode"):
         tcap.plan_capacity(cluster, apps, template, sweep_mode="fast", device="cpu")

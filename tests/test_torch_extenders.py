@@ -393,9 +393,15 @@ def test_build_extenders_order_and_interest():
 
 
 def test_fault_rules_of_unported_targets_name_their_item():
-    for target, item in (("device", 13), ("journal", 13), ("backend", 13), ("resident", 12)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tfaults.FaultPlan.from_dict({"rules": [{"target": target, "kind": "error"}]})
+    """Only `admission` waits (ROADMAP.md item 12b); the durability and
+    resident targets are ported and load."""
+    for kind in ("error", "queue_full"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            tfaults.FaultPlan.from_dict({"rules": [{"target": "admission", "kind": kind}]})
+    for target, kind in (("device", "device_lost"), ("journal", "kill"), ("backend", "error"),
+                         ("resident", "torn_delta")):
+        plan = tfaults.FaultPlan.from_dict({"rules": [{"target": target, "kind": kind}]})
+        assert [r.target for r in plan.rules] == [target]
 
 
 def test_extender_wave_metrics_move(stubs, monkeypatch):

@@ -365,25 +365,27 @@ def test_lane_rounds_match_jax_preemption():
 @pytest.mark.parametrize("kwargs, item", [
     ({"mesh": object()}, "item 13"),
     ({"capacity_mesh": object()}, "item 13"),
-    ({"resident": object()}, "item 12"),
-    ({"journal": object()}, "item 13"),
-    ({"resume": True}, "item 13"),
+    ({"mesh": object(), "resident": object()}, "item 13"),
+    ({"capacity_mesh": object(), "journal": object()}, "item 13"),
+    ({"capacity_mesh": object(), "resume": True}, "item 13"),
 ])
 def test_unported_arguments_raise(kwargs, item):
-    """Simulator's and plan_capacity's unported arguments (n_pad and
-    preencoded are ported with the capacity search, extenders with
-    ROADMAP item 11)."""
+    """Simulator's and plan_capacity's one unported argument, a mesh (item
+    13b; n_pad and preencoded are ported with the capacity search,
+    extenders with ROADMAP item 11, the resident state with item 12a and
+    the journal with item 13a), alone and beside a ported one."""
     from open_simulator_tpu_torch.engine import capacity as tcap
 
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=item) as exc:
         if {"journal", "resume", "capacity_mesh"} & set(kwargs):
             kw = {("mesh" if k == "capacity_mesh" else k): v for k, v in kwargs.items()}
             tcap.plan_capacity(tsim.ClusterResource(), [], None, device="cpu", **kw)
         else:
             tsim.Simulator(tsim.ClusterResource(), device="cpu", **kwargs)
+    assert f"{item}b: parallelism" in str(exc.value)
 
 
-@pytest.mark.parametrize("call", ["run_scenarios", "simulate_batch", "ScenarioSession"])
+@pytest.mark.parametrize("call", ["run_scenarios", "simulate_batch"])
 def test_scenario_axis_raises(call):
     """The scenario axis is ported; what it does not support yet raises
     NotImplementedError naming the ROADMAP item."""
@@ -393,9 +395,6 @@ def test_scenario_axis_raises(call):
         ).run_scenarios([], []),
         "simulate_batch": lambda: tsim.simulate_batch(
             tsim.ClusterResource(), [], [tsim.Scenario()], mesh=object(), device="cpu"
-        ),
-        "ScenarioSession": lambda: tsim.ScenarioSession(
-            tsim.ClusterResource(), [], resident=object(), device="cpu"
         ),
     }
     with pytest.raises(NotImplementedError, match="item 1[123]"):

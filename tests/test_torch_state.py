@@ -256,3 +256,66 @@ def test_align_carry_matches_jax():
     leaves_equal(jc._asdict(), interop.to_host_leaves(tc), jc._fields)
     np.testing.assert_array_equal(np.asarray(jns.anti_topo), tns.anti_topo.numpy())
     assert (tns.anti_topo.numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("mod, names", [
+    ("durable.journal", ("JOURNAL_NAME",)),
+    ("durable.checkpoint", ("CKPT_DIR", "OUTPUT_NAMES", "DEFAULT_CKPT_EVERY")),
+    ("resilience.faults", ("TARGETS", "KINDS")),
+    ("engine.resident", ("DEVICE_PLANES", "_DIGEST_FIELDS")),
+    ("durable.watchdog", ("DEFAULT_BACKEND_DEADLINE_S",)),
+])
+def test_durable_constants_tripwire(mod, names):
+    """The journal's file name, the snapshot layout, the fault schema and
+    the resident digest order: run directories and fault plans move
+    between the packages."""
+    import importlib
+
+    theirs = importlib.import_module(f"open_simulator_tpu.{mod}")
+    ours = importlib.import_module(f"open_simulator_tpu_torch.{mod}")
+    for name in names:
+        assert getattr(ours, name) == getattr(theirs, name), name
+
+
+def _journal_events(pkg, files):
+    """Every event name a package's modules append to a run journal."""
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent / pkg
+    names = set()
+    for f in files:
+        src = (root / f).read_text()
+        names |= set(re.findall(r'(?:journal|self\.journal|j)\.append\(\s*"([a-z_]+)"', src))
+    return names
+
+
+def test_journal_event_names_tripwire():
+    """The port journals the reference's event names, but `backend_fallback`
+    and the warmup records (the CPU degrade and the warmup phase are not
+    ported) and with `backend_error` (where the port's ladder stops)."""
+    common = ["durable/watchdog.py", "durable/checkpoint.py", "engine/apply.py",
+              "engine/capacity.py", "engine/resident.py"]
+    theirs = _journal_events("open_simulator_tpu", common + ["cli/main.py"])
+    ours = _journal_events("open_simulator_tpu_torch", common + ["cli.py"])
+    assert ours == theirs - {"backend_fallback", "warmup", "warmup_error"} | {"backend_error"}
+    assert {"run_start", "run_resume", "run_end", "trial", "sweep", "final", "plan_chunk",
+            "plan_done", "watchdog", "backend", "backend_retry", "resident_repair"} <= ours
+
+
+@pytest.mark.parametrize("name", [
+    "CHECKPOINT_BYTES", "RESUME_CHUNKS_SKIPPED", "DEVICE_LOST", "JOURNAL_EVENTS",
+    "WATCHDOG_FIRED", "SNAPSHOT_STALE", "RUN_RESUMED", "REQUESTS_SHED", "REQUESTS_DROPPED",
+    "RESIDENT_DRIFT_REPAIRS", "RESIDENT_DELTAS", "RESIDENT_FALLBACKS",
+    "RESIDENT_VERIFICATIONS", "RESIDENT_EPOCH", "PLAN_CHUNKS", "RETRY_ATTEMPTS",
+    "EXTENDER_SKIPPED",
+])
+def test_durable_metrics_tripwire(name):
+    """The metrics chaos and the flight recorder read: the same names,
+    kinds and labels as the reference's."""
+    from open_simulator_tpu.utils import metrics as jm
+    from open_simulator_tpu_torch.utils import metrics as tm
+
+    ours, theirs = getattr(tm, name), getattr(jm, name)
+    assert (ours.name, ours.kind, ours.labelnames) == (theirs.name, theirs.kind, theirs.labelnames)
+    assert tm.REGISTRY._metrics[ours.name] is ours
