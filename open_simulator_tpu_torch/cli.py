@@ -1,5 +1,5 @@
 """Command line of the PyTorch/CUDA port: `simon apply`, `prove`, `runs`,
-`sweep` and `chaos` on the port's engine.
+`sweep`, `chaos` and `server` on the port's engine.
 
     python -m open_simulator_tpu_torch.cli apply -f example/simon-config.yaml \\
         [--device cpu] [--output-file F] [--default-scheduler-config F] \\
@@ -14,6 +14,9 @@
         (--node-counts 4,8,16 | --capacity [--run-dir D [--resume]]) [--device cpu]
     python -m open_simulator_tpu_torch.cli chaos -f CONFIG --fault-plan PLAN \\
         [--capacity [--run-dir D]] [--device cpu]
+    python -m open_simulator_tpu_torch.cli server [--port 9998] [--device cpu] \\
+        [--kubeconfig F] [--master URL] [--queue-depth N] [--pack-window-ms MS] \\
+        [--coalesce-ms MS] [--default-deadline-ms MS]
 
 Runs on CUDA unless `--device` says otherwise, and fails without a card.
 The text output and exit codes are the JAX package's CLI's, the device name
@@ -28,9 +31,10 @@ simulation or sweep outlived OSIM_CALL_DEADLINE_S seconds: the CLI then
 exits, which ends the abandoned work with the process (the port has no CPU
 degrade; with `--run-dir` the fire is journaled and `runs resume` continues
 the run on the same device). `--run-dir` journals the run
-(durable/journal.py), `--resume` continues a journaled one. The reference's
-`--devices` (other than 1) and `--metrics-file` parse and then fail with
-exit code 1 and a message naming the ROADMAP item that ports them.
+(durable/journal.py), `--resume` continues a journaled one, and `--metrics-file` writes the
+metrics registry's snapshot as JSON after the run. The reference's
+`--devices` (other than 1) parses and then fails with exit code 1 and a
+message naming the ROADMAP item that ports it.
 
 runs: list the journaled runs under a root, show one run's summary and
 journal, or resume an interrupted apply or capacity sweep from its journal.
@@ -42,6 +46,11 @@ chaos: an apply under a fault plan, with a deterministic report of what
 degraded and what failed; `--capacity` runs the mid-plan-kill scenario (a
 journaled chunked capacity sweep in a subprocess under the plan's device
 faults, resumed when killed, its placement digest held against a clean run).
+
+server: the REST simulation service (server/server.py) on 127.0.0.1, with
+admission control, the continuous-batching scheduler loop, warm scenario
+sessions, async jobs and, with --kubeconfig/--master, a cached live-cluster
+snapshot held on the device. SIGTERM or SIGINT drains it and exits 0.
 
 prove: the small-scope semantics check (analysis/semantics.py). Exit code 0
 when every universe agrees with the oracle and the contract verifies, 1 on
@@ -77,7 +86,7 @@ def _add_apply(sub) -> None:
     p.add_argument("--devices", type=int, default=1,
                    help="shard the node axis across devices (not ported: item 13b)")
     p.add_argument("--metrics-file", default="",
-                   help="write the metrics snapshot as JSON (not ported: item 14)")
+                   help="after the run, write the scheduler metrics snapshot as JSON here")
     p.add_argument("--run-dir", default="",
                    help="journal the run into this directory: every capacity trial is "
                    "committed as it completes")
@@ -160,6 +169,28 @@ def _add_prove(sub) -> None:
                    help="the serial scan or the conflict-parallel wave engine")
 
 
+def _add_server(sub) -> None:
+    p = sub.add_parser("server", help="run the REST simulation service")
+    p.add_argument("--port", type=int, default=9998)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("--kubeconfig", default="",
+                   help="snapshot this cluster when the request body carries no cluster spec")
+    p.add_argument("--master", default="",
+                   help="apiserver URL overriding the kubeconfig's server")
+    p.add_argument("--queue-depth", type=int, default=None,
+                   help="admission queue depth before 429 shedding "
+                   "(default: OSIM_SERVER_QUEUE_DEPTH or 16)")
+    p.add_argument("--pack-window-ms", type=float, default=None,
+                   help="upper bound on how long the scheduler loop holds a partial pack "
+                   "open; lone requests and full packs dispatch at once "
+                   "(default: OSIM_SERVER_PACK_WINDOW_MS or 0)")
+    p.add_argument("--coalesce-ms", type=float, default=None,
+                   help="deprecated alias of --pack-window-ms")
+    p.add_argument("--default-deadline-ms", type=float, default=None,
+                   help="deadline of requests without an X-Osim-Deadline-Ms header "
+                   "(default: OSIM_SERVER_DEFAULT_DEADLINE_MS or 0 = none)")
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="open_simulator_tpu_torch.cli")
     sub = ap.add_subparsers(dest="command", required=True)
@@ -167,6 +198,7 @@ def _parser() -> argparse.ArgumentParser:
     _add_chaos(sub)
     _add_prove(sub)
     _add_runs(sub)
+    _add_server(sub)
     _add_sweep(sub)
     return ap
 
@@ -177,8 +209,6 @@ def _unported_apply_flags(args) -> Optional[str]:
 
     if args.devices != 1:
         return str(_not_ported("--devices (a device mesh)", "13b", "parallelism"))
-    if args.metrics_file:
-        return str(_not_ported("--metrics-file (the metrics registry)", 14, "tooling"))
     return None
 
 
@@ -214,6 +244,11 @@ def _run_apply(args) -> int:
         finally:
             if out is not None:
                 out.close()
+        if args.metrics_file:
+            from .utils.metrics import REGISTRY
+
+            with open(args.metrics_file, "w") as fh:
+                json.dump(REGISTRY.snapshot(), fh, indent=2)
     except (ApplyError, ValueError, OSError, BackendUnavailable) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -456,7 +491,7 @@ def _run_chaos(args) -> int:
     try:
         plan = (faults.FaultPlan.load(args.fault_plan) if args.fault_plan
                 else faults.FaultPlan.from_env())
-    except (faults.FaultInjectionError, NotImplementedError) as e:
+    except faults.FaultInjectionError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if plan is None:
@@ -507,7 +542,7 @@ def _run_chaos(args) -> int:
     skips = _counter_total(metrics.EXTENDER_SKIPPED)
     stale = _counter_total(metrics.SNAPSHOT_STALE)
     # shedding is admission control working (a definite 429/503), a drop is
-    # its failure; both stay 0 until the server is ported (item 12b)
+    # its failure (both counted by the server's admission queue)
     shed = _counter_total(metrics.REQUESTS_SHED)
     dropped = _counter_total(metrics.REQUESTS_DROPPED)
     # a resident repair is the anti-entropy loop working: degradation
@@ -755,6 +790,21 @@ def _run_prove(args) -> int:
     return 0 if report.ok else 1
 
 
+def _run_server(args) -> int:
+    from .server.server import serve
+
+    try:
+        return serve(
+            port=args.port, kubeconfig=args.kubeconfig, master=args.master,
+            queue_depth=args.queue_depth, coalesce_ms=args.coalesce_ms,
+            pack_window_ms=args.pack_window_ms,
+            default_deadline_ms=args.default_deadline_ms, device=args.device,
+        )
+    except (RuntimeError, ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     from .utils import flightrec
@@ -763,7 +813,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     init_logging()
     # an unhandled crash dumps the recent-span/metric/journal ring first
     flightrec.install_crash_hook()
-    if args.command in ("apply", "runs", "sweep"):
+    if args.command in ("apply", "runs", "server", "sweep"):
         # env-driven fault plans for the entry points other than chaos
         # (chaos installs its own): the crash-resume checks inject their
         # SIGKILL into a plain apply or sweep this way
@@ -771,14 +821,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         try:
             plan = faults.FaultPlan.from_env()
-        except (faults.FaultInjectionError, NotImplementedError) as e:
+        except faults.FaultInjectionError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
         if plan is not None:
             faults.install_plan(plan)
     return {
         "apply": _run_apply, "chaos": _run_chaos, "prove": _run_prove,
-        "runs": _run_runs, "sweep": _run_sweep,
+        "runs": _run_runs, "server": _run_server, "sweep": _run_sweep,
     }[args.command](args)
 
 

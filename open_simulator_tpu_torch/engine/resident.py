@@ -180,8 +180,8 @@ class ResidentCluster:
     def fence_epoch(self) -> int:
         """The epoch a request must record at admission; a scheduler loop
         re-keys every request whose admission-time epoch moved, so one
-        batched device call never mixes cluster states (the server is
-        ROADMAP.md item 12b). The stale_generation chaos kind returns a
+        batched device call never mixes cluster states (server/loop.py).
+        The stale_generation chaos kind returns a
         sentinel that can never match a live epoch."""
         rule = faults.maybe_inject("resident", "fence")
         if rule is not None and rule.kind == "stale_generation":

@@ -20,15 +20,25 @@ Returns (nodes i32[G], jidx i32[G]).
 `check_divide` holds the kernel's split spread divide against __fdiv_rn on
 the card (chip_smoke.py runs it on every operand pair the spread can meet
 below 2^13 and on random ones up to 2^24).
+
+Thread safety: the server runs simulate() on its scheduler loop while a
+worker abandoned by a deadline may still be inside another simulate(), so
+the build and the library load run under one lock (and the nvcc step
+under a file lock on build/, for another process building the same
+source), and the launch counts are taken under a lock. `launches` counts
+every launch of the process; `thread_launches()` those of the calling
+thread, which is what a caller measuring its own launches reads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -50,6 +60,14 @@ SMEM_BUDGET = 232448        # bytes of shared memory one block may use (H100)
 launches = 0                # kernel launches since import (reset by callers)
 build_log = ""              # nvcc's output (registers, spills) of the last build
 _lib = None
+_build_lock = threading.RLock()     # build_libraries and _library
+_count_lock = threading.Lock()      # launches
+_local = threading.local()          # this thread's launches
+
+
+def thread_launches() -> int:
+    """Kernel launches made by the calling thread since it started."""
+    return getattr(_local, "launches", 0)
 
 
 def _spread_norm(raw: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -138,16 +156,28 @@ def _nvcc() -> str:
 
 def build_libraries(*sources: Path) -> list[Path]:
     """Compile each CUDA source into build/ (once per source content), all
-    nvcc processes started together, and return the shared libraries' paths."""
-    global build_log
+    nvcc processes started together, and return the shared libraries' paths.
+    One build at a time per process (a lock) and per build/ (a file lock);
+    a library that appeared while waiting is not built again."""
     sos = []
     for source in sources:
         tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         sos.append(BUILD_DIR / f"lib{source.stem}-{tag}.so")
+    if all(so.is_file() for so in sos):
+        return sos
+    with _build_lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".build.lock", "w") as lock_fh:
+            fcntl.flock(lock_fh, fcntl.LOCK_EX)
+            _build_missing(sources, sos)
+    return sos
+
+
+def _build_missing(sources, sos) -> None:
+    global build_log
     todo = [(src, so) for src, so in zip(sources, sos) if not so.is_file()]
     if todo:
         nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
         for src, so in todo:
             tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
@@ -165,12 +195,15 @@ def build_libraries(*sources: Path) -> list[Path]:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
-    return sos
 
 
 def _library():
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(str(build_libraries(SOURCE)[0]))
         fn = lib.domain_pop_launch
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
@@ -181,7 +214,7 @@ def _library():
         check.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
         check.restype = ctypes.c_int
         _lib = lib
-    return _lib
+        return _lib
 
 
 def check_divide(n: torch.Tensor, d: torch.Tensor) -> int:
@@ -262,13 +295,18 @@ def domain_pop(
         )
     nodes = torch.empty(group_size, dtype=i32, device=dev)
     jidx = torch.empty(group_size, dtype=i32, device=dev)
-    err = lib.domain_pop_launch(
-        *(t.data_ptr() for t in args), nodes.data_ptr(), jidx.data_ptr(),
-        Dc, L, C, D, group_size, int(valid_count), int(bool(any_hard)),
-        int(bool(fo_spread)), int(big_n), float(w_sp), smem,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # a named host range around the ctypes launch, so a profiler trace ties
+    # the kernel to its caller
+    with torch.profiler.record_function("domain_pop"):
+        err = lib.domain_pop_launch(
+            *(t.data_ptr() for t in args), nodes.data_ptr(), jidx.data_ptr(),
+            Dc, L, C, D, group_size, int(valid_count), int(bool(any_hard)),
+            int(bool(fo_spread)), int(big_n), float(w_sp), smem,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"domain_pop kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
+    _local.launches = thread_launches() + 1
     return nodes, jidx

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -125,6 +126,12 @@ PATH_COUNTS = {
     "sort": 0, "micro": 0, "scan": 0, "grouped": 0, "sort_fallback": 0,
     "domain": 0, "domain_fallback": 0, "domain_pallas": 0, "domain_kernel": 0,
 }
+_PATH_LOCK = threading.Lock()  # simulate() may run on two threads at once (the server)
+
+
+def _count_path(route: str, n: int = 1) -> None:
+    with _PATH_LOCK:
+        PATH_COUNTS[route] += n
 
 # Channel layout of Trajectory.packed.
 CH_CPU, CH_MEM, CH_RES_FAIL, CH_PORT_OK, CH_STO_OK, CH_GPU_OK = range(6)
@@ -1138,7 +1145,7 @@ def schedule_batch_fast(
             and (force_fast or length >= max(3 * j_need // 2, 64))
         )
         if not use_fast:
-            PATH_COUNTS["grouped"] += 1
+            _count_path("grouped")
             carry = _grouped_run(
                 ns, carry, row, start, length, weights, max_group_chunk, filter_on,
                 extra_filters, extra_scores, outs,
@@ -1190,12 +1197,12 @@ def schedule_batch_fast(
             phase("select", "sort")
             mono_ok, got, carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
             if mono_ok:
-                PATH_COUNTS["sort"] += 1
+                _count_path("sort")
                 commit(got, carry_d)
                 committed = True
             else:
                 # a rising score sequence voids the merge: replay with a scan
-                PATH_COUNTS["sort_fallback"] += 1
+                _count_path("sort_fallback")
 
         if not committed and flags.domain_aff:
             # the class partition is planned on the host from the pod's
@@ -1209,27 +1216,27 @@ def schedule_batch_fast(
             if plan is not None:
                 g = _bucket_light(length)
                 l_cap = _bucket_light(min(int(plan.counts.max()), length))
-                launched = _dp.launches
+                launched = _dp.thread_launches()
                 mono, nodes_d, jidx_d, x = domain_select(
                     ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
                     plan, g, l_cap, length, filter_on, flags,
                 )
-                PATH_COUNTS["domain_kernel"] += _dp.launches - launched
+                _count_path("domain_kernel", _dp.thread_launches() - launched)
                 affinity = _any_affinity(flags)
                 phase("select", "domain_affinity" if affinity else "domain",
                       min(g, length) if affinity else 0)
                 mono_ok, got, carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
                 if mono_ok:
-                    PATH_COUNTS["domain"] += 1
+                    _count_path("domain")
                     commit(got, carry_d)
                     committed = True
                 else:
                     # a rising lane sequence voids the within-class merge
-                    PATH_COUNTS["domain_fallback"] += 1
+                    _count_path("domain_fallback")
 
         if not committed:
             route = "micro" if flags.micro_spread else "scan"
-            PATH_COUNTS[route] += 1
+            _count_path(route)
             x = torch.zeros(N, dtype=torch.int32, device=dev)
             chunks, done, steps = [], 0, 0
             while done < length:
@@ -1273,7 +1280,7 @@ _SCENARIO_PROGRAMS: dict = {}
 
 def scenario_programs() -> dict:
     """Snapshot of {(n_nodes, n_pods): {padded lane counts}} so far."""
-    return {k: set(v) for k, v in _SCENARIO_PROGRAMS.items()}
+    return {k: set(v) for k, v in list(_SCENARIO_PROGRAMS.items())}
 
 
 def reset_scenario_programs() -> None:

@@ -1,8 +1,7 @@
 """Deterministic fault injection for the external-I/O surfaces.
 
-The port's copy of the JAX package's resilience/faults.py. Every target of
-the reference is here but `admission`, whose server is not ported yet: a
-rule naming it raises NotImplementedError naming ROADMAP.md item 12b.
+The port's copy of the JAX package's resilience/faults.py, every target
+included.
 
 A `FaultPlan` (YAML file, or the OSIM_FAULT_PLAN env var holding a path or
 inline YAML) names rules that inject latency, connection errors, HTTP 5xx,
@@ -64,9 +63,6 @@ TARGETS = (
     "extender", "kubeclient", "chart", "backend", "journal", "admission",
     "resident", "device",
 )
-# targets whose call sites the port has not reached: target -> (ROADMAP
-# item, its name)
-UNPORTED_TARGETS = {"admission": ("12b", "serving")}
 KINDS = (
     "latency", "connection_error", "http_error", "malformed_json", "error",
     "kill", "queue_full", "slow_drain", "deadline_storm",
@@ -106,12 +102,6 @@ class FaultRule:
     injected_by_key: Dict[str, int] = field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        if self.target in UNPORTED_TARGETS:
-            item, name = UNPORTED_TARGETS[self.target]
-            raise NotImplementedError(
-                f"fault target {self.target!r} is not ported to "
-                f"open_simulator_tpu_torch yet (ROADMAP.md Queue 1 item {item}: {name})"
-            )
         if self.target not in TARGETS:
             raise FaultInjectionError(
                 f"fault rule: unknown target {self.target!r} "

@@ -75,9 +75,11 @@ APPLY_DIGESTS = {
 # 256-pod waves on this workload all run the 24-round budget and then the
 # serial fallback (7.6-12.7 s a wave at 2,000 x 200, PERF.md §5). At
 # 10,000 x 1,000 that is ~80 waves, 10-17 minutes, more than the whole
-# script may take. ROADMAP.md Perf candidate 2 restores the size once sweeps
-# are faster.
-PLAN_SMALL = (2_000, 200)
+# script may take; 2,000 x 200 (16 waves, 121-204 s) left too little of the
+# limit once the serve phase ran, so it is 1,000 x 100 (8 waves), still
+# over the wave engine's 512-pod floor. ROADMAP.md Perf candidate 2
+# restores the size once sweeps are faster.
+PLAN_SMALL = (1_000, 100)
 
 # plan_capacity of each workload from the JAX package after reset_name_rng(),
 # keyed "<name>/<sweep_mode>": (nodes_added, attempts, batched_calls,
@@ -87,8 +89,8 @@ PLAN_SMALL = (2_000, 200)
 # template. (tests/test_torch_capacity.py recomputes them; plan_* are slow.)
 CAPACITY_DIGESTS = {
     "plan_full/serial": (235, 10, 0, "a35e3c5da4b96e1b84a3e3af20136681"),
-    "plan_small/serial": (5, 5, 0, "8b4552a4758feeb6894ec787d90be850"),
-    "plan_small/auto": (5, 14, 2, "8b4552a4758feeb6894ec787d90be850"),
+    "plan_small/serial": (3, 4, 0, "0a0b1e917cd38dfb122da071c4f541d5"),
+    "plan_small/auto": (3, 11, 2, "0a0b1e917cd38dfb122da071c4f541d5"),
     "capacity_sweep/serial": (46, 13, 0, "1c99963293d482e13e8d4dab5c5fdaa2"),
     "capacity_sweep/batched": (46, 19, 3, "1c99963293d482e13e8d4dab5c5fdaa2"),
     "capacity_sweep/auto": (46, 19, 3, "1c99963293d482e13e8d4dab5c5fdaa2"),
@@ -519,3 +521,157 @@ class ResidentWalk:
                 self._pods[name] = self.pod_cls.from_dict(d)
             pods.append(self._pods[name])
         return list(self.nodes), pods
+
+
+# ---------------------------------------------------------------------------
+# Serving (chip_smoke.py's serve phase)
+# ---------------------------------------------------------------------------
+# The live cluster is plan_spec()'s 10,000 nodes behind a stub apiserver
+# (tools/stubs.StubApiServer over live_apis()). The full request is
+# config_plan's apps with no cluster (so the server snapshots the live
+# cluster); the small request is the same zone-spread `web` Deployment at
+# SERVE_SMALL_REPLICAS replicas, under WAVE_AUTO_MIN_PODS (ops/wave.py), so
+# a pack of small bodies runs the lane-batched scan. SERVE_WEIGHTS are the
+# scenario pack's 8 lanes.
+SERVE_SMALL_REPLICAS = 256
+SERVE_WEIGHTS = (
+    {"least_allocated": 1.0},
+    {"least_allocated": 100.0},
+    {"balanced_allocation": 10.0},
+    {"topology_spread": 20.0},
+    {"least_allocated": 0.0, "balanced_allocation": 5.0},
+    {"topology_spread": 0.0},
+    {"simon": 50.0},
+    {"least_allocated": 3.0, "topology_spread": 7.0},
+)
+
+# response_digest of each serve-phase response, from the JAX package's server
+# on the same stub and bodies after reset_name_rng():
+#  - "full": the full request on the untouched cluster. response_digest equals
+#    result_digest when a result has no preemption, GPU index or storage, so
+#    this is SIM_DIGESTS["plan"] (tests/test_torch_server.py::
+#    test_response_digest_is_result_digest holds the identity on a small plan
+#    through both packages' servers);
+#  - "resync": the full request after the stub moved by all RESIDENT_ROUNDS
+#    rounds of resident_rounds(), RESIDENT_SIM_DIGEST by the same identity
+#    (test_live_rounds_response_is_resident_digest holds it at small size);
+#  - "small/<i>": the small request with SERVE_WEIGHTS[i], one lane of a pack
+#    of all 8, computed with the JAX server by
+#    `python -m pytest -m slow tests/test_torch_server.py::test_serve_digests_match_jax`;
+#  - "inline": serve_inline_body() (bench.py's serving body, 20 nodes, 100
+#    replicas), computed by the same test.
+SERVE_DIGESTS = {
+    "full": SIM_DIGESTS["plan"],
+    "resync": RESIDENT_SIM_DIGEST,
+    "small/0": "7f0c392f20c4893eee8d5c1e7198a81e",
+    "small/1": "7f0c392f20c4893eee8d5c1e7198a81e",
+    "small/2": "c73d8d45bc5b48f3540f99de93320ffb",
+    "small/3": "0bcebc8b863b8cbb2b783a914db9754a",
+    "small/4": "c73d8d45bc5b48f3540f99de93320ffb",
+    "small/5": "c73d8d45bc5b48f3540f99de93320ffb",
+    "small/6": "c73d8d45bc5b48f3540f99de93320ffb",
+    "small/7": "7f0c392f20c4893eee8d5c1e7198a81e",
+    "inline": "f84d92185c95d0bae52f9554a8cf1532",
+}
+
+
+# The serve phase's async job: plan_capacity of capacity_sweep_spec() with
+# template_spec() and the batched sweep, the server's, as outcome.json
+# reports it. The numbers are CAPACITY_DIGESTS["capacity_sweep/batched"]'s;
+# placement_digest is engine.apply.placement_digest of the JAX package's plan
+# result (tests/test_torch_server.py::test_capacity_sweep_job_matches_jax
+# recomputes it).
+SERVE_JOB_OUTCOME = {
+    "outcome": "ok", "kind": "sweep", "nodes_added": 46, "attempts": 19,
+    "batched_calls": 3, "retries": 0, "unscheduled": 0,
+    "placement_digest": "9d18bf3b1a8ee710",
+}
+
+
+def serve_job_body(job: str) -> dict:
+    """POST /v1/jobs body of the serve phase's async job: capacity_sweep's
+    cluster and apps inline, the template as the new node."""
+    nodes, apps = capacity_sweep_spec()
+    return {"cluster": {"objects": [dict(n, kind="Node") for n in nodes]},
+            "apps": [{"name": name, "objects": objs} for name, objs in apps],
+            "newNode": dict(template_spec(), kind="Node"), "job": job}
+
+
+def _response_lines(payload: dict) -> List[str]:
+    lines = sorted(f"bound\t{k}\t{n}\t" for k, n in payload["placements"].items())
+    lines += sorted(f"unscheduled\t{u['pod']}\t{u['reason']}" for u in payload["unscheduled"])
+    return lines
+
+
+def response_digest(payload: dict) -> str:
+    """result_digest's blake2b over a deploy-apps response (placements and
+    unscheduled pods); equal to result_digest of the simulation behind it
+    when that has no preemption, GPU index or storage."""
+    return hashlib.blake2b("\n".join(_response_lines(payload)).encode(),
+                           digest_size=16).hexdigest()
+
+
+def _workload_of(pod_key: str) -> str:
+    """A generated pod's workload: its key without the random suffix
+    (`ns/web-<suffix>` -> `ns/web`)."""
+    return pod_key.rsplit("-", 1)[0]
+
+
+def response_census(payload: dict) -> str:
+    """A name-free digest of a response: per node, the count of each
+    workload's pods, and the unscheduled count per workload and reason. Two
+    responses whose pod names came from different draws of the name RNG
+    agree on it when their placements agree up to names."""
+    per_node: dict = {}
+    for key, node in payload["placements"].items():
+        k = (node, _workload_of(key))
+        per_node[k] = per_node.get(k, 0) + 1
+    unsched: dict = {}
+    for u in payload["unscheduled"]:
+        k = (_workload_of(u["pod"]), u["reason"])
+        unsched[k] = unsched.get(k, 0) + 1
+    lines = sorted(f"node\t{n}\t{w}\t{c}" for (n, w), c in per_node.items())
+    lines += sorted(f"unscheduled\t{w}\t{r}\t{c}" for (w, r), c in unsched.items())
+    return hashlib.blake2b("\n".join(lines).encode(), digest_size=16).hexdigest()
+
+
+def serve_full_body(n_pods: int = 100_000, n_nodes: int = 10_000) -> dict:
+    """The full request: plan_spec()'s apps, the cluster left to the live
+    snapshot."""
+    _, apps = plan_spec(n_pods, n_nodes)
+    return {"apps": [{"name": name, "objects": objs} for name, objs in apps]}
+
+
+def serve_small_body(weights=None, replicas: int = SERVE_SMALL_REPLICAS) -> dict:
+    """The small request: plan_spec()'s `web` Deployment alone at `replicas`,
+    with score `weights` when given."""
+    _, apps = plan_spec(2 * replicas, 3)
+    web = apps[0][1][0]
+    body = {"apps": [{"name": apps[0][0], "objects": [web]}]}
+    if weights is not None:
+        body["weights"] = dict(weights)
+    return body
+
+
+def serve_inline_body() -> dict:
+    """bench.py config_serving_concurrent's body: 20 nodes of 32 cpu / 64Gi
+    inline, Deployment `web` at 100 replicas of 500m / 1Gi."""
+    nodes = [dict(_mk_node(f"n-{i}", "32", "64Gi"), kind="Node") for i in range(20)]
+    return {"cluster": {"objects": nodes},
+            "apps": [{"name": "web", "objects": [_mk_deploy("web", 100, "500m", "1Gi")]}]}
+
+
+def live_apis(node_dicts: List[dict], pod_dicts: List[dict] = ()) -> dict:
+    """A stub apiserver's document map (tools/stubs.StubApiServer) holding a
+    cluster: the nodes in order, each pod as a Running pod, every other list
+    the kubeclient reads empty."""
+    pods = [dict(p, status={"phase": "Running"}) for p in pod_dicts]
+    apis = {path: {"items": []} for path in (
+        "/apis/policy/v1beta1/poddisruptionbudgets", "/api/v1/services",
+        "/apis/storage.k8s.io/v1/storageclasses", "/api/v1/persistentvolumeclaims",
+        "/api/v1/configmaps", "/apis/apps/v1/daemonsets", "/apis/apps/v1/statefulsets",
+        "/apis/apps/v1/replicasets",
+    )}
+    apis["/api/v1/nodes"] = {"items": list(node_dicts)}
+    apis["/api/v1/pods"] = {"items": pods}
+    return apis

@@ -5,8 +5,9 @@ simulator, preemption, capacity search, scenario sweep, apply, extender,
 resilience, durability and resident-state paths increment (kube-scheduler
 names under the `osim_` prefix). `REGISTRY.snapshot()` is the JSON form the
 flight recorder (utils/flightrec.py) and `simon chaos` read;
-`REGISTRY.reset()` zeroes every sample. No Prometheus text exposition: that
-comes with the server (ROADMAP.md item 12b).
+`REGISTRY.reset()` zeroes every sample, and `REGISTRY.render()` is the
+Prometheus text exposition (format 0.0.4) the server's `GET /metrics`
+serves, byte for byte the JAX registry's for the same metrics and samples.
 
     osim_e2e_scheduling_duration_seconds  -> scheduler_e2e_scheduling_duration_seconds
     osim_pod_scheduling_attempts_total    -> scheduler_pod_scheduling_attempts
@@ -18,11 +19,29 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # kube-scheduler's e2e duration buckets: exponential from 1 ms, factor 2,
 # 15 buckets (1 ms .. ~16 s)
 DEFAULT_BUCKETS: Tuple[float, ...] = tuple(0.001 * 2 ** i for i in range(15))
+
+
+def _escape_label_value(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _escape_help(text: str) -> str:
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _format_labels(
+    labelnames: Sequence[str], labelvalues: Sequence[str], extra: str = ""
+) -> str:
+    """`{a="x",b="y"}`, or "" when there are no labels."""
+    parts = ['%s="%s"' % (n, _escape_label_value(v)) for n, v in zip(labelnames, labelvalues)]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
 
 
 def _format_value(value: float) -> str:
@@ -74,6 +93,18 @@ class _Metric:
         if not self.labelnames:
             self._child(())
 
+    def _sample_lines(self) -> Iterable[str]:
+        raise NotImplementedError
+
+    def render(self) -> str:
+        """This family in the text format: HELP, TYPE, then its samples in
+        label order."""
+        with self._lock:
+            lines = [f"# HELP {self.name} {_escape_help(self.help)}",
+                     f"# TYPE {self.name} {self.kind}"]
+            lines.extend(self._sample_lines())
+        return "\n".join(lines) + "\n"
+
 
 class Counter(_Metric):
     """One float per label-value tuple, only ever increased."""
@@ -95,6 +126,11 @@ class Counter(_Metric):
         with self._lock:
             child = self._children.get(key)
             return child[0] if child is not None else 0.0
+
+    def _sample_lines(self) -> Iterable[str]:
+        for key in sorted(self._children):
+            yield "%s%s %s" % (self.name, _format_labels(self.labelnames, key),
+                               _format_value(self._children[key][0]))
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -175,6 +211,18 @@ class Histogram(_Metric):
                 cum.append(running)
             return cum, child.sum, child.count
 
+    def _sample_lines(self) -> Iterable[str]:
+        for key in sorted(self._children):
+            child = self._children[key]
+            running = 0
+            for ub, c in zip(self.buckets, child.counts):
+                running += c
+                le = _format_labels(self.labelnames, key, extra='le="%s"' % _format_value(ub))
+                yield "%s_bucket%s %d" % (self.name, le, running)
+            plain = _format_labels(self.labelnames, key)
+            yield "%s_sum%s %s" % (self.name, plain, _format_value(child.sum))
+            yield "%s_count%s %d" % (self.name, plain, child.count)
+
     def snapshot(self) -> dict:
         with self._lock:
             samples = []
@@ -224,6 +272,14 @@ class MetricsRegistry:
         buckets: Sequence[float] = DEFAULT_BUCKETS,
     ) -> Histogram:
         return self._register(Histogram, name, help, labelnames, buckets=buckets)
+
+    def render(self) -> str:
+        """Prometheus text exposition format 0.0.4, families in name order,
+        ending in exactly one newline (an empty registry renders "\\n")."""
+        with self._lock:
+            families = [self._metrics[n] for n in sorted(self._metrics)]
+        out = "".join(f.render() for f in families)
+        return out if out.endswith("\n") else out + "\n"
 
     def snapshot(self, include_empty: bool = False) -> Dict[str, dict]:
         """{metric name: its snapshot()}, skipping metrics with no nonzero
@@ -403,7 +459,7 @@ EXTENDER_SKIPPED = REGISTRY.counter(
 SNAPSHOT_STALE = REGISTRY.counter(
     "osim_snapshot_stale_total",
     "Server requests served from a stale cluster snapshot after a refresh "
-    "failure (0 until the server is ported, ROADMAP.md item 12b).",
+    "failure.",
 )
 WATCHDOG_FIRED = REGISTRY.counter(
     "osim_watchdog_fired_total",
@@ -438,14 +494,14 @@ JOURNAL_EVENTS = REGISTRY.counter(
 )
 REQUESTS_SHED = REGISTRY.counter(
     "osim_requests_shed_total",
-    "Requests shed by admission control with a definite response, by "
-    "reason (0 until the server is ported, ROADMAP.md item 12b).",
+    "Requests shed by admission control with a definite response "
+    "(429/503 + Retry-After), by reason.",
     labelnames=("reason",),
 )
 REQUESTS_DROPPED = REGISTRY.counter(
     "osim_requests_dropped_total",
-    "Requests dropped without a simulated or shed response (0 until the "
-    "server is ported, ROADMAP.md item 12b).",
+    "Requests dropped without a simulated or shed response (scheduler "
+    "worker death) — any nonzero value is a failure, not degradation.",
 )
 RESIDENT_DRIFT_REPAIRS = REGISTRY.counter(
     "osim_resident_drift_repairs_total",
@@ -477,6 +533,62 @@ RESIDENT_EPOCH = REGISTRY.gauge(
     "osim_resident_epoch",
     "Current generation of the resident cluster state; bumps on every delta "
     "apply and every repair, globally monotonic.",
+)
+
+# the server, its admission queue and its scheduler loop
+HTTP_REQUESTS = REGISTRY.counter(
+    "osim_http_requests_total",
+    "Simulator HTTP server responses, by path and status code.",
+    labelnames=("path", "code"),
+)
+ADMISSION_QUEUE_DEPTH = REGISTRY.gauge(
+    "osim_admission_queue_depth",
+    "Requests currently waiting in the server admission queue.",
+)
+COALESCED_BATCH = REGISTRY.histogram(
+    "osim_coalesced_batch_size",
+    "Requests answered by one coalesced simulate pass: mode=fanout counts "
+    "identical-body waiters fanned out from one result (per coalesce key), "
+    "mode=scenarios counts distinct-scenario bodies merged into one batched "
+    "device call.",
+    labelnames=("mode",),
+    buckets=(1, 2, 4, 8, 16, 32, 64),
+)
+REQUEST_LATENCY = REGISTRY.histogram(
+    "osim_server_request_duration_seconds",
+    "Admission-to-response latency of POST simulation requests, seconds.",
+)
+ADMISSION_FENCE = REGISTRY.counter(
+    "osim_admission_fence_total",
+    "Generation-fence decisions at admission dequeue: current = ticket ran "
+    "against the epoch it was submitted under, rekeyed = the resident epoch "
+    "moved between submit and dequeue so the ticket was re-keyed to prevent "
+    "cross-generation coalescing.",
+    labelnames=("outcome",),
+)
+LOOP_ITERATION = REGISTRY.histogram(
+    "osim_loop_iteration_seconds",
+    "Wall-clock duration of one continuous-batching scheduler-loop "
+    "iteration (pack assembly + the device call + fan-out); the EWMA of "
+    "this feeds Retry-After hints.",
+)
+PACK_LATENCY = REGISTRY.histogram(
+    "osim_pack_latency_seconds",
+    "Per-ticket time between admission and the moment its pack was taken "
+    "by the scheduler loop — the queueing cost of continuous batching, "
+    "excluding the device call itself.",
+)
+LOOP_FALLBACKS = REGISTRY.counter(
+    "osim_loop_fallbacks_total",
+    "Requests served per-request on the handler thread because the "
+    "scheduler loop thread was not alive (degradation ladder, "
+    "docs/serving.md) — correctness is preserved, batching is lost.",
+)
+JOBS = REGISTRY.counter(
+    "osim_jobs_total",
+    "Async jobs (POST /v1/jobs), by terminal outcome "
+    "(completed | failed | rejected).",
+    labelnames=("outcome",),
 )
 
 # span names with a dedicated kube-parity histogram

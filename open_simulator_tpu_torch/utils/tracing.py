@@ -1,11 +1,16 @@
-"""Timing spans and logging.
+"""Timing spans, trace identity and logging.
 
-The port's copy of the JAX package's span tree, without the W3C
-traceparent on the wire and the Chrome-trace export (those come with the
-tooling slice). Every span carries a trace id (32 hex digits, shared by its
-tree) and a span id (16 hex digits). A worker thread nests its spans under
-a span of the dispatching thread through current_context() / activate(). Spans nest through a
-thread-local stack; every finished span feeds the metrics histograms, and
+The port's copy of the JAX package's span tree, without the Chrome-trace
+export (ROADMAP.md item 14). Every span carries a trace id (32 hex digits,
+shared by its trace) and a span id (16 hex digits). A `TraceContext`
+snapshot of the active span (`current_context()`) crosses a thread or a
+queue and is re-activated on the far side with `activate(ctx)`: the next
+root span opened there becomes a child by id of the captured span. On the
+wire the context is a W3C `traceparent` header (`TraceContext.
+to_traceparent` / `from_traceparent`); lanes that share one execution are
+related by span links (`Span.add_link`) instead of a parent. Spans nest
+through a thread-local stack; every finished span feeds the metrics
+histograms, and
 each finished root tree is kept in a bounded ring (`recent_timings`), which
 is where `chip_smoke.py` reads the simulator's phase split from, and fed
 to the crash flight recorder (utils/flightrec.py). A root span
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 import threading
 import time
 from contextlib import contextmanager
@@ -34,9 +40,52 @@ SLOW_TRACE_S = float(os.environ.get("OSIM_SLOW_TRACE", "1.0"))
 HISTORY_MAX = 64
 
 
+class TraceContext:
+    """Immutable (trace_id, span_id): the part of a span's identity that
+    crosses a thread, a queue or a process."""
+
+    __slots__ = ("trace_id", "span_id")
+    _TRACEPARENT_RE = re.compile(r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
+
+    def __init__(self, trace_id: str, span_id: str) -> None:
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def __eq__(self, other: object) -> bool:
+        return (isinstance(other, TraceContext) and self.trace_id == other.trace_id
+                and self.span_id == other.span_id)
+
+    def __hash__(self) -> int:
+        return hash((self.trace_id, self.span_id))
+
+    def __repr__(self) -> str:
+        return f"TraceContext({self.trace_id}, {self.span_id})"
+
+    def to_dict(self) -> dict:
+        return {"trace_id": self.trace_id, "span_id": self.span_id}
+
+    def to_traceparent(self) -> str:
+        """The W3C traceparent header (version 00, sampled)."""
+        return f"00-{self.trace_id}-{self.span_id}-01"
+
+    @classmethod
+    def from_traceparent(cls, header: Optional[str]) -> Optional["TraceContext"]:
+        """Parse a traceparent header; an absent or malformed header, version
+        ff, or an all-zero id gives None (the request starts a fresh trace)."""
+        if not header:
+            return None
+        m = cls._TRACEPARENT_RE.match(header.strip().lower())
+        if m is None:
+            return None
+        version, trace_id, span_id = m.group(1), m.group(2), m.group(3)
+        if version == "ff" or trace_id == "0" * 32 or span_id == "0" * 16:
+            return None
+        return cls(trace_id, span_id)
+
+
 class Span:
     __slots__ = ("name", "start", "end", "children", "meta", "wall_start",
-                 "trace_id", "span_id", "parent_id")
+                 "trace_id", "span_id", "parent_id", "links")
 
     def __init__(self, name: str) -> None:
         self.name = name
@@ -48,10 +97,19 @@ class Span:
         self.trace_id = ""
         self.span_id = os.urandom(8).hex()
         self.parent_id: Optional[str] = None
+        self.links: List[dict] = []
 
     @property
     def duration(self) -> float:
         return (self.end or time.perf_counter()) - self.start
+
+    def context(self) -> TraceContext:
+        return TraceContext(self.trace_id, self.span_id)
+
+    def add_link(self, ctx) -> None:
+        """Record a non-parent relation to another span (a TraceContext or a
+        Span): a packed lane and the pack that executed it."""
+        self.links.append({"trace_id": ctx.trace_id, "span_id": ctx.span_id})
 
     def to_dict(self) -> dict:
         d = {"name": self.name, "start": round(self.wall_start, 6),
@@ -59,6 +117,8 @@ class Span:
              "span_id": self.span_id}
         if self.parent_id:
             d["parent_id"] = self.parent_id
+        if self.links:
+            d["links"] = [dict(ln) for ln in self.links]
         if self.meta:
             d["meta"] = dict(self.meta)
         if self.children:
@@ -75,6 +135,9 @@ class Span:
 class _Tracer(threading.local):
     def __init__(self) -> None:
         self.stack: List[Span] = []
+        # a context re-activated on this thread (activate()): the next root
+        # span opened here becomes its child by id
+        self.remote: Optional[TraceContext] = None
 
 
 _tracer = _Tracer()
@@ -93,6 +156,9 @@ def span(name: str, **meta):
         parent.children.append(s)
         s.trace_id = parent.trace_id
         s.parent_id = parent.span_id
+    elif _tracer.remote is not None:
+        s.trace_id = _tracer.remote.trace_id
+        s.parent_id = _tracer.remote.span_id
     else:
         s.trace_id = os.urandom(16).hex()
     _tracer.stack.append(s)
@@ -114,29 +180,37 @@ def span(name: str, **meta):
                 log.debug("trace:\n%s", s.render())
 
 
-def current_context() -> Optional[Span]:
-    """The calling thread's innermost open span (None outside any span): a
-    dispatching thread captures it so worker threads can nest under it."""
+def current_span() -> Optional[Span]:
+    """The innermost open span on this thread, if any."""
     return _tracer.stack[-1] if _tracer.stack else None
 
 
+def current_context() -> Optional[TraceContext]:
+    """The context of the innermost open span, else the context activated on
+    this thread, else None: what a dispatching thread hands a worker."""
+    if _tracer.stack:
+        return _tracer.stack[-1].context()
+    return _tracer.remote
+
+
 @contextmanager
-def activate(ctx: Optional[Span]):
-    """Open spans of this (worker) thread as children of `ctx`, a span
-    captured on another thread by current_context(), for the block."""
+def activate(ctx: Optional[TraceContext]):
+    """Re-activate a captured context on this thread for the block: root
+    spans opened inside become its children by id. None is a no-op."""
     if ctx is None:
         yield
         return
-    _tracer.stack.append(ctx)
+    prev = _tracer.remote
+    _tracer.remote = ctx
     try:
         yield
     finally:
-        _tracer.stack.pop()
+        _tracer.remote = prev
 
 
 def current_trace_id() -> Optional[str]:
-    """The trace id of the calling thread's innermost open span, if any."""
-    return _tracer.stack[-1].trace_id if _tracer.stack else None
+    ctx = current_context()
+    return ctx.trace_id if ctx is not None else None
 
 
 def _record_flight(root: dict) -> None:
@@ -151,10 +225,10 @@ def _record_flight(root: dict) -> None:
 
 
 def current_traceparent() -> Optional[str]:
-    """The W3C traceparent of the calling thread's trace. The port does not
-    put trace identity on the wire yet (ROADMAP item 14), so there is none:
-    HTTP callers send no traceparent header."""
-    return None
+    """The W3C traceparent header for an outbound HTTP call, or None outside
+    any trace (no id is minted: a header nobody can correlate is noise)."""
+    ctx = current_context()
+    return ctx.to_traceparent() if ctx is not None else None
 
 
 def recent_timings() -> List[dict]:

@@ -6,6 +6,7 @@ the JAX run must also reproduce the constants in `sim_configs.APPLY_DIGESTS`
 that `chip_smoke.py` checks on the card."""
 
 import io
+import json
 from pathlib import Path
 
 import pytest
@@ -260,17 +261,26 @@ def test_cli_rejects_unknown_extended_resource(capsys):
     (["--resume", "runs/x", "--devices", "2"], 13), (["--run-dir", "runs/x", "--resume", "--devices", "0"], 13),
     (["--run-dir", "runs/x", "--resume", "--metrics-file", "m.json"], 14),
 ])
-def test_cli_unported_flags_name_their_item(capsys, flags, item):
+def test_cli_unported_flags_name_their_item(capsys, tmp_path, flags, item):
     """The reference's flags of unported items parse, then fail with the
     port's not-ported message naming the ROADMAP item (no argparse error):
-    13b for a mesh, 14 for the metrics file, also beside the ported
-    `--run-dir` / `--resume`, before a run directory is opened."""
+    13b for a mesh, also beside the ported `--run-dir` / `--resume`, before
+    a run directory is opened. Item 14's flag, `--metrics-file`, is ported
+    now: beside `--run-dir` / `--resume` the apply runs and writes the
+    registry's snapshot."""
+    if item == 14:
+        flags = [str(tmp_path / f) if f in ("runs/x", "m.json") else f for f in flags]
     rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--device", "cpu"] + flags)
-    assert rc == 1
     err = capsys.readouterr().err
-    assert "is not ported to open_simulator_tpu_torch yet" in err
-    assert f"ROADMAP.md Queue 1 item {item}{'b' if item == 13 else ''}:" in err
     assert not (ROOT / "runs").exists()
+    if item == 14:
+        assert rc == 0 and "is not ported" not in err
+        assert "osim_apply_total" in json.loads((tmp_path / "m.json").read_text())
+        assert (tmp_path / "runs" / "x" / "outcome.json").is_file()
+        return
+    assert rc == 1
+    assert "is not ported to open_simulator_tpu_torch yet" in err
+    assert f"ROADMAP.md Queue 1 item {item}b:" in err
 
 
 def test_simulate_result_pods_on():

@@ -393,13 +393,12 @@ def test_build_extenders_order_and_interest():
 
 
 def test_fault_rules_of_unported_targets_name_their_item():
-    """Only `admission` waits (ROADMAP.md item 12b); the durability and
-    resident targets are ported and load."""
-    for kind in ("error", "queue_full"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            tfaults.FaultPlan.from_dict({"rules": [{"target": "admission", "kind": kind}]})
+    """No target is unported any more: `admission` (the server's) loads like
+    the durability and resident targets, in every kind it takes."""
     for target, kind in (("device", "device_lost"), ("journal", "kill"), ("backend", "error"),
-                         ("resident", "torn_delta")):
+                         ("resident", "torn_delta"), ("admission", "error"),
+                         ("admission", "queue_full"), ("admission", "slow_drain"),
+                         ("admission", "deadline_storm")):
         plan = tfaults.FaultPlan.from_dict({"rules": [{"target": target, "kind": kind}]})
         assert [r.target for r in plan.rules] == [target]
 

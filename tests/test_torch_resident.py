@@ -14,8 +14,8 @@ are fallbacks, not repairs; epochs never collide. `simulate(resident=)`
 equals the JAX `simulate()` on result digest, routes and final carry.
 
 The cases of tests/test_resident.py that need no admission queue or server
-keep their names here; the four fence/server cases wait for ROADMAP.md item
-12b.
+keep their names here; the four fence/server cases are in
+tests/test_torch_server.py.
 """
 
 import dataclasses
