@@ -86,22 +86,37 @@
    subprocess), every response held against the JAX server's constants in
    sim_configs.SERVE_DIGESTS. Prints wall, p50/p99 latency, req/s, pack
    sizes, sheds, sync ms and domain_pop launches per leg.
-11. Holds every kernel against its plain PyTorch version, bit for bit, on
+11. Drives device meshes (mesh_phase), every slot on this one card, in two
+   child processes (`--phase mesh-a`, `--phase mesh-b`) started with
+   prove's and joined after the durable phase, so their host work runs
+   beside the capacity, extender and durable phases: simulate() on
+   config_plan with the node axis on 4 slots (the plan
+   digest, the unsharded routes and launch, its pop's inputs equal the
+   unsharded call's); the per-pod sharded scan on the headline's 10,000
+   nodes against kernels.schedule_batch; multi_scenario's 64 lanes on 4
+   lane slots, on a 2x2 (scenarios, nodes) mesh and through the wave
+   driver on 2 lane slots (MULTI_SCENARIO_DIGESTS); the chunked scan
+   checkpointed on 4 lane slots, killed, resumed on 2 and on none
+   (CHUNK_SCAN_DIGEST); per-slot bytes replicated and node-split; `apply
+   --devices 1` and `--devices 2` (exit 1). Prints each leg's wall beside
+   the unsharded one.
+12. Holds every kernel against its plain PyTorch version, bit for bit, on
    the inputs the main path gave it (the plain version on the card, which
    gives the row's plain time), on those of spread_affinity's DoNotSchedule
-   group, of the simulator's plan call and of a served full request, and on
+   group, of the simulator's plan call, of a served full request and of the
+   mesh's plan call, and on
    extra seeded variants (the plain version on a host copy of the same
    inputs: a pop's few dozen tiny ops run ~4x faster on the host CPU than
    launched one by one on the card), and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
    pairs).
-12. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+13. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-13. Prints one JSON line of per-kernel numbers (launches summed over the
+14. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
    preempt call, the apply runs, the capacity, prove, extender, durable,
-   resident and serve phases) and, last, the result line.
+   resident, serve and mesh phases) and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -411,11 +426,11 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
     return results, failures
 
 
-def simulate_once(torch, dp, fast, build, keep=None):
+def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
     """One simulate() on the card of freshly built inputs after
     reset_name_rng(), with the route counts and kernel launches set to 0
     just before it; with `keep`, the first domain_pop call's inputs are
-    cloned into it. Returns (result, wall s, span seconds, routes,
+    cloned into it; with `mesh`, the node axis split over its slots. Returns (result, wall s, span seconds, routes,
     domain_pop launches, probe calls, probe lanes)."""
     from open_simulator_tpu_torch.core.workloads import reset_name_rng
     from open_simulator_tpu_torch.engine.simulator import simulate
@@ -431,7 +446,7 @@ def simulate_once(torch, dp, fast, build, keep=None):
     undo = capture_pops(dp, torch, keep) if keep is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = simulate(cluster, apps, device="cuda")
+    result = simulate(cluster, apps, mesh=mesh, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if undo is not None:
@@ -2158,15 +2173,291 @@ def serve_phase(torch, dp, fast):
     return results, failures, dp.launches, (serve_pops[0] if serve_pops else None)
 
 
-def start_phase_child(phase, tmp):
-    """Start `chip_smoke.py --phase <phase>` in a child process; its output
-    goes to a file in `tmp`. Returns (process, results path, log path)."""
+def _one_card_mesh(torch, shape, axes):
+    """A mesh of slots that all lie on cuda:0 (the port's slots may share a
+    device), `shape` slots along `axes`."""
+    from open_simulator_tpu_torch.parallel.mesh import Mesh
+
+    grid = np.empty(int(np.prod(shape)), dtype=object)
+    grid[:] = [torch.device("cuda", 0)] * grid.size
+    return Mesh(grid.reshape(shape), axes)
+
+
+# the mesh phase's legs, split over two child processes that run beside the
+# capacity, extender and durable phases
+MESH_LEGS = {"mesh-a": ("plan", "scan", "lanes", "wave", "elastic", "bytes", "cli"),
+             "mesh-b": ("2x2",)}
+
+
+def mesh_phase(torch, dp, fast, ref, legs, pop_path=None, oracle_budget_s=20.0,
+               oracle_max=2048):
+    """Device meshes on the one card, every slot on cuda:0 (the port's mesh
+    slots may repeat a device; parallel/mesh.py). `legs` picks from:
+    - "plan": simulate() on config_plan (100,000 pods x 10,000 nodes) with
+      the node axis split over 4 slots: SIM_DIGESTS["plan"], the routes and
+      launches of `ref` (the unsharded timed call's), the domain_pop
+      launch's inputs saved to `pop_path` for the kernel check; its wall
+      beside the unsharded call's.
+    - "scan": the per-pod sharded scan (parallel.mesh.sharded_schedule_batch)
+      over 4 slots on the headline's 10,000 nodes, equal to
+      kernels.schedule_batch on the same pods: 256 pods, then more while
+      the projected sharded run fits `oracle_budget_s`, at most `oracle_max`.
+    - "lanes", "2x2", "wave": multi_scenario's 64 lanes through
+      simulate_batch on a 4-slot mesh (lanes split 16 a slot), on a 2x2
+      (scenarios, nodes) mesh, and through the wave driver
+      (OSIM_WAVE_COMMIT=1) with its lanes on 2 slots; every lane's digest
+      equal to MULTI_SCENARIO_DIGESTS.
+    - "elastic": the durable phase's chunked scan (plan_full's first ladder
+      width, CHUNK_SCAN_PODS pods, chunks of 64, a snapshot every 2) with
+      its lanes on 4 slots, killed by three device losses at chunk 5,
+      resumed on 2 slots and, from a copy, on none: both carry digests
+      equal CHUNK_SCAN_DIGEST.
+    - "bytes": hbm_bytes_per_device of config_plan's NodeStatic and carry
+      (at that ladder width), replicated and node-split on 4 slots: the
+      split's largest slot holds at most a quarter of the node-split leaves
+      plus the replicated ones.
+    - "cli": `apply --devices 1` runs; `--devices 2` on this one-card
+      machine exits 1 with the reference's wording.
+    Returns (results, failures, domain_pop launches)."""
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    results, failures = {}, []
+    t_phase = time.perf_counter()
+    nodes4 = _one_card_mesh(torch, (4,), (pmesh.NODE_AXIS,))
+    if "plan" in legs:
+        failures += _mesh_plan(torch, dp, fast, ref, nodes4, pop_path, results)
+    if "scan" in legs:
+        failures += _mesh_scan(torch, nodes4, oracle_budget_s, oracle_max, results)
+    for label, shape, axes, knobs in (
+        ("lanes", (4,), (pmesh.NODE_AXIS,), {}),
+        ("2x2", (2, 2), (pmesh.SCENARIO_AXIS, pmesh.NODE_AXIS), {}),
+        ("wave", (2,), (pmesh.NODE_AXIS,), {"OSIM_WAVE_COMMIT": "1"}),
+    ):
+        if label in legs:
+            failures += _mesh_lanes(torch, label, _one_card_mesh(torch, shape, axes), knobs,
+                                    results)
+    if "elastic" in legs:
+        failures += _mesh_elastic(torch, fast, results)
+    if "bytes" in legs:
+        failures += _mesh_bytes(torch, nodes4, results)
+    if "cli" in legs:
+        failures += _mesh_cli(results)
+    results["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh phase ({', '.join(legs)}) {results['phase_s']:.1f} s", flush=True)
+    return results, failures, results.get("plan", {}).get("launches", 0)
+
+
+def _mesh_plan(torch, dp, fast, ref, nodes4, pop_path, results):
+    from open_simulator_tpu_torch import sim_configs as sc
+
+    captured = []
+    result, wall, spans, routes, n_pop, _, _ = simulate_once(
+        torch, dp, fast, sc.plan, captured, mesh=nodes4)
+    digest = sc.result_digest(result)
+    print(f"mesh[plan, 4 node slots] wall {wall:.3f} s (unsharded timed call "
+          f"{ref['wall_s']:.3f} s); spans (s): " + ", ".join(
+              f"{k} {spans[k]:.3f}" for k in ("expand-workloads", "encode-cluster", "schedule",
+                                              "bind") if k in spans)
+          + f"; routes {routes}; domain_pop launches {n_pop}; digest {digest}", flush=True)
+    results["plan"] = {"wall_s": wall, "unsharded_wall_s": ref["wall_s"], "routes": routes,
+                       "launches": n_pop, "spans": spans}
+    failures = []
+    if digest != sc.SIM_DIGESTS["plan"]:
+        failures.append(f"plan on 4 slots: digest {digest} != {sc.SIM_DIGESTS['plan']}")
+    if routes != ref["routes"] or n_pop != ref["launches"] or not captured:
+        failures.append(f"plan on 4 slots: routes {routes}, {n_pop} launches; unsharded "
+                        f"{ref['routes']}, {ref['launches']}")
+    if captured and pop_path:
+        torch.save(captured[0], pop_path)
+    return failures
+
+
+def _mesh_scan(torch, nodes4, budget_s, max_pods, results):
+    from open_simulator_tpu_torch.headline import build_state
+    from open_simulator_tpu_torch.ops import kernels
+    from open_simulator_tpu_torch.ops.state import pod_rows_from_batch
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    ns, carry, batch = build_state(10_000, max_pods, device="cuda")
+    w = kernels.weights_array(device="cuda")
+    rows = pod_rows_from_batch(batch, "cuda")
+    sh_ns, sh_carry = pmesh.shard_state(nodes4, ns, carry)
+    step = pmesh.sharded_schedule_batch(nodes4)
+    outs, done, chunk = [], 0, 256
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while done < max_pods and (
+            done == 0 or (time.perf_counter() - t0) * (done + chunk) / done <= budget_s):
+        sh_carry, *got = step(sh_ns, sh_carry, kernels.PodRow(*(a[done:done + chunk] for a in rows)),
+                              w)
+        outs.append(got)
+        done += chunk
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = kernels.schedule_batch(ns, carry, kernels.PodRow(*(a[:done] for a in rows)), w)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    bad = [name for k, name in enumerate(("nodes", "reasons", "gpu_take", "vg_take", "dev_take"))
+           if not torch.equal(torch.cat([o[k] for o in outs]), want[1 + k])]
+    whole = sh_carry.gather()
+    bad += [f"carry.{f}" for f in kernels.Carry._fields
+            if not torch.equal(getattr(whole, f), getattr(want[0], f))]
+    print(f"mesh[sharded scan, 4 node slots] {done} of the headline's pods (cut from 100,000) x "
+          f"10,000 nodes: {sharded_s:.3f} s ({sharded_s / done * 1e3:.2f} ms a pod), unsharded "
+          f"oracle {single_s:.3f} s ({single_s / done * 1e3:.2f} ms a pod); placed "
+          f"{int((want[1] >= 0).sum())}; " + ("bit-equal" if not bad else f"DIFFERENT in {bad}"),
+          flush=True)
+    results["sharded_scan"] = {"pods": done, "sharded_s": sharded_s, "single_s": single_s}
+    return [f"sharded scan differs from schedule_batch in {bad}"] if bad else []
+
+
+def _mesh_lanes(torch, label, mesh, knobs, results):
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.simulator import Scenario, simulate_batch
+
+    reset_name_rng()
+    cluster, apps = sc._port_build(sc.multi_scenario_spec())
+    counts = sc.multi_scenario_counts()
+    scenarios = [Scenario(name=f"s-{i}", node_count=c) for i, c in enumerate(counts)]
+    with _Env(**knobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanes = simulate_batch(cluster, apps, scenarios, mesh=mesh, device="cuda")
+        wall = time.perf_counter() - t0
+    bad = [i for i, (c, r) in enumerate(zip(counts, lanes))
+           if sc.result_digest(r) != sc.MULTI_SCENARIO_DIGESTS[c]]
+    shape = "x".join(str(v) for v in mesh.devices.shape)
+    print(f"mesh[multi_scenario, {label}: {shape} slots{', wave driver' if knobs else ''}] "
+          f"{len(lanes)} lanes x 400 pods x 64 nodes: {wall:.3f} s, "
+          f"{len(lanes) - len(bad)} lane digests equal", flush=True)
+    results[f"multi_scenario/{label}"] = {"wall_s": wall, "lanes_equal": len(lanes) - len(bad)}
+    return [f"multi_scenario on {label}: lanes {bad} differ"] if bad else []
+
+
+def _mesh_elastic(torch, fast, results):
+    import os
+    import shutil
+    import tempfile
+
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.durable import RunJournal
+    from open_simulator_tpu_torch.durable.checkpoint import PlanCheckpointer, installed
+    from open_simulator_tpu_torch.ops.encode import encode_pods
+    from open_simulator_tpu_torch.ops.state import stack_carry
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+    from open_simulator_tpu_torch.resilience import faults
+
+    lanes = full_width_lanes(torch)
+    sim, s, s_pad = lanes["sim"], lanes["s"], lanes["s_pad"]
+    batch = encode_pods(sim.enc, lanes["app_pods"][0][:sc.CHUNK_SCAN_PODS])
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    knobs = dict(OSIM_WAVE_COMMIT="0", OSIM_COMMIT_CHUNK=64, OSIM_WAVE_SIZE=None,
+                 OSIM_FLIGHT_DIR=os.path.join(tmp, "flight"))
+
+    def scan(run_dir, slots, resume=False, plan=None):
+        """The chunked scan under a checkpointer, its lanes on `slots` slots
+        (0: unsharded) -> (carry digest, wall s)."""
+        ns, carry_s, valid_s, weights_s = (
+            sim._ns, stack_carry(sim._carry, s_pad), lanes["valid_s"], lanes["weights_s"])
+        if slots:
+            ns, carry_s, valid_s, weights_s = pmesh.shard_scenarios(
+                _one_card_mesh(torch, (slots,), (pmesh.SCENARIO_AXIS,)),
+                ns, carry_s, valid_s, weights_s)
+        journal = RunJournal.open(run_dir)
+        if plan is not None:
+            faults.install_plan(plan)
+        try:
+            with _Env(**knobs), installed(PlanCheckpointer(journal, resume=resume, every=2)):
+                t0 = time.perf_counter()
+                out = fast.schedule_scenarios_host(ns, carry_s, batch, weights_s, valid_s, s)
+                torch.cuda.synchronize()
+                return fast.scenario_carry_digest(out[0]), time.perf_counter() - t0
+        finally:
+            if plan is not None:
+                faults.uninstall_plan()
+            journal.close()
+
+    walls, digests, failures = {}, {}, []
+    crash = os.path.join(tmp, "crash")
+    t0 = time.perf_counter()
+    try:
+        scan(crash, 4, plan=faults.FaultPlan.from_dict({"rules": [{
+            "target": "device", "op": "commit-chunk:5", "kind": "device_lost", "times": 3}]}))
+        failures.append("elastic: a third device loss on 4 slots did not raise")
+    except faults.DeviceLostError:
+        pass
+    walls["crash_4_slots"] = time.perf_counter() - t0
+    copy = os.path.join(tmp, "copy")
+    shutil.copytree(crash, copy)
+    digests["2 slots"], walls["resume_2_slots"] = scan(crash, 2, resume=True)
+    digests["none"], walls["resume_unsharded"] = scan(copy, 0, resume=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh[elastic resume] {int(batch.p)} pods x {s} lanes ({s_pad} padded) x "
+          f"{lanes['n_pad']} node rows, chunks of 64: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in walls.items())
+          + "; carry digests " + ", ".join(f"{k} {v:08x}" for k, v in digests.items()), flush=True)
+    results["elastic"] = {"walls_s": walls, "digests": {k: f"{v:08x}" for k, v in digests.items()}}
+    if set(digests.values()) != {sc.CHUNK_SCAN_DIGEST}:
+        failures.append(f"elastic resume: digests {digests} != {sc.CHUNK_SCAN_DIGEST:08x}")
+    return failures
+
+
+def _mesh_bytes(torch, nodes4, results):
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    lanes = full_width_lanes(torch)
+    ns, carry = lanes["sim"]._ns, lanes["sim"]._carry
+    rep = pmesh.hbm_bytes_per_device(pmesh.replicated(nodes4, ns), pmesh.replicated(nodes4, carry))
+    shd = pmesh.hbm_bytes_per_device(*pmesh.shard_state(nodes4, ns, carry))
+    split = sum(a.numel() * a.element_size()
+                for tree, dims in ((ns, pmesh.node_sharding()), (carry, pmesh.carry_sharding()))
+                for a, d in zip(tree, dims) if d is not None)
+    whole = sum(a.numel() * a.element_size() for tree in (ns, carry) for a in tree)
+    limit = -(-split // 4) + (whole - split)
+    print(f"mesh[bytes] plan's NodeStatic + carry at {lanes['n_pad']} node rows: {whole} bytes, "
+          f"{split} in node-split leaves; replicated {max(rep.values())} a slot, node-split on "
+          f"4 slots {min(shd.values())}-{max(shd.values())} a slot (limit {limit})", flush=True)
+    results["bytes"] = {"replicated": rep, "split": shd, "limit": limit}
+    if max(shd.values()) > limit or len(shd) != 4:
+        return [f"bytes: node-split slots {shd} over {limit}"]
+    return []
+
+
+def _mesh_cli(results):
+    import contextlib
+    import io
+
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+
+    got = {}
+    for n in ("1", "2"):
+        err = io.StringIO()
+        reset_name_rng()
+        with contextlib.redirect_stderr(err):
+            rc, _ = _cli_quiet(["apply", "-f", "example/simon-config.yaml", "--devices", n,
+                                "--no-auto-plan"])
+        got[n] = (rc, err.getvalue().strip())
+    want = "error: --devices 2 requested but only 1 CUDA devices are visible"
+    print(f"mesh[cli] apply --devices 1: exit {got['1'][0]}; --devices 2: exit {got['2'][0]}, "
+          f"{got['2'][1]!r}", flush=True)
+    results["cli"] = got
+    if got["1"][0] != 2 or got["2"][0] != 1 or want not in got["2"][1]:
+        return [f"cli: --devices 1 exit {got['1'][0]}, --devices 2 {got['2']}"]
+    return []
+
+
+def start_phase_child(phase, tmp, *args):
+    """Start `chip_smoke.py --phase <phase> [args]` in a child process; its
+    output goes to a file in `tmp`. Returns (process, results path, log
+    path)."""
     import os
 
     out, log = os.path.join(tmp, f"{phase}.json"), os.path.join(tmp, f"{phase}.log")
     with open(log, "w") as fh:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase", phase, "--out", out],
+            [sys.executable, os.path.abspath(__file__), "--phase", phase, "--out", out, *args],
             stdout=fh, stderr=subprocess.STDOUT,
             cwd=os.path.dirname(os.path.abspath(__file__)))
     return proc, out, log
@@ -2194,9 +2485,12 @@ def join_phase_child(child, timeout_s):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
-    ap.add_argument("--phase", choices=("prove",),
+    ap.add_argument("--phase", choices=("prove",) + tuple(MESH_LEGS),
                     help="run only this phase and write its results, failures and "
                          "domain_pop launches as JSON to --out")
+    ap.add_argument("--ref", help="a mesh phase's unsharded plan call (JSON: wall_s, routes, "
+                                  "launches)")
+    ap.add_argument("--pop", help="where a mesh phase saves its domain_pop inputs")
     opts = ap.parse_args()
 
     import logging
@@ -2209,10 +2503,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    if opts.phase == "prove":
+    if opts.phase:
         from open_simulator_tpu_torch.ops import domain_pop as dp
+        from open_simulator_tpu_torch.ops import fast
 
-        results, failures, launches = prove_phase(torch, dp)
+        if opts.phase == "prove":
+            results, failures, launches = prove_phase(torch, dp)
+        else:
+            with open(opts.ref) as fh:
+                ref = json.load(fh)
+            results, failures, launches = mesh_phase(torch, dp, fast, ref,
+                                                     MESH_LEGS[opts.phase], opts.pop)
         with open(opts.out, "w") as f:
             json.dump({"results": results, "failures": failures, "launches": launches}, f,
                       default=str)
@@ -2233,8 +2534,10 @@ def main() -> int:
 
 
 def run_all(opts, torch, tmp, children) -> int:
-    """Every phase in order (the prove phase in a child process, started
-    before the capacity phase and joined in its place); 0 when all pass."""
+    """Every phase in order (the prove phase and the mesh phase's two halves
+    in child processes, started before the capacity phase; prove joined in
+    the capacity phase's place, the mesh after the durable phase); 0 when
+    all pass."""
     from open_simulator_tpu_torch.headline import (
         HEADLINE_DIGEST_100K_10K, build_state, placement_digest,
     )
@@ -2337,9 +2640,16 @@ def run_all(opts, torch, tmp, children) -> int:
         return 1
     launches += sim_launches
 
-    # -- simon prove starts in a child process: its host oracle runs beside
-    # the capacity phase
+    # -- simon prove and the mesh phase's legs start in child processes:
+    # their host work runs beside the capacity, extender and durable phases
+    import os
+
+    ref_path, pop_path = os.path.join(tmp, "plan-ref.json"), os.path.join(tmp, "mesh-pop.pt")
+    with open(ref_path, "w") as fh:
+        json.dump({k: sim_results["plan/timed"][k] for k in ("wall_s", "routes", "launches")}, fh)
     children.append(start_phase_child("prove", tmp))
+    for phase in MESH_LEGS:
+        children.append(start_phase_child(phase, tmp, "--ref", ref_path, "--pop", pop_path))
 
     # -- the capacity search, the scenario axis and the wave engine --------
     cap_results, failures, cap_launches = capacity_phase(torch, dp, fast)
@@ -2369,6 +2679,22 @@ def run_all(opts, torch, tmp, children) -> int:
         return 1
     launches += durable_launches
 
+    # -- device meshes: node and lane splits, 2-D, elastic resume, bytes ----
+    mesh_results, failures, mesh_launches = {}, [], 0
+    for phase, child in zip(MESH_LEGS, children[1:]):
+        got = join_phase_child(child, 600)
+        mesh_results[phase] = got[0]
+        failures += got[1]
+        mesh_launches += got[2]
+    mesh_pops = torch.load(pop_path, map_location="cuda") if os.path.exists(pop_path) else None
+    if mesh_pops is None or not _same_inputs(mesh_pops, sim_pops, torch):
+        failures.append("mesh: plan's domain_pop inputs on 4 slots differ from the unsharded "
+                        "call's")
+    if failures:
+        print("chip_smoke: mesh FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += mesh_launches
+
     # -- resident cluster state with row-delta sync -------------------------
     resident_results, failures, resident_launches = resident_phase(torch, dp, fast)
     if failures:
@@ -2393,6 +2719,7 @@ def run_all(opts, torch, tmp, children) -> int:
                           torch, reps=5, plain_on="cpu")[2])
     errs.append(check_pop("simulator-plan", sim_pops, dp, torch, reps=3, plain_on="cpu")[2])
     errs.append(check_pop("served-request", serve_pops, dp, torch, reps=3, plain_on="cpu")[2])
+    errs.append(check_pop("mesh-plan", mesh_pops, dp, torch, reps=3, plain_on="cpu")[2])
     # name: (seed, Dc, L, D, G, hard, cap)
     for name, (seed, dc, lanes, d, g, hard, cap) in {
         "headline-hard": (7, 4, 26624, 4, 26624, True, None),
@@ -2454,7 +2781,7 @@ def run_all(opts, torch, tmp, children) -> int:
                 "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
                 "capacity": cap_results, "prove": prove_results, "extenders": ext_results,
                 "durable": durable_results, "resident": resident_results,
-                "serve": serve_results,
+                "serve": serve_results, "mesh": mesh_results,
                 "kernels": kernel_rows,
             }, f, indent=1, default=str)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

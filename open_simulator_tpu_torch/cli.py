@@ -32,9 +32,9 @@ exits, which ends the abandoned work with the process (the port has no CPU
 degrade; with `--run-dir` the fire is journaled and `runs resume` continues
 the run on the same device). `--run-dir` journals the run
 (durable/journal.py), `--resume` continues a journaled one, and `--metrics-file` writes the
-metrics registry's snapshot as JSON after the run. The reference's
-`--devices` (other than 1) parses and then fails with exit code 1 and a
-message naming the ROADMAP item that ports it.
+metrics registry's snapshot as JSON after the run. `--devices N` shards
+every simulation over N CUDA devices (0 = all), or over N slots on the CPU
+with `--device cpu`; asking for more cards than exist exits 1.
 
 runs: list the journaled runs under a root, show one run's summary and
 journal, or resume an interrupted apply or capacity sweep from its journal.
@@ -82,9 +82,10 @@ def _add_apply(sub) -> None:
                    help="reference-style interactive add-node loop")
     p.add_argument("--no-auto-plan", action="store_true",
                    help="report unscheduled pods instead of searching for nodes")
-    # the reference's flags of items the port has not reached yet
     p.add_argument("--devices", type=int, default=1,
-                   help="shard the node axis across devices (not ported: item 13b)")
+                   help="shard the node axis across this many CUDA devices (0 = all visible "
+                   "devices; 1 = single-device, the default); with --device cpu, that many "
+                   "mesh slots on the CPU")
     p.add_argument("--metrics-file", default="",
                    help="after the run, write the scheduler metrics snapshot as JSON here")
     p.add_argument("--run-dir", default="",
@@ -203,24 +204,11 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported_apply_flags(args) -> Optional[str]:
-    """The not-ported message of the first reference-only flag given."""
-    from .engine.simulator import _not_ported
-
-    if args.devices != 1:
-        return str(_not_ported("--devices (a device mesh)", "13b", "parallelism"))
-    return None
-
-
 def _run_apply(args) -> int:
     from .api.config import SimonConfig
     from .durable.watchdog import BackendUnavailable, DeadlineExceeded
     from .engine.apply import ApplyError, run_apply
 
-    unported = _unported_apply_flags(args)
-    if unported:
-        print(f"error: {unported}", file=sys.stderr)
-        return 1
     try:
         ext = [s.strip() for s in args.extended_resources.split(",") if s.strip()] or None
         unknown = set(ext or ()) - {"gpu", "open-local"}
@@ -239,7 +227,7 @@ def _run_apply(args) -> int:
                 cfg, interactive=args.interactive, auto_plan=not args.no_auto_plan, out=out,
                 scheduler_config=args.default_scheduler_config, use_greed=args.use_greed,
                 extended_resources=ext, run_dir=run_dir, resume=bool(args.resume),
-                config_path=args.simon_config, device=args.device,
+                config_path=args.simon_config, devices=args.devices, device=args.device,
             )
         finally:
             if out is not None:

@@ -20,10 +20,10 @@ wave driver (ops/fast.py):
     digest matches is restored, its chunks are *skipped*, the journal tail
     is replayed (every re-executed chunk's digest is checked against the
     journaled record) and the plan continues mid-scan. The snapshot holds
-    numpy leaves only; ops.fast.carry_from_host puts them back on the
-    device of the carry the resumed process built. (The reference also
-    resumes onto a smaller device mesh; the port has no mesh yet,
-    ROADMAP.md item 13b.)
+    numpy leaves only, gathered whole from any mesh layout;
+    ops.fast.carry_from_host re-pins them onto the carry the resumed process
+    built, on the mesh it has now: a plan snapshotted on 4 slots resumes on
+    2, or on none.
 
 Plan identity: plans are keyed `<seq>:<N>x<P>x<S>c<C>` where `seq` counts
 `plan_done` records belonging to *completed* top-level journal units

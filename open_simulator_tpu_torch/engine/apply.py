@@ -224,6 +224,7 @@ def run_apply(
     run_dir: Optional[str] = None,
     resume: bool = False,
     config_path: str = "",
+    devices: int = 1,
     device=DEFAULT_DEVICE,
 ) -> ApplyOutcome:
     """Simulate the config's apps on its cluster on `device` (CUDA by
@@ -240,7 +241,12 @@ def run_apply(
     the outcome record, and a timestamp-free `outcome.json` with the
     placement digest is written atomically; `resume=True` replays the
     journal so a crashed run re-simulates only what it never committed. A
-    watchdog deadline is journaled (`watchdog`) and re-raised."""
+    watchdog deadline is journaled (`watchdog`) and re-raised.
+
+    `devices` != 1 shards every simulation over a mesh
+    (parallel.mesh.product_mesh): the first `devices` CUDA devices (0 =
+    all), or that many slots on the CPU; asking for more cards than exist
+    raises ValueError."""
     from ..durable import (
         DeadlineExceeded,
         RunJournal,
@@ -252,6 +258,11 @@ def run_apply(
     from ..models.profiles import load_scheduler_config
 
     dev = resolve_device(device)
+    mesh = None
+    if devices != 1:
+        from ..parallel.mesh import product_mesh
+
+        mesh = product_mesh(devices, device=dev)
     report_to_file = out is not None and out is not sys.stdout
     out = out or sys.stdout
     # interactive prompts stay on the terminal when the report goes to a file
@@ -289,7 +300,7 @@ def run_apply(
         result = guarded_call(
             "apply-simulate",
             lambda: simulate(
-                cluster, apps, profiles=profiles, use_greed=use_greed,
+                cluster, apps, profiles=profiles, use_greed=use_greed, mesh=mesh,
                 extenders=extenders, device=dev,
             ),
             call_deadline_s(),
@@ -298,7 +309,8 @@ def run_apply(
             if interactive:
                 result = _interactive_loop(
                     cluster, apps, new_node, result, ui_out, input_fn,
-                    profiles=profiles, use_greed=use_greed, extenders=extenders, device=dev,
+                    profiles=profiles, use_greed=use_greed, mesh=mesh, extenders=extenders,
+                    device=dev,
                 )
             elif auto_plan:
                 print(
@@ -309,7 +321,8 @@ def run_apply(
                 with span("capacity-search"):
                     plan = plan_capacity(
                         cluster, apps, new_node, profiles=profiles, use_greed=use_greed,
-                        extenders=extenders, journal=journal, resume=resume, device=dev,
+                        mesh=mesh, extenders=extenders, journal=journal, resume=resume,
+                        device=dev,
                     )
                 if plan is None:
                     print("capacity search failed: workload does not fit", file=out)
@@ -396,6 +409,7 @@ def _interactive_loop(
     weights=None,
     use_greed: bool = False,
     profiles=None,
+    mesh=None,
     extenders=None,
     device=DEFAULT_DEVICE,
 ) -> SimulateResult:
@@ -420,6 +434,6 @@ def _interactive_loop(
         )
         result = simulate(
             trial, apps, weights=weights, use_greed=use_greed,
-            profiles=profiles, extenders=extenders, device=device,
+            profiles=profiles, mesh=mesh, extenders=extenders, device=device,
         )
     return result

@@ -20,8 +20,9 @@ Either way the winning count is re-simulated serially (`finalize`) and must
 still pass. A probe whose pods failed on a transient extender error (a
 blip, not a verdict) is re-run once before its verdict is trusted
 (`CapacityPlan.retries` counts those re-runs). A journaled search commits
-every verdict as it lands and resumes from them (see plan_capacity). Not
-ported yet (ROADMAP.md Queue 1): meshes (item 13b).
+every verdict as it lands and resumes from them (see plan_capacity). With
+a `mesh`, every probe and the finalize run node-sharded and every sweep's
+lanes split over the mesh (Simulator); the plan is the unsharded one.
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ from .simulator import (
     ScenarioOutcome,
     SimulateResult,
     Simulator,
-    _not_ported,
     batch_ineligible_reason,
     simulate,
 )
@@ -269,24 +269,22 @@ def plan_capacity(
     winner is journaled as `final` and never counted in `attempts`, so an
     interrupted and resumed search returns the plan an uninterrupted one
     does."""
-    if mesh is not None:
-        raise _not_ported("a device mesh", "13b", "parallelism")
     if journal is None:
         return _plan_capacity_impl(
-            cluster, apps, new_node, max_new_nodes, weights, use_greed, profiles,
+            cluster, apps, new_node, max_new_nodes, weights, use_greed, mesh, profiles,
             extenders, None, resume, sweep_mode, device,
         )
     from ..durable.checkpoint import PlanCheckpointer, installed
 
     with installed(PlanCheckpointer(journal, resume=resume)):
         return _plan_capacity_impl(
-            cluster, apps, new_node, max_new_nodes, weights, use_greed, profiles,
+            cluster, apps, new_node, max_new_nodes, weights, use_greed, mesh, profiles,
             extenders, journal, resume, sweep_mode, device,
         )
 
 
 def _plan_capacity_impl(
-    cluster, apps, new_node, max_new_nodes, weights, use_greed, profiles, extenders,
+    cluster, apps, new_node, max_new_nodes, weights, use_greed, mesh, profiles, extenders,
     journal, resume, sweep_mode, device,
 ) -> Optional[CapacityPlan]:
     """plan_capacity's search, with the checkpointer (if any) installed."""
@@ -358,7 +356,7 @@ def _plan_capacity_impl(
             return guarded_call(
                 "capacity-probe",
                 lambda: simulate(
-                    trial, apps, weights=weights, use_greed=use_greed, n_pad=n_pad,
+                    trial, apps, weights=weights, use_greed=use_greed, mesh=mesh, n_pad=n_pad,
                     profiles=profiles, expand_cache=expand_cache, extenders=extenders,
                     device=dev,
                 ),
@@ -494,7 +492,7 @@ def _plan_capacity_impl(
 
         def run():
             sim = Simulator(
-                trial, weights=weights, use_greed=use_greed, n_pad=n_pad_sweep,
+                trial, weights=weights, use_greed=use_greed, mesh=mesh, n_pad=n_pad_sweep,
                 expand_cache=expand_cache, preencoded=pre, device=dev,
             )
             holder["sim"] = sim

@@ -40,8 +40,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.fast import scenario_bucket
+from ..ops.fast import _node_rows, scenario_bucket
 from ..ops.kernels import PodRow, commit_wave, probe_many
+from ..parallel.slots import Sharded
 from ..resilience import faults
 from ..utils import metrics
 from ..utils.httppool import configured_pool_size
@@ -197,7 +198,7 @@ def run_waves(
 
     n_nodes = len(sim.cluster.nodes)
     name_index = sim._name_index_map()
-    n_pad = int(sim._ns.valid.shape[0])
+    n_pad = _node_rows(sim._ns)
     fo = filter_on
     interested_by_pod = [
         [e for e, hit in zip(sim._extenders, iv) if hit] for iv in interest
@@ -304,7 +305,7 @@ def run_waves(
             mask_np, ff_np = cur.mask_np, cur.ff_np
             chains = cur.chains
             ext_allowed, ext_score, want = cur.glue
-            dev = sim._ns.valid.device
+            dev = sim._ns.device if isinstance(sim._ns, Sharded) else sim._ns.valid.device
             (
                 sim._carry, nodes, respill, gpu_take, vg_take, dev_take,
             ) = commit_wave(

@@ -23,9 +23,10 @@ The device is the caller's (`device=`, CUDA by default; see
 what-if lanes over one shared node table in one batched sweep
 (ops/fast.py:schedule_scenarios_host). With `resident=` (a covering
 engine/resident.ResidentCluster) the node table comes from the resident
-device planes instead of a fresh encode. Not ported yet, and refused with
-NotImplementedError naming its ROADMAP.md Queue 1 item: a device mesh
-(item 13b).
+device planes instead of a fresh encode. With `mesh=` (parallel/mesh.py)
+the cluster state's node axis is split over the mesh slots, and a sweep's
+lanes (or lanes and nodes, on a 2-D mesh) too; results stay bit for bit
+those of an unsharded run.
 
 Pod ordering parity: core/ordering.py (AffinityQueue then TolerationQueue,
 plus the GreedQueue behind use_greed).
@@ -87,17 +88,12 @@ from ..ops.state import (
     pod_rows_from_batch,
     stack_carry,
 )
+from ..parallel import mesh as pmesh
+from ..parallel import slots as nx
 from ..plugins import split_registry
 from ..utils import metrics
 from ..utils.tracing import log, progress, span
 from .preemption import PodDisruptionBudget, try_preempt
-
-
-def _not_ported(what: str, item, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to open_simulator_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 item {item}: {name})"
-    )
 
 
 @dataclass
@@ -323,10 +319,18 @@ class Simulator:
         `profiles`: SchedulerProfile list (models/profiles.py), keyed by
         schedulerName. `plugins`: DevicePlugin list (plugins/__init__.py).
         `patch_pods`: {workload kind: fn(List[Pod])} mutation hooks
-        (WithPatchPodsFuncMap parity)."""
-        if mesh is not None:
-            raise _not_ported("a device mesh", "13b", "parallelism")
+        (WithPatchPodsFuncMap parity).
+
+        `mesh` (parallel.mesh.Mesh or None): the node axis of the cluster
+        state is split across the mesh slots and the same grouped scheduler
+        runs once per slot, its node-axis reductions combined across them
+        (identical placements); the slots must lie on `device`'s type. The
+        resident path is gated off under a mesh (counted in
+        osim_resident_fallbacks_total{reason="mesh"})."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and any(d.type != self.device.type for d in mesh.devices.flat):
+            raise ValueError(f"mesh {mesh} does not lie on device {self.device}")
         self.cluster = cluster
         self.use_greed = use_greed
         self._extra_filters, self._extra_scores = split_registry(plugins or ())
@@ -341,8 +345,12 @@ class Simulator:
         # the resident path is gated off under extenders and n_pad, which
         # change the encoding
         self._resident = (
-            resident if resident is not None and not self._extenders and n_pad is None else None
+            resident
+            if resident is not None and mesh is None and not self._extenders and n_pad is None
+            else None
         )
+        if resident is not None and mesh is not None:
+            metrics.RESIDENT_FALLBACKS.inc(reason="mesh")
         if self._resident is not None and self._resident.device != self.device:
             raise ValueError(
                 f"resident state lives on {self._resident.device}, the simulation "
@@ -490,6 +498,24 @@ class Simulator:
             anti_counts=initial_anti_counts(self.enc, self._table, self._bound),
             device=self.device,
         )
+        self._reshard()
+
+    def _reshard(self) -> None:
+        """(Re-)lay the cluster state out over the mesh. Called whenever
+        ns/carry are rebuilt whole (initial build, eviction reversal), so
+        every scheduling call sees node-sharded state."""
+        if self.mesh is None:
+            return
+        self._ns, self._carry = pmesh.shard_state(self.mesh, self._ns, self._carry)
+
+    def _align(self) -> None:
+        """Grow the carry's row axes for newly registered selectors, ports
+        and anti terms (on a mesh, block by block)."""
+        self._carry, self._ns = pmesh.align_on_mesh(align_carry, self._carry, self.enc, self._ns)
+
+    def _host_carry(self) -> Carry:
+        """The carry whole (gathered in global order on a mesh)."""
+        return pmesh.gather(self._carry)
 
     def _schedule_batch_host(self, pods: List[Pod]) -> List[UnscheduledPod]:
         """Dispatch a batch to its scheduler profiles: consecutive runs of one
@@ -550,7 +576,7 @@ class Simulator:
     ) -> List[UnscheduledPod]:
         with span("encode", pods=len(pods)):
             batch = encode_pods(self.enc, pods)
-        self._carry, self._ns = align_carry(self._carry, self.enc, self._ns)
+        self._align()
         with span("schedule", pods=len(pods)) as sp:
             (
                 self._carry,
@@ -627,7 +653,7 @@ class Simulator:
         from . import extender_wave
         from .extenders import EXTENDER_SCORE_SCALE, ExtenderError, TransientExtenderError
 
-        self._carry, self._ns = align_carry(self._carry, self.enc, self._ns)
+        self._align()
         with span("encode", pods=len(pods)):
             batch = encode_pods(self.enc, pods)
             rows = pod_rows_from_batch(batch, self.device)
@@ -816,8 +842,9 @@ class Simulator:
         the live carry's shapes."""
         offs: Dict[str, Tuple[int, int]] = {}
         pos = 0
+        host = self._host_carry()
         for key, field_name, node_major in self._PROBE_PLANES:
-            arr = getattr(self._carry, field_name)
+            arr = getattr(host, field_name)
             n = arr.shape[1] if node_major else arr.shape[0]
             offs[key] = (pos, pos + n)
             pos += n
@@ -831,8 +858,9 @@ class Simulator:
         cached = self._carry_np
         if cached is None or cached[0] is not self._carry:
             planes = []
+            host = self._host_carry()
             for _key, field_name, node_major in self._PROBE_PLANES:
-                a = getattr(self._carry, field_name).cpu().numpy().astype(np.float32, copy=False)
+                a = getattr(host, field_name).cpu().numpy().astype(np.float32, copy=False)
                 planes.append(a.T if node_major else a)
             self._carry_np = (self._carry, np.concatenate(planes, axis=0))
         return self._carry_np[1]
@@ -867,7 +895,7 @@ class Simulator:
         planes = self._PROBE_PLANES
 
         def one(ns, carry, row, filter_on, ni, col):
-            node = torch.arange(ns.valid.shape[0], device=col.device) == ni
+            node = nx.node_ids(ns.valid.shape[0], col.device) == ni
             repl = {}
             for key, field_name, node_major in planes:
                 s, e = offs[key]
@@ -878,9 +906,14 @@ class Simulator:
                 else:               # [X, N]
                     repl[field_name] = torch.where(node[None, :], v[:, None], arr)
             mask, _ = run_filters(ns, carry._replace(**repl), row, filter_on, extra_filters)
-            return (mask & node).any()
+            return nx.node_any(mask & node)
 
-        return torch.func.vmap(one, in_dims=(None, None, None, None, 0, 0))
+        probe = torch.func.vmap(one, in_dims=(None, None, None, None, 0, 0))
+        if self.mesh is None:
+            return probe
+        # on a mesh: each slot probes its node block; every slot holds the
+        # combined verdicts
+        return lambda *args: nx.spmd(probe, *args)[0]
 
     def _device_fits_many(self, bound_by_node):
         """fits_many_fn for lane-parallel victim selection: evaluates ALL
@@ -1005,7 +1038,8 @@ class Simulator:
         victim_keys = {id(v) for v in victims}
         self._bound = [(p, n) for p, n in self._bound if id(p) not in victim_keys]
         ni = self._table.names.index(node_name)
-        host = {f: getattr(self._carry, f).cpu().numpy().copy() for f in (
+        whole = self._host_carry()
+        host = {f: getattr(whole, f).cpu().numpy().copy() for f in (
             "free", "sel_counts", "gpu_free", "vg_free", "dev_free",
             "port_any", "port_wild", "port_ipc", "anti_counts",
         )}
@@ -1042,9 +1076,10 @@ class Simulator:
                     anti[aid, ni] -= 1.0
             self._reset_bindings([v])
             self._preempted.append(PreemptedPod(pod=v, node=node_name, by=by))
-        self._carry = self._carry._replace(
+        self._carry = whole._replace(
             **{f: torch.from_numpy(a).to(self.device) for f, a in host.items()}
         )
+        self._reshard()
 
     # The engine's full mutation surface on a pod is node_name / phase / the
     # gpu-index annotation; the three helpers below are the only places that
@@ -1236,7 +1271,12 @@ class Simulator:
             weight_rows += [weight_rows[0]] * (s_pad - s_real)
             valid_s = torch.from_numpy(np.stack(valid_rows)).to(self.device)
             weights_s = torch.from_numpy(np.stack(weight_rows).astype(np.float32)).to(self.device)
-            carry_s = stack_carry(self._carry, s_pad)
+            carry_s = stack_carry(self._host_carry(), s_pad)
+            ns_sweep = pmesh.gather(self._ns)
+            if self.mesh is not None:
+                ns_sweep, carry_s, valid_s, weights_s = self._sweep_layout(
+                    ns_sweep, carry_s, valid_s, weights_s, s_pad,
+                )
             lanes = [{"placed": [], "failed": [], "fail_counts": None} for _ in range(s_real)]
             # run()'s batch structure: cluster-pending first, then each app,
             # split into consecutive schedulerName runs
@@ -1257,12 +1297,16 @@ class Simulator:
                         continue
                     with span("encode", pods=len(run_pods)):
                         batch = encode_pods(self.enc, run_pods)
-                    carry_s, self._ns = align_carry_scenarios(carry_s, self.enc, self._ns)
+                    carry_s, ns_sweep = pmesh.align_on_mesh(
+                        align_carry_scenarios, carry_s, self.enc, ns_sweep,
+                    )
+                    if self.mesh is None:
+                        self._ns = ns_sweep
                     with span("schedule-scenarios", pods=len(run_pods), scenarios=s_real) as sp:
                         (
                             carry_s, nodes_np, reasons_np, take_np, vg_np, dev_np,
                         ) = schedule_scenarios_host(
-                            self._ns, carry_s, batch, weights_s, valid_s, s_real,
+                            ns_sweep, carry_s, batch, weights_s, valid_s, s_real,
                         )
                         sp.meta["scheduled"] = int((nodes_np >= 0).sum())
                     progress(
@@ -1284,8 +1328,9 @@ class Simulator:
                                 lane["failed"].append(UnscheduledPod(
                                     pod, _reason_string(n_nodes_s[s], reasons_np[s, p_idx]),
                                 ))
-            vg_free_s = carry_s.vg_free.cpu().numpy()
-            dev_free_s = carry_s.dev_free.cpu().numpy()
+            host_s = pmesh.gather(carry_s)
+            vg_free_s = host_s.vg_free.cpu().numpy()
+            dev_free_s = host_s.dev_free.cpu().numpy()
             if not materialize:
                 return self._scenario_outcomes(scenarios, keeps, lanes, vg_free_s, dev_free_s)
             # materialize lane by lane against the shared pod objects: bind,
@@ -1319,6 +1364,31 @@ class Simulator:
             self._bound = base_bound
             self._storage_takes = {}
             return results
+
+    def _sweep_layout(self, ns, carry_s, valid_s, weights_s, s_pad: int):
+        """The sweep's layout on the mesh: on a 1-D mesh the lanes split
+        over its slots (the node tables replicated); on a 2-D (scenarios,
+        nodes) mesh the lanes split over the scenario axis and every
+        node-axis tensor over the node axis. Unsharded when the lanes or
+        node rows do not divide the mesh."""
+        shape = self.mesh.shape
+        if pmesh.SCENARIO_AXIS in shape and pmesh.NODE_AXIS in shape:
+            s_devs, n_devs = shape[pmesh.SCENARIO_AXIS], shape[pmesh.NODE_AXIS]
+            n_axis = int(self._table.alloc.shape[0])
+            if s_pad % s_devs == 0 and n_axis % n_devs == 0:
+                return pmesh.shard_scenarios_2d(self.mesh, ns, carry_s, valid_s, weights_s)
+            progress(
+                "scenario sweep unsharded: %d lanes x %d node rows not divisible by the %dx%d mesh",
+                s_pad, n_axis, s_devs, n_devs,
+            )
+        else:
+            ndev = self.mesh.size
+            if s_pad % ndev == 0:
+                return pmesh.shard_scenarios(
+                    pmesh.scenario_mesh(self.mesh), ns, carry_s, valid_s, weights_s,
+                )
+            progress("scenario sweep unsharded: %d lanes not divisible by %d devices", s_pad, ndev)
+        return ns, carry_s, valid_s, weights_s
 
     def _scenario_outcomes(
         self, scenarios, keeps, lanes, vg_free_s, dev_free_s
@@ -1368,8 +1438,9 @@ class Simulator:
         if vg_free is None or dev_free is None:
             if self._carry is None:
                 return out
-            vg_free = self._carry.vg_free.cpu().numpy()
-            dev_free = self._carry.dev_free.cpu().numpy()
+            host = self._host_carry()
+            vg_free = host.vg_free.cpu().numpy()
+            dev_free = host.dev_free.cpu().numpy()
         for i, node in enumerate(self.cluster.nodes):
             if keep is not None and not keep[i]:
                 continue

@@ -44,6 +44,13 @@ Exactness traps handled here (besides those of ops/kernels.py):
   - the scan loops keep every per-step value (node, ok, lane) on the device:
     indices are 1-element tensors used through gather / index_select /
     index_copy_, never Python ints.
+
+On a device mesh (parallel/mesh.py) `schedule_batch_fast` runs once per
+node slot on its block: node indices are global (read and written through
+parallel/slots.py's local_index / owned / count_nodes), the host reads and
+the whole-vector steps (the sort path's merge, the domain path's class
+tables and pop loop) see every node in global order, and the scenario
+drivers run each lane block on its slots.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import slots as nx
 from ..utils import metrics as _metrics
 from . import delta as _delta
 from . import domain_pop as _dp
@@ -130,6 +138,8 @@ _PATH_LOCK = threading.Lock()  # simulate() may run on two threads at once (the 
 
 
 def _count_path(route: str, n: int = 1) -> None:
+    if not nx.is_root():
+        return      # a mesh run counts its routes once, on its first slot
     with _PATH_LOCK:
         PATH_COUNTS[route] += n
 
@@ -480,11 +490,14 @@ def sort_select(
     by_name = dict(_lane_rows(ns, traj, pod, static_scores))
     by_name["topology_spread"] = torch.full((N, J), 100.0, device=dev)
     score = torch.where(mask, combine_scores(by_name, weights), _NEG_INF)
-    mono_ok = (score[:, 1:] <= score[:, :-1]).all()
+    mono_ok = nx.node_all(score[:, 1:] <= score[:, :-1])
 
-    flat = score.reshape(-1)
-    order = torch.sort(-flat, stable=True).indices[:out_size]
-    sel_score = flat[order]
+    def merge(flat):
+        """The k-way merge over every node's lanes (node-major)."""
+        order = torch.sort(-flat, stable=True).indices[:out_size]
+        return order, flat[order]
+
+    order, sel_score = nx.on_root(merge, score.reshape(-1))
     feasible = torch.isfinite(sel_score) & (
         torch.arange(out_size, device=dev) < valid_count
     )
@@ -492,9 +505,7 @@ def sort_select(
     sel_j = (order % J).to(torch.int32)
     nodes = torch.where(feasible, sel_n, -1)
     jidx = torch.where(feasible, sel_j, 0)
-    x = torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
-        0, sel_n.long(), feasible.to(torch.int32)
-    )
+    x = nx.count_nodes(N, sel_n, feasible)
     return mono_ok, nodes, jidx, x
 
 
@@ -562,16 +573,19 @@ def light_scan(
             ns, carry0, pod, static_ok, static_scores, na_ok, weights, fo,
             x, cur, flags, hoisted,
         )
-        node = score.argmax().view(1)
+        node, best = nx.argmax_value(score)
         # any(mask) == the winning score is finite (infeasible rows are -inf)
-        ok = score.gather(0, node) > _NEG_INF
-        x_node = x.gather(0, node)
+        ok = best > _NEG_INF
+        x_node = nx.take(x, node)
         nodes.append(torch.where(ok, node, -1))
         jidxs.append(torch.where(ok, x_node, 0))
-        x.index_add_(0, node, ok.to(torch.int32))
+        # the chosen node's row, written on the slot that holds it
+        row, mine = nx.local_index(node, N)
+        own = ok if mine is None else ok & mine
+        x.index_add_(0, row, own.to(torch.int32))
         j_next = (x_node + 1).clamp(0, J - 1)
-        new_row = packed_flat.index_select(0, node * J + j_next)
-        cur.index_copy_(0, node, torch.where(ok[:, None], new_row, cur.index_select(0, node)))
+        new_row = packed_flat.index_select(0, row * J + j_next)
+        cur.index_copy_(0, row, torch.where(own[:, None], new_row, cur.index_select(0, row)))
     dev = x0.device
     return x, _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
@@ -603,10 +617,10 @@ def _spread_tables(
     base_rows = carry0.sel_counts[sel]                            # [C,N]
     match_c = pod.match_sel[sel].to(torch.float32)
     counts0 = torch.where(elig_f > 0, base_rows, 0.0)
-    base_dom = (to_c * counts0[:, None, :]).sum(dim=2)            # [C,D]
+    base_dom = nx.node_sum(to_c * counts0[:, None, :], 2)         # [C,D]
     in_key_cd = None
     if flags.any_hard_spread:
-        dom_elig = (to_c * elig_f).sum(dim=2) > 0.0
+        dom_elig = nx.node_sum(to_c * elig_f, 2) > 0.0
         in_key_cd = (ns.domain_key[None, :] == k_c[:, None]) & dom_elig
     return SpreadTables(k_c, to_c, elig_f, match_c, base_dom, active_c, hard_c, in_key_cd)
 
@@ -631,6 +645,14 @@ def _lane_partials(
     return p9, feas
 
 
+def _node_spread_norm(raw: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """domain_pop._spread_norm of a node vector: its max is taken over
+    every node slot."""
+    mx = nx.node_amax(torch.where(valid, raw, 0.0))
+    out = torch.where(mx > 0, (mx - raw) * 100.0 / mx.clamp(min=1e-9), 100.0)
+    return out.clamp(0.0, 100.0)
+
+
 def _light_scan_micro(
     ns, traj, carry0, pod, static_ok, static_scores, na_ok, weights,
     x0, offset, group_size, valid_count, fo, flags,
@@ -647,7 +669,7 @@ def _light_scan_micro(
     st = _spread_tables(ns, carry0, pod, na_ok, flags)
     if flags.any_hard_spread:
         has_key_cn = (ns.topo[:, st.k_c] >= 0).T                  # [C,N]
-    y = (st.to_c * (st.elig_f * x0.to(torch.float32))).sum(dim=2)  # [C,D]
+    y = nx.node_sum(st.to_c * (st.elig_f * x0.to(torch.float32)), 2)  # [C,D]
     # p9 and feasibility are selected separately: a one-hot multiply of the
     # -inf lanes would give NaN
     cur_s = torch.where(_sel_j(feas, x0), _sel_j(p9, x0), _NEG_INF)
@@ -657,23 +679,25 @@ def _light_scan_micro(
         dom = st.base_dom + st.match_c[:, None] * y
         cnt = (dom[:, :, None] * st.to_c).sum(dim=1)              # [C,N]
         raw = torch.where(st.active_c[:, None], cnt, 0.0).sum(dim=0)
-        score = cur_s + w_sp * _spread_norm(raw, ns.valid)        # -inf stays
+        score = cur_s + w_sp * _node_spread_norm(raw, ns.valid)   # -inf stays
         if flags.any_hard_spread:
             spread_ok = _hard_spread_ok(
                 dom, cnt, st.in_key_cd, st.hard_c, pod.spread_skew, has_key_cn, fo[F_SPREAD],
             )
             score = torch.where(spread_ok, score, _NEG_INF)
-        node = score.argmax().view(1)
-        ok = score.gather(0, node) > _NEG_INF
-        x_node = x.gather(0, node)
+        node, best = nx.argmax_value(score)
+        ok = best > _NEG_INF
+        x_node = nx.take(x, node)
         nodes.append(torch.where(ok, node, -1))
         jidxs.append(torch.where(ok, x_node, 0))
-        x.index_add_(0, node, ok.to(torch.int32))
+        row, mine = nx.local_index(node, N)
+        own = ok if mine is None else ok & mine
+        x.index_add_(0, row, own.to(torch.int32))
         j_next = (x_node + 1).clamp(0, J - 1)
-        new_s = score_flat.index_select(0, node * J + j_next)
-        cur_s.index_copy_(0, node, torch.where(ok, new_s, cur_s.index_select(0, node)))
-        to_col = st.to_c.index_select(2, node)[:, :, 0]           # [C,D]
-        y = y + to_col * (st.elig_f.index_select(0, node) * ok.to(torch.float32))
+        new_s = score_flat.index_select(0, row * J + j_next)
+        cur_s.index_copy_(0, row, torch.where(own, new_s, cur_s.index_select(0, row)))
+        to_col = st.to_c.index_select(2, row)[:, :, 0]            # [C,D]
+        y = y + nx.owned(to_col * (st.elig_f.index_select(0, row) * ok.to(torch.float32)), mine)
     dev = x0.device
     return x, _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
@@ -789,12 +813,14 @@ def domain_select(
     then scores only the Dc class heads per step: `domain_pop` (the CUDA
     kernel on the card) for spread-only groups, `_affinity_pop` for groups
     with inter-pod affinity or anti-symmetry terms, as the reference routes
-    its Pallas kernel.
+    its Pallas kernel. Across node slots the sort, the head tables and the
+    pop loop run once, on the first slot, over the gathered lane scores.
 
     Returns (mono_ok, nodes i32[group_size], jidx i32[group_size], x i32[N])."""
     N, J, _ = traj.packed.shape
     dev = traj.packed.device
     fo = _filters_on(filter_on, dev)
+    big_n = nx.node_count(N)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
@@ -805,56 +831,80 @@ def domain_select(
         ns, traj, pod, static_scores, static_ok, weights, fo, prefix_end=IPA_IDX,
     )
     score_lane = torch.where(feas, p8, _NEG_INF)
-    mono_ok = (score_lane[:, 1:] <= score_lane[:, :-1]).all()
-
-    # stable two-key sort (class asc, score desc, flat index asc): a stable
-    # sort by score, then a stable sort by class
-    combo = t(plan.combo_of_node, torch.int32)
-    flat_combo = combo[:, None].expand(N, J).reshape(-1)
-    neg = (-score_lane).reshape(-1)
-    by_score = torch.sort(neg, stable=True).indices
-    sidx = by_score[torch.sort(flat_combo[by_score], stable=True).indices]
-    sneg = neg[sidx]
-    counts = t(plan.counts, torch.int64)
-    lane = torch.arange(l_cap, device=dev)
-    gidx = (t(plan.offsets, torch.int64)[:, None] + lane[None, :]).clamp(0, N * J - 1)
-    in_range = lane[None, :] < counts[:, None]
-    hscore = torch.where(in_range, -sneg[gidx], _NEG_INF)  # [Dc,L]
-    hflat = sidx[gidx]
-    hnode = (hflat // J).to(torch.int32)
-    hj = (hflat % J).to(torch.int32)
-    cap_eff = counts.clamp(max=l_cap).to(torch.int32)
-
+    mono_ok = nx.node_all(score_lane[:, 1:] <= score_lane[:, :-1])
     st = _spread_tables(ns, carry0, pod, na_ok, flags)
-    if _any_affinity(flags):
-        nodes, jidxs = _affinity_pop(
-            ns, carry0, pod, st, plan, hscore, hnode, hj, cap_eff, weights, fo,
-            flags, valid_count, group_size,
-        )
-    else:
+    aff = _affinity_tables(ns, carry0, pod, flags) if _any_affinity(flags) else None
+
+    def pops(neg):
+        # stable two-key sort (class asc, score desc, flat index asc): a
+        # stable sort by score, then a stable sort by class
+        combo = t(plan.combo_of_node, torch.int32)
+        flat_combo = combo[:, None].expand(big_n, J).reshape(-1)
+        by_score = torch.sort(neg, stable=True).indices
+        sidx = by_score[torch.sort(flat_combo[by_score], stable=True).indices]
+        sneg = neg[sidx]
+        counts = t(plan.counts, torch.int64)
+        lane = torch.arange(l_cap, device=dev)
+        gidx = (t(plan.offsets, torch.int64)[:, None] + lane[None, :]).clamp(0, big_n * J - 1)
+        in_range = lane[None, :] < counts[:, None]
+        hscore = torch.where(in_range, -sneg[gidx], _NEG_INF)  # [Dc,L]
+        hflat = sidx[gidx]
+        hnode = (hflat // J).to(torch.int32)
+        hj = (hflat % J).to(torch.int32)
+        cap_eff = counts.clamp(max=l_cap).to(torch.int32)
+        if aff is not None:
+            return _affinity_pop(
+                pod, st, aff, plan, hscore, hnode, hj, cap_eff, weights, fo,
+                flags, valid_count, group_size, big_n,
+            )
         C, D = st.base_dom.shape
         in_key = (
             st.in_key_cd.to(torch.float32) if flags.any_hard_spread
             else torch.zeros((C, D), dtype=torch.float32, device=dev)
         )
-        nodes, jidxs = _dp.domain_pop(
+        return _dp.domain_pop(
             hscore.contiguous(), hnode.contiguous(), hj.contiguous(), cap_eff,
             t(plan.elig_combo), t(plan.combo_valid), st.base_dom.contiguous(),
             in_key.contiguous(), t(plan.t_onehot), st.match_c.contiguous(),
             st.active_c.to(torch.float32), st.hard_c.to(torch.float32),
             pod.spread_skew.contiguous(), t(plan.has_key),
             float(weights[SP_IDX]), bool(fo[F_SPREAD]), valid_count, group_size,
-            flags.any_hard_spread, N,
+            flags.any_hard_spread, big_n,
         )
-    x = torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
-        0, nodes.clamp(0, N - 1).long(), (nodes >= 0).to(torch.int32)
-    )
+
+    nodes, jidxs = nx.on_root(pops, (-score_lane).reshape(-1))
+    x = nx.count_nodes(N, nodes.clamp(0, big_n - 1), nodes >= 0)
     return mono_ok, nodes, jidxs, x
 
 
+def _affinity_tables(ns, carry0, pod, flags: GroupFlags) -> dict:
+    """The node-axis sums the affinity pop loop starts from: domain counts
+    at group entry and the eligible domains of each affinity row, the
+    anti-symmetry terms' counts (exact integer sums)."""
+    out = {}
+    valid_f = ns.valid.to(torch.float32)
+    if flags.any_req_aff or flags.any_pref_aff:
+        # _domain_counts with elig=None counts over ALL valid nodes
+        k_a = pod.aff_topo.clamp(min=0).long()
+        to_a = ns.topo_onehot[k_a]                                # [CA,D,N]
+        sel_a = pod.aff_sel.long()
+        counts0_a = torch.where(valid_f > 0, carry0.sel_counts[sel_a], 0.0)
+        out["base_dom_a"] = nx.node_sum(to_a * counts0_a[:, None, :], 2)     # [CA,D]
+        out["in_key_a"] = (ns.domain_key[None, :] == k_a[:, None]) & (
+            nx.node_sum(to_a * valid_f, 2) > 0.0
+        )
+    if flags.any_anti_sym:
+        k_t = ns.anti_topo.clamp(min=0).long()
+        to_t = ns.topo_onehot[k_t]                                # [AT,D,N]
+        counts0_t = torch.where(valid_f > 0, carry0.anti_counts, 0.0)
+        out["base_dom_t"] = nx.node_sum(to_t * counts0_t[:, None, :], 2)     # [AT,D]
+        out["active_sym"] = (ns.anti_topo >= 0) & pod.match_anti
+    return out
+
+
 def _affinity_pop(
-    ns, carry0, pod, st: SpreadTables, plan: DomainPlan, hscore, hnode, hj, cap_eff,
-    weights, fo, flags: GroupFlags, valid_count: int, group_size: int,
+    pod, st: SpreadTables, aff: dict, plan: DomainPlan, hscore, hnode, hj, cap_eff,
+    weights, fo, flags: GroupFlags, valid_count: int, group_size: int, big_n: int,
 ):
     """The domain path's pop loop for groups with inter-pod affinity or
     anti-symmetry terms: the reference's scan step (fast.py domain_select),
@@ -862,16 +912,15 @@ def _affinity_pop(
     rebuilds the spread, affinity and anti-symmetry domain counts of every
     class from the commits per class y (exact integer sums), scores the class
     heads as (partial8 + w_ipa * ipa) + w_sp * sp, and pops the best head
-    (ties to the lowest node). Returns (nodes i32[G], jidx i32[G])."""
+    (ties to the lowest node; `big_n`, the node axis length, is the no-head
+    sentinel). Returns (nodes i32[G], jidx i32[G])."""
     dev = hscore.device
     Dc, L = hscore.shape
-    N = ns.valid.shape[0]
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
 
     w_sp, w_ipa = weights[SP_IDX], weights[IPA_IDX]
-    valid_f = ns.valid.to(torch.float32)
     combo_valid = t(plan.combo_valid, torch.bool)
     elig_combo = t(plan.elig_combo)
     any_spread = flags.any_soft_spread or flags.any_hard_spread
@@ -879,14 +928,9 @@ def _affinity_pop(
         t_onehot = t(plan.t_onehot)
         has_key_cm = t(plan.has_key, torch.bool)
     if flags.any_req_aff or flags.any_pref_aff:
-        # _domain_counts with elig=None counts over ALL valid nodes
-        k_a = pod.aff_topo.clamp(min=0).long()
-        to_a = ns.topo_onehot[k_a]                                # [CA,D,N]
+        base_dom_a, in_key_a = aff["base_dom_a"], aff["in_key_a"]
         sel_a = pod.aff_sel.long()
         match_a = pod.match_sel[sel_a].to(torch.float32)
-        counts0_a = torch.where(valid_f > 0, carry0.sel_counts[sel_a], 0.0)
-        base_dom_a = (to_a * counts0_a[:, None, :]).sum(dim=2)    # [CA,D]
-        in_key_a = (ns.domain_key[None, :] == k_a[:, None]) & ((to_a * valid_f).sum(dim=2) > 0.0)
         req_t = (pod.aff_topo >= 0) & pod.aff_required
         pref_t = (pod.aff_topo >= 0) & ~pod.aff_required
         self_match_a = pod.match_sel[sel_a]
@@ -894,11 +938,7 @@ def _affinity_pop(
         t_aff = t(plan.t_aff)
         has_key_aff = t(plan.has_key_aff, torch.bool)
     if flags.any_anti_sym:
-        k_t = ns.anti_topo.clamp(min=0).long()
-        to_t = ns.topo_onehot[k_t]                                # [AT,D,N]
-        counts0_t = torch.where(valid_f > 0, carry0.anti_counts, 0.0)
-        base_dom_t = (to_t * counts0_t[:, None, :]).sum(dim=2)    # [AT,D]
-        active_sym = (ns.anti_topo >= 0) & pod.match_anti
+        base_dom_t, active_sym = aff["base_dom_t"], aff["active_sym"]
         t_anti = t(plan.t_anti)
         has_key_anti = t(plan.has_key_anti, torch.bool)
     aff_on = ~fo[F_POD_AFFINITY]
@@ -948,7 +988,7 @@ def _affinity_pop(
         node_h = hnode.gather(1, hc)[:, 0]
         j_h = hj.gather(1, hc)[:, 0]
         mx_t = total.amax()
-        m = torch.where(total == mx_t, node_h, N).argmin().view(1)
+        m = torch.where(total == mx_t, node_h, big_n).argmin().view(1)
         ok = (mx_t > _NEG_INF).view(1)
         nodes.append(torch.where(ok, node_h.gather(0, m), -1))
         jidxs.append(torch.where(ok, j_h.gather(0, m), 0))
@@ -993,11 +1033,12 @@ def light_reasons(
 def gather_takes(traj: Trajectory, nodes: torch.Tensor, jidxs: torch.Tensor):
     """Per-pod allocation takes from (chosen node, commit index)."""
     N = traj.packed.shape[0]
-    node_c = nodes.clamp(0, N - 1).long()
+    node_c, mine = nx.local_index(nodes.clamp(0, nx.node_count(N) - 1).long(), N)
+    mine = None if mine is None else mine[:, None]
     j = jidxs.long()
     placed = (nodes >= 0)[:, None]
     return tuple(
-        torch.where(placed, a[node_c, j], 0.0)
+        torch.where(placed, nx.owned(a[node_c, j], mine), 0.0)
         for a in (traj.gpu_take, traj.vg_take, traj.dev_take)
     )
 
@@ -1082,7 +1123,17 @@ def schedule_batch_fast(
     `timings`, when given, accumulates wall seconds per phase (trajectory,
     select, tail; grouped for the grouped route's groups) and, per route,
     the select seconds `select.<route>` and the steps run `steps.<route>`,
-    synchronizing the device at each phase boundary."""
+    synchronizing the device at each phase boundary.
+
+    `ns` / `carry` laid out over a mesh (parallel.mesh.shard_state) run
+    once per slot on its node block, the node-axis reductions combined
+    across slots; the returned carry keeps that layout and every other
+    output is the unsharded run's, bit for bit, by the same routes."""
+    if isinstance(ns, nx.Sharded) or isinstance(carry, nx.Sharded):
+        return _schedule_batch_fast_mesh(
+            ns, carry, batch, weights, max_group_chunk, force_fast, filter_on,
+            extra_filters, extra_scores, device, timings,
+        )
     dev = resolve_device(device)
     if not _same_device(ns.valid.device, dev) or not _same_device(carry.free.device, dev):
         raise ValueError(
@@ -1095,16 +1146,17 @@ def schedule_batch_fast(
     outs = _empty_outputs(ns, batch.p)
     rows_all = pod_rows_from_batch(batch, dev)
     N = ns.valid.shape[0]
-    valid_np = ns.valid.cpu().numpy()
+    # host reads of node vectors see every node, in global order
+    valid_np = nx.host_nodes(ns.valid)
 
     # a disabled NodeResourcesFit filter voids the trajectory-length bound;
     # so does any out-of-tree plugin
     res_filter_on = (
         filter_on is None or bool(filter_on[F_RESOURCES])
     ) and not extra_filters and not extra_scores
-    free_entry = carry.free.cpu().numpy() if res_filter_on else None
+    free_entry = nx.host_nodes(carry.free) if res_filter_on else None
     anti_topo_np = ns.anti_topo.cpu().numpy()
-    topo_np = ns.topo.cpu().numpy()
+    topo_np = nx.host_nodes(ns.topo)
     n_domains = int(ns.topo_onehot.shape[1])
 
     clock = [time.perf_counter()]
@@ -1189,7 +1241,7 @@ def schedule_batch_fast(
 
         committed = False
         out_size = _bucket_light(length)
-        if _sortable(flags) and out_size <= N * j_steps:
+        if _sortable(flags) and out_size <= nx.node_count(N) * j_steps:
             mono, nodes_d, jidx_d, x = sort_select(
                 ns, traj, row, static_ok, static_scores, weights, length,
                 out_size, filter_on,
@@ -1207,7 +1259,7 @@ def schedule_batch_fast(
         if not committed and flags.domain_aff:
             # the class partition is planned on the host from the pod's
             # spread eligibility (one bool[N] transfer per group)
-            elig_np = na_ok.cpu().numpy() & valid_np
+            elig_np = nx.host_nodes(na_ok) & valid_np
             plan = _domain_plan(
                 batch.spread_topo[start], batch.aff_topo[start], anti_topo_np,
                 batch.match_anti[start], topo_np, valid_np, elig_np, j_steps,
@@ -1257,6 +1309,38 @@ def schedule_batch_fast(
         phase("tail")
 
     return (carry,) + outs
+
+
+def _schedule_batch_fast_mesh(
+    ns, carry, batch, weights, max_group_chunk, force_fast, filter_on,
+    extra_filters, extra_scores, device, timings,
+):
+    """schedule_batch_fast over node-sharded state: every slot runs the
+    unsharded function on its block (the first slot's outputs and timings
+    are returned; every slot holds the same ones)."""
+    if not (isinstance(ns, nx.Sharded) and isinstance(carry, nx.Sharded)) or (
+        ns.layout != carry.layout
+    ):
+        raise ValueError("ns and carry must be laid out over one mesh (parallel.mesh.shard_state)")
+    want = resolve_device(device)
+    for k in range(ns.layout.slots):
+        if not _same_device(ns.layout.device(k), want):
+            raise ValueError(
+                f"mesh slot {k} lives on {ns.layout.device(k)}, but device={want} was asked for"
+            )
+    weights = torch.as_tensor(weights, dtype=torch.float32)
+    if filter_on is not None:
+        filter_on = torch.as_tensor(filter_on, dtype=torch.bool)
+
+    def run(ns_b, carry_b, w_b, fo_b):
+        return schedule_batch_fast(
+            ns_b, carry_b, batch, w_b, max_group_chunk, force_fast, fo_b,
+            extra_filters, extra_scores, ns_b.valid.device,
+            timings if nx.is_root() else None,
+        )
+
+    res = nx.spmd(run, ns, carry, weights, filter_on)
+    return (carry.with_blocks([r[0] for r in res]),) + tuple(res[0][1:])
 
 
 # ---------------------------------------------------------------------------
@@ -1324,7 +1408,14 @@ def schedule_scenarios(
     scan over a table whose valid mask is valid_s[s].
 
     Returns (carry_s, nodes i32[S,P], reasons i32[S,P,F], gpu_take
-    i32[S,P,G], vg_take f32[S,P,V], dev_take f32[S,P,DV]) as tensors."""
+    i32[S,P,G], vg_take f32[S,P,V], dev_take f32[S,P,DV]) as tensors.
+
+    State laid out over a mesh (parallel.mesh.shard_scenarios / _2d) runs
+    each slot's lane block on its slot, its node block combined across the
+    slots of the lane row; the carry keeps the layout, the outputs are
+    gathered in lane order."""
+    if isinstance(carry_s, nx.Sharded):
+        return _lanes_on_mesh(schedule_scenarios, ns, carry_s, pods, weights_s, valid_s, filter_on)
     step = _scenario_step(ns, filter_on)
     outs = []
     for i in range(pods.req.shape[0]):
@@ -1332,6 +1423,18 @@ def schedule_scenarios(
         carry_s, out = step(valid_s, weights_s, carry_s, pod, pod_keys(ns, pod))
         outs.append(out)
     return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*outs))
+
+
+def _lanes_on_mesh(fn, *args):
+    """fn(*args) once per slot of the mesh layout its Sharded arguments lie
+    on: the carry output (first) keeps the layout of the carry argument,
+    the other outputs are gathered in lane order onto the first slot's
+    device."""
+    carry = next(a for a in args if isinstance(a, nx.Sharded) and isinstance(a.template, Carry))
+    res = nx.spmd(fn, *args)
+    return (carry.with_blocks([r[0] for r in res]),) + tuple(
+        nx.lane_rows([r[k] for r in res], carry.layout) for k in range(1, len(res[0]))
+    )
 
 
 def schedule_scenarios_chunked(
@@ -1367,7 +1470,12 @@ def schedule_wave(
     equal `choices_s`) every output is bitwise the serial scan's over the
     same wave. `carry_s` is only read. Returns (carry_s, choices i32[S,W],
     reasons i32[S,W,F], gpu_take i32[S,W,G], vg_take f32[S,W,V], dev_take
-    f32[S,W,DV])."""
+    f32[S,W,DV]). Over a mesh, as schedule_scenarios."""
+    if isinstance(carry_s, nx.Sharded):
+        return _lanes_on_mesh(
+            schedule_wave, ns, carry_s, pods, weights_s, valid_s,
+            nx.NodeSlice(choices_s, None, 0), count, parts, filter_on,
+        )
     return _wave.wave_round(
         ns, weights_s, valid_s, carry_s, pods, choices_s, count, parts, filter_on
     )
@@ -1479,7 +1587,11 @@ def schedule_universes_wave_host(
 def scenario_carry_digest(carry_s: Carry) -> int:
     """Digest of a (stacked) carry: one device `digest_fold` per leaf,
     chained in Carry._fields order; equal to scenario_carry_digest_host of
-    the same leaves on the host, and to the reference's."""
+    the same leaves on the host, and to the reference's. A carry laid out
+    over a mesh is digested whole, so the digest never depends on the
+    layout."""
+    if isinstance(carry_s, nx.Sharded):
+        carry_s = carry_s.gather()
     parts = torch.stack([_delta.digest_fold(getattr(carry_s, f)) for f in Carry._fields])
     return _delta.combine_digests(parts.cpu().tolist())
 
@@ -1492,7 +1604,10 @@ def scenario_carry_digest_host(leaves: dict) -> int:
 
 
 def carry_to_host(carry_s: Carry) -> dict:
-    """Every Carry leaf on the host -> {field: np.ndarray}."""
+    """Every Carry leaf on the host -> {field: np.ndarray}, whole (a carry
+    laid out over a mesh is gathered in global order)."""
+    if isinstance(carry_s, nx.Sharded):
+        carry_s = carry_s.gather("cpu")
     return {f: getattr(carry_s, f).cpu().numpy() for f in Carry._fields}
 
 
@@ -1500,9 +1615,14 @@ def carry_from_host(carry_s: Carry, leaves: dict) -> Carry:
     """Host snapshot leaves ({field: np.ndarray}) back on the device of
     `carry_s`, the carry the resuming (or recovering) process built; only
     its leaves' shapes and devices are used. A leaf whose shape differs
-    raises ValueError: the snapshot is from another plan shape. (The
-    reference also re-pins onto a mesh's shardings; the port has no mesh
-    yet, ROADMAP.md item 13b.)"""
+    raises ValueError: the snapshot is from another plan shape. When
+    `carry_s` is laid out over a mesh, the snapshot is re-pinned onto that
+    layout: a snapshot taken on 4 slots resumes on 2, or on none."""
+    if isinstance(carry_s, nx.Sharded):
+        whole = carry_from_host(
+            Carry(*(torch.empty(sh, device="meta") for sh in carry_s.shapes)), leaves,
+        )
+        return nx.lay_out(carry_s.layout, whole, carry_s.lane_dims, carry_s.node_dims)
     for f in Carry._fields:
         want = tuple(getattr(carry_s, f).shape)
         have = tuple(np.asarray(leaves[f]).shape)
@@ -1512,7 +1632,9 @@ def carry_from_host(carry_s: Carry, leaves: dict) -> Carry:
                 f"expects {want} — snapshot is from a different plan shape"
             )
     return Carry(*(
-        torch.from_numpy(np.array(leaves[f], copy=True)).to(getattr(carry_s, f).device)
+        torch.from_numpy(np.array(leaves[f], copy=True)).to(
+            "cpu" if getattr(carry_s, f).device.type == "meta" else getattr(carry_s, f).device
+        )
         for f in Carry._fields
     ))
 
@@ -1545,7 +1667,7 @@ def schedule_scenarios_host(
     p_real = int(batch.p)
     rows = PodRow(*(t[:p_real] for t in pod_rows_from_batch(batch, dev)))
     s_pad = int(valid_s.shape[0])
-    _SCENARIO_PROGRAMS.setdefault((int(ns.valid.shape[0]), p_real), set()).add(s_pad)
+    _SCENARIO_PROGRAMS.setdefault((_node_rows(ns), p_real), set()).add(s_pad)
     _metrics.SCENARIOS_PER_CALL.observe(s_real)
     if _wave.wave_enabled(p_real, dev):
         return _schedule_scenarios_wave_host(
@@ -1557,9 +1679,16 @@ def schedule_scenarios_host(
         return _schedule_scenarios_chunked_host(
             ns, carry_s, rows, weights_s, valid_s, s_real, s_pad, p_real, chunk, filter_on,
         )
-    _progress(f"scenarios S={s_real}/{s_pad} P={p_real} N={ns.valid.shape[0]}")
+    _progress(f"scenarios S={s_real}/{s_pad} P={p_real} N={_node_rows(ns)}")
     carry_s, *outs = schedule_scenarios(ns, carry_s, rows, weights_s, valid_s, filter_on)
     return (carry_s,) + tuple(a[:s_real] for a in _to_host(outs))
+
+
+def _node_rows(ns: NodeStatic) -> int:
+    """The node axis length of a node table, whole or laid out on a mesh."""
+    if isinstance(ns, nx.Sharded):
+        return int(ns.shapes[NodeStatic._fields.index("valid")][0])
+    return int(ns.valid.shape[0])
 
 
 def _progress(msg: str) -> None:
@@ -1668,7 +1797,7 @@ def _schedule_scenarios_chunked_host(
     chunks. Between chunks, the checkpoint hooks and the device-fault
     recovery of _PlanDriver; on resume only the chunks a verified snapshot
     does not cover run again, each digest-checked against the journal."""
-    N = int(ns.valid.shape[0])
+    N = _node_rows(ns)
     n_chunks = -(-p_real // chunk)
     rows = _pad_rows(rows, n_chunks * chunk)
     _SCENARIO_PROGRAMS.setdefault((N, chunk), set()).add(s_pad)
@@ -1706,7 +1835,7 @@ def _schedule_scenarios_wave_host(
     `plan_chunk` record per committed wave with the digest chain a chunked
     run of C = wave journals, and a device loss rolls back to the last good
     committed wave (rounds change nothing until a fixpoint is adopted)."""
-    N = int(ns.valid.shape[0])
+    N = _node_rows(ns)
     n_waves = -(-p_real // wave)
     rows = _pad_rows(rows, n_waves * wave)
     _SCENARIO_PROGRAMS.setdefault((N, wave), set()).add(s_pad)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import slots as nx
 from .encode import PodBatch, round_up
 from .kernels import (
     Carry,
@@ -47,6 +48,7 @@ from .kernels import (
     gpu_mask,
     local_storage_eval,
     node_affinity_mask,
+    plugin_call,
     pod_keys,
     ports_commit,
     ports_mask,
@@ -107,7 +109,7 @@ def schedule_group(
     keys = pod_keys(ns, pod)
     spread_sel, aff_sel = pod.spread_sel.long(), pod.aff_sel.long()
     N = ns.valid.shape[0]
-    nodes_idx = torch.arange(N, device=ns.valid.device)
+    nodes_idx = nx.node_ids(N, ns.valid.device)
 
     def step(c: Carry, active: bool):
         port_ok = ports_mask(c, pod) | ~fo[F_NODE_PORTS]
@@ -121,7 +123,7 @@ def schedule_group(
         gpu_ok = gpu_mask(ns, c, pod)
         extra_ok = torch.ones_like(ns.valid)
         for f in extra_filters:
-            extra_ok = extra_ok & f(ns, c, pod)
+            extra_ok = extra_ok & plugin_call(f, ns, c, pod)
         mask = (
             static_ok & port_ok & ~res_fail & spread_ok & aff_ok & storage_ok
             & gpu_ok & extra_ok & ns.valid
@@ -138,10 +140,10 @@ def schedule_group(
         }
         score = combine_scores(by_name, weights)
         for fn, w in extra_scores:
-            score = score + w * fn(ns, c, pod)
+            score = score + w * plugin_call(fn, ns, c, pod)
         score = torch.where(mask, score, float("-inf"))
-        node = score.argmax()
-        ok = mask.any() & active
+        node = nx.node_argmax(score)
+        ok = nx.node_any(mask) & active
         onehot = (nodes_idx == node) & ok
         sel = onehot.to(torch.float32)
         gpu_take, gpu_free = gpu_allocate(ns, c, pod, onehot)

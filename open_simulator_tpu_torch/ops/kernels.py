@@ -18,6 +18,12 @@ the same order, so results are bit-identical to the JAX package. The traps:
     differently. Divisors here are tensors, or powers of two;
   - argmax over a bool matrix goes through uint8 (CUDA has no bool argmax);
     ties go to the first index, as jnp.argmax's do.
+
+Every reduction over the node axis goes through a hook of
+parallel/slots.py (`nx.node_sum`, `node_amin`/`node_amax`, `node_any`,
+`node_argmax`, `node_ids`, `local_index`/`owned`): off a mesh each is the
+plain expression, and with the state laid out over mesh slots it combines
+the slots' partials exactly, so the same code runs on a node block.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import slots as nx
 from .encode import (
     GPU_COUNT_IDX,
     OP_EXISTS,
@@ -165,6 +172,30 @@ class Carry(NamedTuple):
     port_wild: torch.Tensor   # f32[PID,N] ... with wildcard hostIP only
     port_ipc: torch.Tensor    # f32[PIP,N] uses per specific (proto,port,ip)
     anti_counts: torch.Tensor  # f32[AT,N] placed pods carrying each anti term
+
+
+# The node-axis dimension of each NodeStatic / Carry leaf (None: whole on
+# every node slot); parallel.mesh lays the state out by these.
+NODE_DIMS = NodeStatic(
+    alloc=0, label_pair=0, label_key=0, label_num=0, taint_key=0, taint_val=0,
+    taint_effect=0, name_id=0, unsched=0, avoid_pods=0, topo=0, valid=0,
+    gpu_total=0, vg_cap=0, vg_name=0, dev_cap=0, dev_ssd=0, has_storage=0,
+    domain_key=None,      # small, replicated
+    topo_onehot=2,
+    unsched_key_id=None, empty_val_id=None,
+    anti_topo=None,       # small, replicated
+)
+CARRY_DIMS = Carry(
+    free=0, sel_counts=1, gpu_free=0, vg_free=0, dev_free=0,
+    port_any=1, port_wild=1, port_ipc=1, anti_counts=1,
+)
+
+
+def plugin_call(fn, ns: NodeStatic, carry: Carry, pod) -> torch.Tensor:
+    """An out-of-tree plugin's fn(ns, carry, pod) -> [N]. It sees the whole
+    node axis, as unsharded: in a node group it runs on the gathered state
+    and each slot keeps its block of the result."""
+    return nx.whole_nodes(fn, (ns, carry, pod), (NODE_DIMS, CARRY_DIMS, None))
 
 
 class PodRow(NamedTuple):
@@ -325,18 +356,18 @@ def _row_counts(ns: NodeStatic, rk: RowKeys, counts_node: torch.Tensor, elig=Non
     min_count f32[R] over the key's eligible domains, total f32[R])."""
     elig = ns.valid if elig is None else (elig & ns.valid)
     counts = torch.where(elig, counts_node, 0.0)
-    dom = (rk.onehot * counts[:, None, :]).sum(dim=2)                  # [R,D]
-    dom_elig = (rk.onehot * elig.to(torch.float32)).sum(dim=2) > 0.0
+    dom = nx.node_sum(rk.onehot * counts[:, None, :], 2)                # [R,D]
+    dom_elig = nx.node_sum(rk.onehot * elig.to(torch.float32), 2) > 0.0
     D = dom.shape[1]
     cnt_gather = torch.where(rk.has_key, dom.gather(1, rk.topo_k.clamp(0, D - 1)), 0.0)
     cnt_n = torch.where(rk.is_host[:, None], counts, cnt_gather)
     in_key = rk.key_dom & dom_elig
     min_dom = torch.where(in_key, dom, _INF).amin(dim=1)
-    min_host = torch.where(elig, counts_node, _INF).amin(dim=1)
+    min_host = nx.node_amin(torch.where(elig, counts_node, _INF), 1)
     min_c = torch.where(rk.is_host, min_host, min_dom)
     min_c = torch.where(torch.isfinite(min_c), min_c, 0.0)
     total = torch.where(
-        rk.is_host, counts.sum(dim=1), torch.where(in_key, dom, 0.0).sum(dim=1)
+        rk.is_host, nx.node_sum(counts, 1), torch.where(in_key, dom, 0.0).sum(dim=1)
     )
     return cnt_n, min_c, total
 
@@ -376,7 +407,7 @@ def _spread_score(ns, rk: RowKeys, counts_node, pod: PodRow, elig) -> torch.Tens
     cnt, _, _ = _row_counts(ns, rk, counts_node, elig)
     active = (pod.spread_topo >= 0) & ~pod.spread_hard
     raw = torch.where(active[:, None], cnt, 0.0).sum(dim=0)
-    mx = torch.where(ns.valid, raw, 0.0).amax()
+    mx = nx.node_amax(torch.where(ns.valid, raw, 0.0))
     out = torch.where(mx > 0, (mx - raw) * 100.0 / mx.clamp(min=1e-9), 100.0)
     return out.clamp(0.0, 100.0)
 
@@ -469,8 +500,10 @@ def gpu_allocate_rowwise(ns: NodeStatic, gpu_free: torch.Tensor, pod: PodRow) ->
 
 def _project(sel: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """einsum("n,n...->...") of a one-hot f32[N] selector: the selected row
-    (one 1.0 times each value plus exact zeros), all zeros when none is."""
-    return (sel.reshape((-1,) + (1,) * (rows.dim() - 1)) * rows).sum(dim=0)
+    (one 1.0 times each value plus exact zeros), all zeros when none is.
+    Across node slots the partial sums add exactly: only the owner's holds
+    a value, the others +-0.0."""
+    return nx.node_sum(sel.reshape((-1,) + (1,) * (rows.dim() - 1)) * rows, 0)
 
 
 def gpu_allocate(ns: NodeStatic, carry: Carry, pod: PodRow, node_onehot: torch.Tensor):
@@ -710,7 +743,7 @@ def run_filters(
     na_ok = node_affinity_mask(ns, pod)
     extra_fail = torch.zeros_like(ns.valid)
     for f in extra_filters:
-        extra_fail = extra_fail | ~f(ns, carry, pod)
+        extra_fail = extra_fail | ~plugin_call(f, ns, carry, pod)
     fails = torch.stack(
         static_fails(ns, pod, na_ok) + [
             ~ports_mask(carry, pod),
@@ -735,8 +768,8 @@ def run_filters(
 def _minmax_normalize(score: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Simon's NormalizeScore: min-max to 0..100; constant scores collapse
     to 0."""
-    lo = torch.where(valid, score, _INF).amin()
-    hi = torch.where(valid, score, -_INF).amax()
+    lo = nx.node_amin(torch.where(valid, score, _INF))
+    hi = nx.node_amax(torch.where(valid, score, -_INF))
     rng = hi - lo
     out = torch.where(rng > 0, (score - lo) * 100.0 / rng.clamp(min=1e-9), 0.0)
     return out.clamp(0.0, 100.0)
@@ -791,7 +824,7 @@ def score_taint_toleration(ns: NodeStatic, pod: PodRow) -> torch.Tensor:
     """Fewer intolerable PreferNoSchedule taints is better; reverse
     normalized."""
     cnt = ((ns.taint_effect == 2) & ~_tolerated(ns, pod)).to(torch.float32).sum(dim=1)
-    max_cnt = torch.where(ns.valid, cnt, 0.0).amax()
+    max_cnt = nx.node_amax(torch.where(ns.valid, cnt, 0.0))
     out = torch.where(
         max_cnt > 0, (max_cnt - cnt) * 100.0 / max_cnt.clamp(min=1e-9), 100.0
     )
@@ -802,7 +835,7 @@ def score_node_affinity(ns: NodeStatic, pod: PodRow) -> torch.Tensor:
     """Sum of matching preferred term weights, normalized by the max."""
     hits = _term_matches(ns, pod.pref_op, pod.pref_key, pod.pref_val, pod.pref_num)
     raw = (hits.to(torch.float32) * pod.pref_weight).sum(dim=1)
-    mx = torch.where(ns.valid, raw, 0.0).amax()
+    mx = nx.node_amax(torch.where(ns.valid, raw, 0.0))
     out = torch.where(mx > 0, raw * 100.0 / mx.clamp(min=1e-9), 0.0)
     return out.clamp(0.0, 100.0)
 
@@ -859,7 +892,7 @@ def run_scores(
     }
     score = combine_scores(by_name, weights)
     for fn, w in extra_scores:
-        score = score + w * fn(ns, carry, pod)
+        score = score + w * plugin_call(fn, ns, carry, pod)
     return score
 
 
@@ -890,7 +923,7 @@ def reason_row(first_fail: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     torch.func.vmap); a node with first_fail == NUM_FILTERS counts nowhere."""
     filters = torch.arange(NUM_FILTERS, device=first_fail.device)
     hit = (first_fail[:, None] == filters[None, :]) & valid[:, None]
-    return hit.sum(dim=0, dtype=torch.int32)
+    return nx.node_sum(hit, 0, dtype=torch.int32)
 
 
 def schedule_step(
@@ -903,9 +936,9 @@ def schedule_step(
     No value leaves the device."""
     mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters, keys)
     score = torch.where(mask, run_scores(ns, carry, pod, weights, extra_scores, keys), -_INF)
-    node = score.argmax()
-    ok = mask.any() & pod.valid
-    onehot = (torch.arange(ns.valid.shape[0], device=node.device) == node) & ok
+    node = nx.node_argmax(score)
+    ok = nx.node_any(mask) & pod.valid
+    onehot = (nx.node_ids(ns.valid.shape[0], node.device) == node) & ok
     new_carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
     reasons = torch.where(ok, 0, reason_row(first_fail, ns.valid))
     return new_carry, (
@@ -938,7 +971,11 @@ def probe_step(
     extra_filters=(), extra_scores=(),
 ):
     """Filter and score ONE pod without committing -> (mask bool[N], score
-    f32[N] with -inf on infeasible nodes, first_fail i32[N])."""
+    f32[N] with -inf on infeasible nodes, first_fail i32[N]). State laid
+    out over a mesh runs per slot; the vectors come back whole."""
+    if isinstance(ns, nx.Sharded):
+        res = nx.spmd(probe_step, ns, carry, pod, weights, filter_on, extra_filters, extra_scores)
+        return tuple(nx.node_cols([r[k] for r in res], ns.layout) for k in range(3))
     mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters)
     score = torch.where(mask, run_scores(ns, carry, pod, weights, extra_scores), -_INF)
     return mask & ns.valid, score, first_fail
@@ -947,9 +984,12 @@ def probe_step(
 def commit_step(ns: NodeStatic, carry: Carry, pod: PodRow, node: torch.Tensor):
     """Commit ONE pod to node index `node` (i32 scalar, -1 = no commit): the
     scan's state transition for the same choice -> (carry, gpu_take
-    i32[G], vg_take f32[V], dev_take f32[DV])."""
+    i32[G], vg_take f32[V], dev_take f32[DV]). State laid out over a mesh
+    keeps its layout."""
+    if isinstance(ns, nx.Sharded):
+        return nx.with_state(nx.spmd(commit_step, ns, carry, pod, node), carry)
     ok = (node >= 0) & pod.valid
-    onehot = (torch.arange(ns.valid.shape[0], device=node.device) == node) & ok
+    onehot = (nx.node_ids(ns.valid.shape[0], node.device) == node) & ok
     new_carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
     return new_carry, gpu_take.to(torch.int32), vg_take, dev_take
 
@@ -962,6 +1002,9 @@ def probe_many(
     carry -> (mask bool[W,N], score f32[W,N] with -inf on infeasible nodes,
     first_fail i32[W,N]). The extender wave engine probes a whole wave up
     front so the per-pod HTTP chains can run concurrently."""
+    if isinstance(ns, nx.Sharded):
+        res = nx.spmd(probe_many, ns, carry, rows, weights, filter_on, extra_filters, extra_scores)
+        return tuple(nx.node_cols([r[k] for r in res], ns.layout, 1) for k in range(3))
 
     def one(pod):
         return probe_step(ns, carry, pod, weights, filter_on, extra_filters, extra_scores)
@@ -991,23 +1034,30 @@ def commit_wave(
     scale (0 elsewhere), `want_commit` bool[W] the pods whose chain
     succeeded with a non-empty feasible set. No value leaves the device.
     Returns (carry, nodes i32[W] (-1 = no commit), respill bool[W],
-    gpu_take i32[W,G], vg_take f32[W,V], dev_take f32[W,DV])."""
+    gpu_take i32[W,G], vg_take f32[W,V], dev_take f32[W,DV]). State laid
+    out over a mesh keeps its layout; the [W,N] tables split with it."""
+    if isinstance(ns, nx.Sharded):
+        tables = (nx.NodeSlice(t, 1) for t in (expected_mask, expected_ff, ext_allowed, ext_score))
+        return nx.with_state(nx.spmd(
+            commit_wave, ns, carry, rows, weights, *tables, want_commit, filter_on,
+            extra_filters, extra_scores,
+        ), carry)
     n = ns.valid.shape[0]
     dev = ns.valid.device
-    nodes_idx = torch.arange(n, device=dev)
+    nodes_idx = nx.node_ids(n, dev)
     blocked = torch.zeros((), dtype=torch.bool, device=dev)
     outs = []
     for w in range(rows.req.shape[0]):
         pod = PodRow(*(a[w] for a in rows))
         mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters)
         mask = mask & ns.valid
-        match = (mask == expected_mask[w]).all() & (first_fail == expected_ff[w]).all()
+        match = nx.node_all(mask == expected_mask[w]) & nx.node_all(first_fail == expected_ff[w])
         respill = blocked | ~match
         score = run_scores(ns, carry, pod, weights, extra_scores)
         allow = mask & ext_allowed[w]
         total = torch.where(allow, score + ext_score[w], -_INF)
-        node = total.argmax()   # first max: lowest node index wins ties
-        ok = want_commit[w] & ~respill & allow.any() & pod.valid
+        node = nx.node_argmax(total)   # first max: lowest node index wins ties
+        ok = want_commit[w] & ~respill & nx.node_any(allow) & pod.valid
         onehot = (nodes_idx == node) & ok
         carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
         outs.append((
@@ -1087,6 +1137,10 @@ def _local_storage_take_rows(vg_cap, vg_name, dev_cap, dev_ssd, vg_free, dev_fre
     return vg_take, dev_take
 
 
+def _col(mine):
+    return None if mine is None else mine[:, None]
+
+
 def commit_choices_lanes(
     ns: NodeStatic, carry_s: Carry, pod: PodRow, choice_s: torch.Tensor,
     parts: frozenset = COMMIT_PARTS,
@@ -1113,8 +1167,10 @@ def commit_choices_lanes(
     S = choice_s.shape[0]
     dev = choice_s.device
     ok = (choice_s >= 0) & pod.valid                                   # [S]
-    row = torch.where(ok, choice_s, 0).long()
-    hit = (torch.arange(n, device=dev)[None, :] == choice_s[:, None]) & ok[:, None]
+    # across node slots: the chosen row on its owner's block (`mine`); the
+    # other slots read a row they never write back
+    row, mine = nx.local_index(torch.where(ok, choice_s, 0).long(), n)
+    hit = (nx.node_ids(n, dev)[None, :] == choice_s[:, None]) & ok[:, None]
     hit_row = hit[:, :, None]                                          # [S,N,1]
     hit_col = hit[:, None, :]                                          # [S,1,N]
     lanes = torch.arange(S, device=dev)
@@ -1140,7 +1196,7 @@ def commit_choices_lanes(
     if "gpu" in parts:
         free_d = c.gpu_free[lanes, row]
         take = _gpu_take(free_d, ns.gpu_total[row], pod)
-        gpu_take = torch.where(ok[:, None], take, 0.0)
+        gpu_take = nx.owned(torch.where(ok[:, None], take, 0.0), _col(mine))
         new["gpu_free"] = set_row(c.gpu_free, free_d - gpu_take * pod.gpu_mem)
     else:
         gpu_take = torch.zeros((S, G), dtype=torch.float32, device=dev)
@@ -1151,8 +1207,8 @@ def commit_choices_lanes(
             ns.vg_cap[row], ns.vg_name[row], ns.dev_cap[row], ns.dev_ssd[row],
             vg_row, dev_row, pod,
         )
-        vg_take = torch.where(ok[:, None], vg_t, 0.0)
-        dev_take = torch.where(ok[:, None], dev_t, 0.0)
+        vg_take = nx.owned(torch.where(ok[:, None], vg_t, 0.0), _col(mine))
+        dev_take = nx.owned(torch.where(ok[:, None], dev_t, 0.0), _col(mine))
         new["vg_free"] = set_row(c.vg_free, vg_row - vg_t)
         new["dev_free"] = set_row(c.dev_free, dev_row - dev_t)
     else:

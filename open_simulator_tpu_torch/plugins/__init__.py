@@ -13,7 +13,8 @@ port's cluster-state tensors:
     you want 0..100 semantics).
 
 Plugins see exactly the tensors the in-tree filters and scores see, on the
-simulation's device. They must be pure and keep the node axis: the
+simulation's device; on a mesh that splits the node axis they see the whole
+state, gathered onto the mesh's first slot (kernels.plugin_call). They must be pure and keep the node axis: the
 preemption probe evaluates filter plugins under `torch.func.vmap` over
 candidate post-eviction states, so a filter plugin may use no in-place op
 and no data-dependent Python branch.

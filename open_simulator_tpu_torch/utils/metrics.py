@@ -516,6 +516,14 @@ RESIDENT_DELTAS = REGISTRY.counter(
     "by kind (pod_usage, node_row, node_added).",
     labelnames=("kind",),
 )
+HBM_BYTES_PER_DEVICE = REGISTRY.gauge(
+    "osim_hbm_bytes_per_device",
+    "Bytes of cluster-state shards resident on each device after the most "
+    "recent sharded placement (parallel.mesh.hbm_bytes_per_device) — under "
+    "the 2-D (scenarios, nodes) mesh this stays ~1/node_devices of the "
+    "replicated node-table footprint.",
+    labelnames=("device",),
+)
 RESIDENT_FALLBACKS = REGISTRY.counter(
     "osim_resident_fallbacks_total",
     "Syncs and simulations that declined the resident path and re-encoded "

@@ -256,31 +256,64 @@ def test_cli_rejects_unknown_extended_resource(capsys):
         capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--devices", "2"], 13), (["--devices", "0"], 13), (["--run-dir", "runs/x", "--devices", "2"], 13),
-    (["--resume", "runs/x", "--devices", "2"], 13), (["--run-dir", "runs/x", "--resume", "--devices", "0"], 13),
-    (["--run-dir", "runs/x", "--resume", "--metrics-file", "m.json"], 14),
+@pytest.fixture(scope="module")
+def jax_devices_report(tmp_path_factory):
+    """The JAX CLI's `apply --devices 2` report of CONFIGS[1] (its mesh on
+    two of the virtual CPU devices), with its exit code."""
+    from open_simulator_tpu.cli import main as jcli
+
+    out = tmp_path_factory.mktemp("jdev") / "report.txt"
+    jwl.reset_name_rng()
+    rc = jcli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--devices", "2",
+                    "--output-file", str(out)])
+    return rc, _without_device_line(out.read_text())
+
+
+@pytest.mark.parametrize("flags", [
+    ["--devices", "2"], ["--devices", "0"], ["--run-dir", "runs/x", "--devices", "2"],
+    ["--resume", "runs/x", "--devices", "2"], ["--run-dir", "runs/x", "--resume", "--devices", "0"],
 ])
-def test_cli_unported_flags_name_their_item(capsys, tmp_path, flags, item):
-    """The reference's flags of unported items parse, then fail with the
-    port's not-ported message naming the ROADMAP item (no argparse error):
-    13b for a mesh, also beside the ported `--run-dir` / `--resume`, before
-    a run directory is opened. Item 14's flag, `--metrics-file`, is ported
-    now: beside `--run-dir` / `--resume` the apply runs and writes the
-    registry's snapshot."""
-    if item == 14:
-        flags = [str(tmp_path / f) if f in ("runs/x", "m.json") else f for f in flags]
+def test_cli_devices_match_single_device_and_jax_cli(jax_devices_report, tmp_path, flags):
+    """`--devices 2` (and 0: every device, one CPU slot) with `--device cpu`
+    shards every simulation of the apply, the capacity search's included,
+    over CPU mesh slots, also beside `--run-dir` / `--resume`: the report
+    equals `--devices 1`'s and the JAX CLI's `--devices 2` byte for byte
+    (the device line apart)."""
+    flags = [str(tmp_path / f) if f == "runs/x" else f for f in flags]
+    reports = {}
+    for name, extra in (("mesh", flags), ("single", ["--devices", "1"])):
+        out = tmp_path / f"{name}.txt"
+        twl.reset_name_rng()
+        rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--device", "cpu",
+                       "--output-file", str(out)] + extra)
+        reports[name] = (rc, _without_device_line(out.read_text()))
+    assert reports["mesh"] == reports["single"] == jax_devices_report
+    assert not (ROOT / "runs").exists()
+
+
+def test_cli_devices_beyond_the_cards_exit_1(monkeypatch, capsys):
+    """Asking for more CUDA devices than are visible exits 1 with the
+    reference's wording, before anything simulates."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(tapply, "simulate", lambda *a, **k: pytest.fail("simulated"))
+    rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--devices", "2"])
+    assert rc == 1
+    assert "error: --devices 2 requested but only 1 CUDA devices are visible" in \
+        capsys.readouterr().err
+
+
+def test_cli_metrics_file_beside_run_dir(capsys, tmp_path):
+    """`--metrics-file` beside `--run-dir` / `--resume`: the apply runs and
+    writes the registry's snapshot and the run's outcome."""
+    flags = ["--run-dir", str(tmp_path / "runs" / "x"), "--resume",
+             "--metrics-file", str(tmp_path / "m.json")]
     rc = cli.main(["apply", "-f", str(ROOT / CONFIGS[1]), "--device", "cpu"] + flags)
     err = capsys.readouterr().err
     assert not (ROOT / "runs").exists()
-    if item == 14:
-        assert rc == 0 and "is not ported" not in err
-        assert "osim_apply_total" in json.loads((tmp_path / "m.json").read_text())
-        assert (tmp_path / "runs" / "x" / "outcome.json").is_file()
-        return
-    assert rc == 1
-    assert "is not ported to open_simulator_tpu_torch yet" in err
-    assert f"ROADMAP.md Queue 1 item {item}b:" in err
+    assert rc == 0 and "is not ported" not in err
+    assert "osim_apply_total" in json.loads((tmp_path / "m.json").read_text())
+    assert (tmp_path / "runs" / "x" / "outcome.json").is_file()
 
 
 def test_simulate_result_pods_on():

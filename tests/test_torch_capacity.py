@@ -11,7 +11,10 @@ encode it relies on, against the JAX package on the CPU. Tolerance: exact.
     capacity_sweep: equal nodes_added, attempts, batched_calls and result
     digest; a MaxCPU=60 case; `sim_configs.CAPACITY_DIGESTS` for
     capacity_sweep, and (slow) plan_small and plan_full recomputed with the
-    JAX package.
+    JAX package;
+  - `plan_capacity(mesh=)` serial and batched on 2 CPU slots equal to the
+    JAX package's plan on its mesh and to the unsharded plan, journaled on
+    one mesh and resumed on another.
 """
 
 from pathlib import Path
@@ -189,14 +192,49 @@ def test_plan_capacity_max_cpu_gate(monkeypatch):
     assert plans["60", "serial"][0] > plans["100", "serial"][0]
 
 
-def test_plan_capacity_unported_arguments_raise():
-    """A mesh waits for ROADMAP.md item 13b (the journal and resume are
-    ported: tests/test_torch_durable.py), also with a journal given."""
+def _small_sweep(pkg, mode, mesh=None, **kw):
+    """plan_capacity on a 16-replica capacity_sweep, optionally on a mesh of
+    2 slots (the port's on the CPU, the JAX package's virtual devices)."""
+    objs, wl, sim, cap, *_, extra = PKGS[pkg]
+    wl.reset_name_rng()
+    cluster, apps = sc.build(sc.capacity_sweep_spec(2, 16), objs.Node, sim.ClusterResource,
+                             sim.AppResource)
+    p = cap.plan_capacity(cluster, apps, objs.Node.from_dict(sc.template_spec()),
+                          sweep_mode=mode, mesh=mesh, **kw, **extra)
+    return p.nodes_added, p.attempts, p.batched_calls, sc.result_digest(p.result)
+
+
+@pytest.mark.parametrize("mode", ["serial", "batched"])
+def test_plan_capacity_on_mesh_matches_jax(mode):
+    """plan_capacity(mesh=): every probe and the finalize node-sharded, the
+    batched sweeps' lanes split, over 2 CPU slots; the plan equals the JAX
+    package's plan on its 2-device mesh and the port's unsharded plan."""
+    from open_simulator_tpu.parallel import mesh as jmesh
+    from open_simulator_tpu_torch.parallel import mesh as tmesh
+
+    want = _small_sweep("jax", mode, jmesh.product_mesh(2))
+    got = _small_sweep("torch", mode, tmesh.product_mesh(2, device="cpu"))
+    assert got == want == _small_sweep("torch", mode)
+    assert (got[2] > 0) == (mode == "batched")
+
+
+def test_plan_capacity_on_mesh_journaled_and_resumed(tmp_path):
+    """A journaled search on a 2-slot mesh resumes on a 4-slot mesh and on
+    none: the journaled verdicts replay and the plan is the same."""
+    from open_simulator_tpu_torch.durable import RunJournal
+    from open_simulator_tpu_torch.parallel import mesh as tmesh
+
+    journal = RunJournal.open(str(tmp_path / "run"))
+    first = _small_sweep("torch", "batched", tmesh.product_mesh(2, device="cpu"), journal=journal)
+    journal.close()
+    for mesh in (tmesh.product_mesh(4, device="cpu"), None):
+        journal = RunJournal.open(str(tmp_path / "run"))
+        assert _small_sweep("torch", "batched", mesh, journal=journal, resume=True) == first
+        journal.close()
+
+
+def test_plan_capacity_rejects_unknown_sweep_mode():
     cluster, apps, template = _sweep_inputs("torch")
-    for kw in ({"mesh": object()}, {"mesh": object(), "journal": object()},
-               {"mesh": object(), "resume": True}):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            tcap.plan_capacity(cluster, apps, template, device="cpu", **kw)
     with pytest.raises(ValueError, match="sweep_mode"):
         tcap.plan_capacity(cluster, apps, template, sweep_mode="fast", device="cpu")
 

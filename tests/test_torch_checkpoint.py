@@ -14,9 +14,11 @@ tests/test_checkpoint.py builds it):
     with a flight-recorder artifact naming the last good chunk; a third
     strike raises; the wave driver does the same per wave;
   - the device carry digest equals its host twin on every leaf dtype, and
-    carry_from_host refuses a snapshot of another shape.
-The reference's elastic resume onto a smaller mesh waits for the port's
-meshes (ROADMAP.md item 13b). The true-SIGKILL subprocess case is `slow`.
+    carry_from_host refuses a snapshot of another shape;
+  - elastic resume: a plan snapshotted with its lanes on 4 CPU mesh slots
+    resumes on 2, and one snapshotted on 2 resumes on none, equal to the
+    single scan and the JAX package's.
+The true-SIGKILL subprocess case is `slow`.
 """
 
 import glob
@@ -46,6 +48,7 @@ from open_simulator_tpu_torch.ops import delta
 from open_simulator_tpu_torch.ops import fast
 from open_simulator_tpu_torch.ops import state as state_mod
 from open_simulator_tpu_torch.ops.kernels import Carry, weights_array
+from open_simulator_tpu_torch.parallel import mesh as tmesh
 from open_simulator_tpu_torch.resilience import faults
 from open_simulator_tpu_torch.utils import metrics
 
@@ -96,12 +99,17 @@ def _to_host(out):
     return (fast.carry_to_host(out[0]),) + tuple(np.asarray(a) for a in out[1:])
 
 
-def _dispatch(plan_state, valid):
-    """One schedule_scenarios_host call on a fresh stacked carry."""
+def _dispatch(plan_state, valid, ndev=0):
+    """One schedule_scenarios_host call on a fresh stacked carry,
+    optionally with its lanes split over `ndev` CPU mesh slots."""
     ns, carry, batch, weights, s_pad = plan_state
-    carry_s = state_mod.stack_carry(carry, s_pad)
-    return _to_host(fast.schedule_scenarios_host(
-        ns, carry_s, batch, torch.from_numpy(weights), torch.from_numpy(valid), S_REAL))
+    state = (ns, state_mod.stack_carry(carry, s_pad), torch.from_numpy(valid),
+             torch.from_numpy(weights))
+    if ndev:
+        m = tmesh.scenario_mesh(tmesh.make_mesh(["cpu"] * ndev))
+        state = tmesh.shard_scenarios(m, *state)
+    ns, carry_s, valid_s, weights_s = state
+    return _to_host(fast.schedule_scenarios_host(ns, carry_s, batch, weights_s, valid_s, S_REAL))
 
 
 def _jax_dispatch(jax_state, plan_state, valid):
@@ -131,7 +139,7 @@ def _device_lost_plan(chunk, times):
         target="device", kind="device_lost", op=f"commit-chunk:{chunk}", times=times)]))
 
 
-def _crash_run(plan_state, valid, run_dir, kill_chunk=4):
+def _crash_run(plan_state, valid, run_dir, kill_chunk=4, ndev=0):
     """Chunked under a checkpointer and a 3-strike device_lost rule: two
     in-place recoveries, then the third strike aborts the plan with chunks
     0..kill_chunk-1 journaled and a snapshot on disk."""
@@ -141,18 +149,18 @@ def _crash_run(plan_state, valid, run_dir, kill_chunk=4):
     try:
         with installed(cp):
             with pytest.raises(faults.DeviceLostError):
-                _dispatch(plan_state, valid)
+                _dispatch(plan_state, valid, ndev)
     finally:
         faults.uninstall_plan()
         journal.close()
 
 
-def _resume_run(plan_state, valid, run_dir):
+def _resume_run(plan_state, valid, run_dir, ndev=0):
     journal = RunJournal.open(run_dir)
     cp = PlanCheckpointer(journal, resume=True, every=2)
     try:
         with installed(cp):
-            return _dispatch(plan_state, valid)
+            return _dispatch(plan_state, valid, ndev)
     finally:
         journal.close()
 
@@ -390,6 +398,25 @@ def test_crash_then_resume_matches_jax_journal(plan_state, jax_state, monkeypatc
 # ---------------------------------------------------------------------------
 # Snapshot corruption: torn files and digest mismatches are never trusted
 # ---------------------------------------------------------------------------
+
+def test_elastic_resume_on_smaller_mesh(plan_state, jax_state, monkeypatch, tmp_path):
+    """A plan snapshotted with its lanes on 4 mesh slots resumes
+    byte-identically on 2, and a 2-slot snapshot on a single device: the
+    snapshot holds gathered leaves and carry_from_host re-pins them onto
+    the mesh the resume has."""
+    ns, _, _, _, s_pad = plan_state
+    valid = _valid_lanes(ns, s_pad, 2)
+    ref = _mono_ref(plan_state, valid, monkeypatch)
+    _assert_identical(ref, _jax_dispatch(jax_state, plan_state, valid))
+    monkeypatch.setenv("OSIM_COMMIT_CHUNK", str(CHUNK))
+    for crash_on, resume_on in ((4, 2), (2, 0)):
+        run_dir = str(tmp_path / f"run-{crash_on}")
+        _crash_run(plan_state, valid, run_dir, ndev=crash_on)
+        assert _snapshot_paths(run_dir)
+        skipped0 = metrics.RESUME_CHUNKS_SKIPPED.value()
+        _assert_identical(_resume_run(plan_state, valid, run_dir, ndev=resume_on), ref)
+        assert metrics.RESUME_CHUNKS_SKIPPED.value() == skipped0 + 4
+
 
 def test_torn_snapshot_falls_back_to_previous(plan_state, monkeypatch, tmp_path):
     ns, _, _, _, s_pad = plan_state

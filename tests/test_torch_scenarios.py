@@ -10,8 +10,9 @@ exact.
     `scenario_carry_digest` equal to its host twin and to the JAX digest;
   - engine/simulator.py: the cases of tests/test_batch_engine.py, each lane
     of `simulate_batch` equal to the JAX lane and to the port's serial
-    `simulate()` of its scenario, and `ScenarioSession` pack-of-1 calls
-    equal to a cold `simulate()`.
+    `simulate()` of its scenario, also with the lanes split over a 4-slot
+    CPU mesh, and `ScenarioSession` pack-of-1 calls equal to a cold
+    `simulate()`.
 """
 
 import os
@@ -204,12 +205,12 @@ CASES = {
 }
 
 
-def _run_batch(pkg, case):
+def _run_batch(pkg, case, mesh=None):
     objs, wl, sim = (jobj, jwl, jsim) if pkg == "jax" else (tobj, twl, tsim)
     spec, scens = CASES[case]
     wl.reset_name_rng()
     cluster, apps = sc.build(spec(), objs.Node, sim.ClusterResource, sim.AppResource)
-    kw = {} if pkg == "jax" else {"device": "cpu"}
+    kw = {} if pkg == "jax" else {"device": "cpu", "mesh": mesh}
     results = sim.simulate_batch(cluster, apps, [sim.Scenario(**s) for s in scens], **kw)
     return [sc.result_digest(r) for r in results], results
 
@@ -237,6 +238,17 @@ def test_simulate_batch_lanes_match_jax_and_serial(jax_batches, case):
         assert len(set(got)) >= 2
     if case == "preemption_fallback":
         assert any(r.preempted for r in results)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_simulate_batch_on_mesh_matches_jax(jax_batches, case):
+    """simulate_batch(mesh=) over 4 CPU slots: the batched sweep splits its
+    8 padded lanes 2 per slot, the serial fallback (preemption) runs
+    node-sharded; every lane equals the JAX lane."""
+    from open_simulator_tpu_torch.parallel import mesh as tmesh
+
+    got, _ = _run_batch("torch", case, tmesh.product_mesh(4, device="cpu"))
+    assert got == jax_batches[case]
 
 
 def test_scenario_session_pack_of_one_equals_cold_simulate():

@@ -5,7 +5,9 @@ the JAX package's `simulate()` on the same inputs. Tolerance: exact — equal
 reasons, victims, storage state), equal route counts, and the final carry
 equal leaf by leaf. Every case rebuilds its input from plain dicts and
 resets its package's name RNG before each run; the JAX runs are shared
-through a module-scoped cache."""
+through a module-scoped cache. `simulate(mesh=)` runs a set of the cases on
+4 CPU mesh slots against the JAX package's mesh on 4 of its virtual CPU
+devices (the preemption probe, profiles, the domain and sort routes)."""
 
 import copy
 import random
@@ -21,6 +23,7 @@ from open_simulator_tpu.engine import preemption as jpre
 from open_simulator_tpu.engine import simulator as jsim
 from open_simulator_tpu.models import profiles as jprof
 from open_simulator_tpu.ops import fast as jfast
+from open_simulator_tpu.parallel import mesh as jmesh
 from open_simulator_tpu.plugins import DevicePlugin as JPlugin
 from open_simulator_tpu_torch import sim_configs as sc
 from open_simulator_tpu_torch.core import objects as tobj
@@ -29,6 +32,7 @@ from open_simulator_tpu_torch.engine import preemption as tpre
 from open_simulator_tpu_torch.engine import simulator as tsim
 from open_simulator_tpu_torch.models import profiles as tprof
 from open_simulator_tpu_torch.ops import fast as tfast
+from open_simulator_tpu_torch.parallel import mesh as tmesh
 from open_simulator_tpu_torch.plugins import DevicePlugin as TPlugin
 from open_simulator_tpu_torch.utils import metrics as tmetrics
 
@@ -147,6 +151,17 @@ def _plugin_filter(ns, carry, pod):
     return ns.alloc[:, 0] < 16500.0    # rejects the 17-core nodes
 
 
+def _plugin_free_share(ns, carry, pod):
+    free = carry.free[:, 0]
+    return 100.0 * free / free.max()     # normalised by the largest node
+
+
+def _plugin_index_filter(arange):
+    def last_four(ns, carry, pod):
+        return arange(ns.valid.shape[0]) >= 36
+    return last_four
+
+
 def _plugin_score(where, arange):
     def prefer_last(ns, carry, pod):
         n = ns.valid.shape[0]
@@ -216,14 +231,34 @@ CASES = {
                  ("b", [deploy("high", 4, cpu="4", spec_extra={"priority": 50})])],
         "plugins": True,
     },
+    # a score plugin that reduces over every node (normalised by the max);
+    # 40 nodes, so a 4-slot mesh splits them over three slots
+    "plugin-max-normalised": {
+        "nodes": [node(f"n{i}", str(2 + i), "64Gi") for i in range(40)],
+        "apps": [("a", [deploy("d", 12, cpu="1")])],
+        "plugins": "max-normalised",
+    },
+    # a filter plugin that reads global node indices, with preemption, so
+    # the probe runs it under vmap on the third slot's nodes
+    "plugin-index-filter-preemption": {
+        "nodes": [node(f"n{i}", "4", "32Gi") for i in range(40)],
+        "apps": [("a", [deploy("low", 16, cpu="1")]),
+                 ("b", [deploy("high", 4, cpu="4", spec_extra={"priority": 50})])],
+        "plugins": "index-filter",
+    },
 }
 
 
-def run_case(pkg, case, tmp_path, expand_cache=None, runs=1):
+def run_case(pkg, case, tmp_path, expand_cache=None, runs=1, mesh=1):
     """(result, final carry leaves as numpy, route counts) of the last of
-    `runs` simulate() calls of one package."""
+    `runs` simulate() calls of one package; `mesh` > 1 runs on that many
+    mesh slots (the port's on the CPU, the JAX package's virtual devices)."""
     objs, wl, sim, prof, fast, plugin_cls = PKGS[pkg]
     kwargs = {}
+    if mesh > 1:
+        kwargs["mesh"] = (
+            jmesh.product_mesh(mesh) if pkg == "jax" else tmesh.product_mesh(mesh, device="cpu")
+        )
     if case.get("weights"):
         kwargs["weights"] = case["weights"]
     if case.get("patch_pods"):
@@ -232,7 +267,16 @@ def run_case(pkg, case, tmp_path, expand_cache=None, runs=1):
         path = tmp_path / f"{pkg}-sched.yaml"
         path.write_text(case["sched_config"])
         kwargs["profiles"] = prof.load_scheduler_config(str(path)).profiles
-    if case.get("plugins"):
+    if case.get("plugins") == "max-normalised":
+        kwargs["plugins"] = [plugin_cls("free-share", score_fn=_plugin_free_share, weight=1000.0)]
+    elif case.get("plugins") == "index-filter":
+        if pkg == "jax":
+            import jax.numpy as jnp
+            arange = jnp.arange
+        else:
+            arange = torch.arange
+        kwargs["plugins"] = [plugin_cls("last-four", filter_fn=_plugin_index_filter(arange))]
+    elif case.get("plugins"):
         if pkg == "jax":
             import jax.numpy as jnp
             score = _plugin_score(jnp.where, jnp.arange)
@@ -256,7 +300,8 @@ def run_case(pkg, case, tmp_path, expand_cache=None, runs=1):
         result = s.run(apps)
     routes = {k: v - counts0.get(k, 0) for k, v in fast.PATH_COUNTS.items()
               if k in jfast.PATH_COUNTS and v - counts0.get(k, 0)}
-    carry = {f: np.asarray(getattr(s._carry, f)) for f in s._carry._fields}
+    final = s._carry if pkg == "jax" else tmesh.gather(s._carry)
+    carry = {f: np.asarray(getattr(final, f)) for f in final._fields}
     return result, carry, routes
 
 
@@ -306,6 +351,12 @@ def test_simulate_matches_jax(jax_runs, tmp_path, name):
         assert not res.unscheduled
     if name == "patch-pods":
         assert sc.result_counts(res) == (5, 3, 0)
+    if name == "plugin-max-normalised":
+        # the free-share score sends the pods to the largest nodes
+        assert {st.node.name for st in res.node_status if st.pods} <= {f"n{i}" for i in range(28, 40)}
+    if name == "plugin-index-filter-preemption":
+        assert res.preempted
+        assert {st.node.name for st in res.node_status if st.pods} <= {f"n{i}" for i in range(36, 40)}
     if name == "plugins-with-preemption":
         assert res.preempted
         assert {st.node.name for st in res.node_status if st.pods} <= {"n0", "n2"}
@@ -362,43 +413,54 @@ def test_lane_rounds_match_jax_preemption():
         assert picks[1:] == picks[:1] * 3, f"trial {trial}"
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    ({"mesh": object()}, "item 13"),
-    ({"capacity_mesh": object()}, "item 13"),
-    ({"mesh": object(), "resident": object()}, "item 13"),
-    ({"capacity_mesh": object(), "journal": object()}, "item 13"),
-    ({"capacity_mesh": object(), "resume": True}, "item 13"),
-])
-def test_unported_arguments_raise(kwargs, item):
-    """Simulator's and plan_capacity's one unported argument, a mesh (item
-    13b; n_pad and preencoded are ported with the capacity search,
-    extenders with ROADMAP item 11, the resident state with item 12a and
-    the journal with item 13a), alone and beside a ported one."""
-    from open_simulator_tpu_torch.engine import capacity as tcap
-
-    with pytest.raises(NotImplementedError, match=item) as exc:
-        if {"journal", "resume", "capacity_mesh"} & set(kwargs):
-            kw = {("mesh" if k == "capacity_mesh" else k): v for k, v in kwargs.items()}
-            tcap.plan_capacity(tsim.ClusterResource(), [], None, device="cpu", **kw)
-        else:
-            tsim.Simulator(tsim.ClusterResource(), device="cpu", **kwargs)
-    assert f"{item}b: parallelism" in str(exc.value)
+# the cases simulate(mesh=) runs: the sort and domain routes, preemption
+# with its device probe, profiles, a disabled filter, plain weights, and
+# out-of-tree plugins that read node indices (a filter under the probe's
+# vmap) or reduce over every node
+MESH_CASES = ["plan-2000x200", "preempt-end-to-end", "preempt-probe-anti-affinity",
+              "preempt-eviction-clears-anti", "multi-profile", "filter-disabled",
+              "weights-pack", "plugins-with-preemption", "plugin-max-normalised",
+              "plugin-index-filter-preemption"]
 
 
-@pytest.mark.parametrize("call", ["run_scenarios", "simulate_batch"])
-def test_scenario_axis_raises(call):
-    """The scenario axis is ported; what it does not support yet raises
-    NotImplementedError naming the ROADMAP item."""
-    calls = {
-        "run_scenarios": lambda: tsim.Simulator(
-            tsim.ClusterResource(), mesh=object(), device="cpu"
-        ).run_scenarios([], []),
-        "simulate_batch": lambda: tsim.simulate_batch(
-            tsim.ClusterResource(), [], [tsim.Scenario()], mesh=object(), device="cpu"
-        ),
-    }
-    with pytest.raises(NotImplementedError, match="item 1[123]"):
-        calls[call]()
+@pytest.fixture(scope="module")
+def jax_mesh_runs(tmp_path_factory):
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = run_case("jax", CASES[name], tmp_path_factory.mktemp("jm"), mesh=4)
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", MESH_CASES)
+def test_simulate_on_mesh_matches_jax(jax_runs, jax_mesh_runs, tmp_path, name):
+    """simulate(mesh=) with the node axis split over 4 CPU slots equals the
+    JAX package's simulate() on its 4-device mesh and the unsharded runs:
+    result digest, reasons, route counts and every final carry leaf."""
+    want = jax_runs(name)
+    assert_same(want, jax_mesh_runs(name))
+    assert_same(want, run_case("torch", CASES[name], tmp_path, mesh=4))
+
+
+def test_resident_gated_off_under_mesh():
+    """A resident beside a mesh is not used (the reference's gate), and the
+    port counts it in osim_resident_fallbacks_total{reason="mesh"}."""
+    before = tmetrics.RESIDENT_FALLBACKS.value(reason="mesh")
+    s = tsim.Simulator(tsim.ClusterResource(), mesh=tmesh.product_mesh(2, device="cpu"),
+                       resident=object(), device="cpu")
+    assert s._resident is None
+    assert tmetrics.RESIDENT_FALLBACKS.value(reason="mesh") == before + 1
+
+
+def test_mesh_must_lie_on_the_device():
+    """A mesh of CPU slots under a CUDA simulation (or the reverse) is
+    refused before anything runs."""
+    mesh = tmesh.Mesh([torch.device("meta")] * 2, ("nodes",))
+    with pytest.raises(ValueError, match="does not lie on device"):
+        tsim.Simulator(tsim.ClusterResource(), mesh=mesh, device="cpu")
 
 
 def test_simulate_observes_metrics():

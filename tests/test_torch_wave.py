@@ -8,8 +8,9 @@ the CPU. Tolerance: exact.
     the JAX ones;
   - the cases of tests/test_wave_commit.py: the wave driver equal to the
     JAX serial scan (carry and every output) across seeds, non-divisor wave
-    sizes, one wave for the whole plan, a warm carry, the max-rounds
-    fallback, and the `wave_enabled` routing policy.
+    sizes, one wave for the whole plan, on a scenario mesh of 2 and 4 CPU
+    slots (and the JAX wave driver on its mesh), a warm carry, the
+    max-rounds fallback, and the `wave_enabled` routing policy.
 
 The plan is bench.py's build_state(8 nodes, 24 pods) on 3 live lanes of 8.
 """
@@ -25,10 +26,12 @@ import torch
 from open_simulator_tpu.ops import fast as jfast
 from open_simulator_tpu.ops import kernels as jk
 from open_simulator_tpu.ops import state as jstate
+from open_simulator_tpu.parallel import mesh as jmesh
 from open_simulator_tpu_torch.ops import fast as tfast
 from open_simulator_tpu_torch.ops import kernels as tk
 from open_simulator_tpu_torch.ops import state as tstate
 from open_simulator_tpu_torch.ops import wave as twave
+from open_simulator_tpu_torch.parallel import mesh as tmesh
 from open_simulator_tpu_torch.utils import metrics as tmetrics
 from tests.test_torch_kernels import FIXTURES, _eq, _row, build
 
@@ -169,14 +172,16 @@ def plan():
     return batch, tns, tc, s_pad, weights, valid, refs
 
 
-def _port_run(plan, v, carry=None):
+def _port_run(plan, v, carry=None, ndev=0):
     batch, tns, tc, s_pad, weights, _, _ = plan
     carry_s = tstate.stack_carry(tc, s_pad)
     if carry is not None:
         carry_s = tk.Carry(**{f: torch.from_numpy(np.array(carry[f])) for f in tk.Carry._fields})
-    out = tfast.schedule_scenarios_host(
-        tns, carry_s, batch, torch.from_numpy(weights), torch.from_numpy(v), S_REAL
-    )
+    ns, w_s, v_s = tns, torch.from_numpy(weights), torch.from_numpy(v)
+    if ndev:
+        m = tmesh.scenario_mesh(tmesh.make_mesh(["cpu"] * ndev))
+        ns, carry_s, v_s, w_s = tmesh.shard_scenarios(m, ns, carry_s, v_s, w_s)
+    out = tfast.schedule_scenarios_host(ns, carry_s, batch, w_s, v_s, S_REAL)
     return (tfast.carry_to_host(out[0]),) + tuple(out[1:])
 
 
@@ -230,6 +235,28 @@ def test_wave_whole_plan_as_one_wave(plan, monkeypatch):
     batch, *_, s_pad, _, valid, refs = plan
     _wave_on(monkeypatch, wave=int(batch.p) + 8)
     _assert_identical(_port_run(plan, _valid_lanes(valid, s_pad, 1)), refs[1])
+
+
+@pytest.mark.parametrize("ndev", [2, 4])
+def test_wave_matches_serial_on_mesh(plan, monkeypatch, ndev):
+    """The wave driver with its lanes split over a scenario mesh of `ndev`
+    CPU slots equals the JAX serial scan, the JAX wave driver on its
+    `ndev`-device scenario mesh, and the port's unsharded wave run."""
+    *_, s_pad, weights, valid, refs = plan
+    v = _valid_lanes(valid, s_pad, 2)
+    _wave_on(monkeypatch)
+    got = _port_run(plan, v, ndev=ndev)
+    _assert_identical(got, refs[2])
+    _assert_identical(got, _port_run(plan, v))
+    from bench import build_state
+
+    jns, jc, jbatch = build_state(8, N_PODS)
+    m = jmesh.scenario_mesh(jmesh.make_mesh(jax.devices()[:ndev]))
+    jns_s, jc_s, jv_s, jw_s = jmesh.shard_scenarios(
+        m, jns, jstate.stack_carry(jc, s_pad), jnp.asarray(v), jnp.asarray(weights)
+    )
+    out = jfast.schedule_scenarios_host(jns_s, jc_s, jbatch, jw_s, jv_s, S_REAL)
+    _assert_identical(got, (jfast.carry_to_host(out[0]),) + tuple(np.asarray(a) for a in out[1:]))
 
 
 def test_wave_matches_serial_on_warm_carry(plan, monkeypatch):
