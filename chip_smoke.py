@@ -100,7 +100,18 @@
    (CHUNK_SCAN_DIGEST); per-slot bytes replicated and node-split; `apply
    --devices 1` and `--devices 2` (exit 1). Prints each leg's wall beside
    the unsharded one.
-12. Holds every kernel against its plain PyTorch version, bit for bit, on
+12. Drives the runtime tooling (tooling_phase, a child process `--phase
+   tooling` started before the simulator phase, beside it and the capacity,
+   extender, durable and resident phases, joined before the serve phase):
+   `warmup` into a
+   fresh OSIM_COMPILE_CACHE (at least one nvcc build, every registry
+   entry), `warmup --check` in a second process sharing it (0 builds, the
+   JAX sweep's answer), `profile --gaps` (device, dispatch and gap of the
+   23 registry entries), `profile -- apply` on the quickstart (a trace with
+   CUDA kernel events), the quickstart's simulate() plain and under
+   OSIM_SANITIZE=1 (the JAX digest, 0 violations), and one simulate() under
+   OSIM_TRACE_FILE (one connected tree).
+13. Holds every kernel against its plain PyTorch version, bit for bit, on
    the inputs the main path gave it (the plain version on the card, which
    gives the row's plain time), on those of spread_affinity's DoNotSchedule
    group, of the simulator's plan call, of a served full request and of the
@@ -110,13 +121,13 @@
    launched one by one on the card), and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
    pairs).
-13. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
+14. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
-14. Prints one JSON line of per-kernel numbers (launches summed over the
+15. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
-   preempt call, the apply runs, the capacity, prove, extender, durable,
-   resident, serve and mesh phases) and, last, the result line.
+   preempt call, the apply runs, the capacity, prove, tooling, extender,
+   durable, resident, serve and mesh phases) and, last, the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -433,16 +444,15 @@ def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
     cloned into it; with `mesh`, the node axis split over its slots. Returns (result, wall s, span seconds, routes,
     domain_pop launches, probe calls, probe lanes)."""
     from open_simulator_tpu_torch.core.workloads import reset_name_rng
-    from open_simulator_tpu_torch.engine.simulator import simulate
-    from open_simulator_tpu_torch.utils import metrics, tracing
+    from open_simulator_tpu_torch.engine.simulator import PROBE_LANES, simulate
+    from open_simulator_tpu_torch.utils import tracing
 
     reset_name_rng()
     cluster, apps = build()
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
     dp.launches = 0
-    calls0 = metrics.PROBE_LANES.value(unit="calls")
-    lanes0 = metrics.PROBE_LANES.value(unit="lanes")
+    calls0, lanes0 = PROBE_LANES["calls"], PROBE_LANES["lanes"]
     undo = capture_pops(dp, torch, keep) if keep is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -453,8 +463,7 @@ def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
         undo()
     routes = {k: v for k, v in fast.PATH_COUNTS.items() if v}
     return (result, wall, tracing.span_seconds(tracing.recent_timings()[-1]), routes, dp.launches,
-            int(metrics.PROBE_LANES.value(unit="calls") - calls0),
-            int(metrics.PROBE_LANES.value(unit="lanes") - lanes0))
+            PROBE_LANES["calls"] - calls0, PROBE_LANES["lanes"] - lanes0)
 
 
 def simulator_phase(torch, dp, fast):
@@ -2448,6 +2457,206 @@ def _mesh_cli(results):
     return []
 
 
+def tooling_phase(torch, dp, device="cuda"):
+    """The runtime tooling on the card, in its own process (a child beside
+    the capacity phase):
+    1. `warmup --format json` with OSIM_COMPILE_CACHE a fresh directory:
+       at least one nvcc build, every registry entry present;
+    2. `warmup --check --format json` in a second process sharing the
+       directory: 0 builds, the sweep's serial and batched answers equal to
+       the JAX package's (sim_configs.WARM_START_NODES_ADDED);
+    3. `profile --gaps --repeats 1 --format json`: device, dispatch and gap
+       of all 23 entries, one line each (some device time recorded);
+    4. `profile -- apply -f example/simon-config.yaml`: exit 0 and a trace
+       file holding CUDA kernel events;
+    5. the quickstart's simulate() plain and under OSIM_SANITIZE=1: both
+       digests equal sim_configs.QUICKSTART_SIM_DIGEST, 0 violations;
+    6. one simulate() under OSIM_TRACE_FILE: valid JSON, one root, one
+       connected tree.
+    `device="cpu"` rehearses it off the card (no kernel, no CUDA events).
+    Returns (results, failures, domain_pop launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    from open_simulator_tpu_torch import sim_configs
+    from open_simulator_tpu_torch.analysis.entry_audit import REQUIRED_COVERAGE
+    from open_simulator_tpu_torch.api.config import SimonConfig
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.apply import build_apps, build_cluster
+    from open_simulator_tpu_torch.engine.simulator import simulate
+    from open_simulator_tpu_torch.utils import metrics, tracing
+
+    cuda = device == "cuda"
+    dev_args = [] if cuda else ["--device", device]
+    results, failures = {}, []
+    dp.launches = 0
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tooling-")
+    cache = os.path.join(tmp, "cache")
+    os.environ["OSIM_COMPILE_CACHE"] = cache
+    os.environ["LogLevel"] = "error"  # the CLI's slow-trace warnings are not this phase's output
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def cli_json(argv):
+        t0 = time.perf_counter()
+        rc, out = _cli_quiet(argv)
+        return rc, json.loads(out[out.index("{"):]), time.perf_counter() - t0
+
+    try:
+        # 1. cold warmup into the fresh cache
+        rc, rep, wall = cli_json(["warmup", "--format", "json", *dev_args])
+        results["warmup"] = {"rc": rc, "wall_s": wall, **rep}
+        first_s = {e["name"]: e["seconds"] for e in rep["entries"]}
+        print(f"tooling[warmup] cold: exit {rc}, {wall:.3f} s, {rep['backend_compiles']} "
+              f"build(s) in {rep['build_seconds']:.3f} s, {rep['persistent_hits']} hit(s), "
+              f"{len(rep['entries'])} entries "
+              f"({sum(first_s.values()):.3f} s of first calls), rungs {rep['ladder_rungs']}",
+              flush=True)
+        if rc != 0 or not rep["ok"] or rep["missing"]:
+            failures.append(f"warmup: exit {rc}, missing {rep['missing']}")
+        if cuda and rep["backend_compiles"] < 1:
+            failures.append("warmup: a fresh compile cache built no kernel")
+        if {e["name"] for e in rep["entries"]} != set(REQUIRED_COVERAGE):
+            failures.append("warmup: the registry does not cover REQUIRED_COVERAGE")
+
+        # 2. the warm-start check in a second process sharing the cache
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "open_simulator_tpu_torch.cli", "warmup", "--check",
+             "--format", "json", *dev_args],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "OSIM_COMPILE_CACHE": cache},
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        wall = time.perf_counter() - t0
+        try:
+            chk = json.loads(child.stdout[child.stdout.index("{"):])
+        except ValueError:
+            chk = {}
+        results["warm_check"] = {"rc": child.returncode, "wall_s": wall, **chk}
+        print(f"tooling[warmup --check] exit {child.returncode}, {wall:.3f} s (process "
+              f"included): {chk.get('cold_compiles')} build(s), "
+              f"{chk.get('persistent_hits')} hit(s), nodes_added {chk.get('nodes_added')} / "
+              f"batched {chk.get('batched_nodes_added')}", flush=True)
+        want = sim_configs.WARM_START_NODES_ADDED
+        if (child.returncode != 0 or not chk.get("ok") or chk.get("cold_compiles") != 0
+                or chk.get("nodes_added") != want or chk.get("batched_nodes_added") != want):
+            failures.append(f"warmup --check: exit {child.returncode}, {chk or child.stderr[-2000:]}")
+        if cuda and not chk.get("persistent_hits"):
+            failures.append("warmup --check: the kernel library was not found in the cache")
+
+        # 3. the dispatch-gap analyzer over every registry entry
+        # one timed call an entry: three took 432 s on the card beside the other
+        # phases (PERF.md §6), most of it the profiler's capture of the three
+        # 512-step scans (~10^5 kernels a call)
+        rc, rep, wall = cli_json(["profile", "--gaps", "--repeats", "1", "--format", "json",
+                                  *dev_args])
+        gaps = rep.get("dispatch_gaps", {})
+        results["gaps"] = {"rc": rc, "wall_s": wall, **gaps}
+        print(f"tooling[profile --gaps] exit {rc}, {wall:.3f} s: device "
+              f"{gaps.get('device_time_ms')} ms, aggregate gap ratio "
+              f"{gaps.get('dispatch_gap_ratio')}", flush=True)
+        for e in sorted(gaps.get("entries", []), key=lambda e: -e["device_ms"]):
+            print(f"tooling[gaps] {e['name']:34s} device {e['device_ms']:9.4f} ms, dispatch "
+                  f"{e['dispatch_ms']:9.4f} ms, total {e['total_ms']:9.4f} ms, gap "
+                  f"{e['gap_ratio']:.4f}; first call {first_s.get(e['name'], 0) * 1e3:.4f} ms",
+                  flush=True)
+        names = {e["name"] for e in gaps.get("entries", [])}
+        if rc != 0 or names != set(REQUIRED_COVERAGE):
+            failures.append(f"profile --gaps: exit {rc}, {len(names)} of 23 entries timed")
+        if cuda and not gaps.get("device_time_ms"):
+            failures.append("profile --gaps: the profiler recorded no device time")
+
+        # 4. an apply under the device trace
+        out_dir = os.path.join(tmp, "profile")
+        rc, rep, wall = cli_json(["profile", "--out", out_dir, "--format", "json", *dev_args,
+                                  "--", "apply", "-f", "example/simon-config.yaml", *dev_args,
+                                  "--output-file", os.path.join(tmp, "report.txt")])
+        trace_file = rep.get("trace", {}).get("trace_file", "")
+        try:
+            with open(trace_file) as fh:
+                events = json.load(fh)["traceEvents"]
+        except (OSError, ValueError):
+            events = []
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        results["profile_apply"] = {"rc": rc, "wall_s": wall, "events": len(events),
+                                    "kernel_events": len(kernels)}
+        print(f"tooling[profile -- apply] exit {rc}, {wall:.3f} s: {len(events)} trace events, "
+              f"{len(kernels)} CUDA kernel events", flush=True)
+        if rc != 0 or not rep.get("trace", {}).get("ok") or not events:
+            failures.append(f"profile -- apply: exit {rc}, trace {rep.get('trace')}")
+        if cuda and not kernels:
+            failures.append("profile -- apply: the trace holds no CUDA kernel event")
+
+        # 5. the quickstart's simulate(), plain and sanitized
+        cfg = SimonConfig.load("example/simon-config.yaml")
+
+        def quickstart():
+            reset_name_rng()
+            cluster, apps = build_cluster(cfg), build_apps(cfg)
+            sync()
+            t0 = time.perf_counter()
+            res = simulate(cluster, apps, device=device)
+            sync()
+            return res, time.perf_counter() - t0
+
+        violations0 = sum(s["value"] for s in metrics.SANITIZER_VIOLATIONS.snapshot()["samples"])
+        quickstart()  # the first call pays one-time costs
+        plain, plain_s = quickstart()
+        os.environ["OSIM_SANITIZE"] = "1"
+        try:
+            sanitized, san_s = quickstart()
+        finally:
+            del os.environ["OSIM_SANITIZE"]
+        violations = sum(s["value"] for s in metrics.SANITIZER_VIOLATIONS.snapshot()["samples"]
+                         ) - violations0
+        got = [(sim_configs.result_digest(r), *sim_configs.result_counts(r)[:2])
+               for r in (plain, sanitized)]
+        results["sanitize"] = {"plain_s": plain_s, "sanitized_s": san_s,
+                               "violations": violations, "digests": got}
+        print(f"tooling[sanitize] quickstart simulate(): plain {plain_s:.4f} s, sanitized "
+              f"{san_s:.4f} s ({san_s / plain_s:.1f}x), {violations:.0f} violations, "
+              f"digest {got[1][0]}", flush=True)
+        want = tuple(sim_configs.QUICKSTART_SIM_DIGEST)
+        if any(tuple(g) != want for g in got) or violations:
+            failures.append(f"sanitize: {got} != {want}, {violations} violations")
+
+        # 6. one simulate() exported to OSIM_TRACE_FILE
+        trace_path = os.path.join(tmp, "osim-trace.json")
+        os.environ["OSIM_TRACE_FILE"] = trace_path
+        tracing.reset_trace_events()
+        try:
+            quickstart()
+        finally:
+            del os.environ["OSIM_TRACE_FILE"]
+            tracing.reset_trace_events()
+        try:
+            with open(trace_path) as fh:
+                events = json.load(fh)["traceEvents"]
+        except (OSError, ValueError) as e:
+            events = []
+            failures.append(f"OSIM_TRACE_FILE: {e}")
+        by_span = {e["args"]["span_id"]: e for e in events}
+        roots = [e for e in events if "parent_id" not in e["args"]]
+        loose = [e["name"] for e in events
+                 if "parent_id" in e["args"] and e["args"]["parent_id"] not in by_span]
+        trace_ids = {e["args"]["trace_id"] for e in events}
+        results["trace_file"] = {"events": len(events), "roots": [r["name"] for r in roots]}
+        print(f"tooling[OSIM_TRACE_FILE] {len(events)} events, roots "
+              f"{[r['name'] for r in roots]}, {len(trace_ids)} trace id(s), "
+              f"{len(loose)} unconnected", flush=True)
+        if [r["name"] for r in roots] != ["simulate"] or loose or len(trace_ids) != 1:
+            failures.append(f"OSIM_TRACE_FILE: roots {[r['name'] for r in roots]}, "
+                            f"unconnected {loose}")
+    finally:
+        os.environ.pop("OSIM_COMPILE_CACHE", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results, failures, dp.launches
+
+
 def start_phase_child(phase, tmp, *args):
     """Start `chip_smoke.py --phase <phase> [args]` in a child process; its
     output goes to a file in `tmp`. Returns (process, results path, log
@@ -2485,7 +2694,7 @@ def join_phase_child(child, timeout_s):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON to this file")
-    ap.add_argument("--phase", choices=("prove",) + tuple(MESH_LEGS),
+    ap.add_argument("--phase", choices=("prove", "tooling") + tuple(MESH_LEGS),
                     help="run only this phase and write its results, failures and "
                          "domain_pop launches as JSON to --out")
     ap.add_argument("--ref", help="a mesh phase's unsharded plan call (JSON: wall_s, routes, "
@@ -2509,6 +2718,8 @@ def main() -> int:
 
         if opts.phase == "prove":
             results, failures, launches = prove_phase(torch, dp)
+        elif opts.phase == "tooling":
+            results, failures, launches = tooling_phase(torch, dp)
         else:
             with open(opts.ref) as fh:
                 ref = json.load(fh)
@@ -2534,10 +2745,11 @@ def main() -> int:
 
 
 def run_all(opts, torch, tmp, children) -> int:
-    """Every phase in order (the prove phase and the mesh phase's two halves
-    in child processes, started before the capacity phase; prove joined in
-    the capacity phase's place, the mesh after the durable phase); 0 when
-    all pass."""
+    """Every phase in order (the tooling phase in a child process started
+    before the simulator phase and joined before the serve phase; the prove
+    phase and the mesh phase's two halves in child processes started before
+    the capacity phase, prove joined after it, the mesh after the durable
+    phase); 0 when all pass."""
     from open_simulator_tpu_torch.headline import (
         HEADLINE_DIGEST_100K_10K, build_state, placement_digest,
     )
@@ -2633,6 +2845,11 @@ def run_all(opts, torch, tmp, children) -> int:
         return 1
     launches += sum(r["launches"] for r in routes.values())
 
+    # -- the runtime tooling starts in a child process here: most of it is
+    # host Python, and it must end before the serve phase
+    tooling_child = start_phase_child("tooling", tmp)
+    children.append(tooling_child)
+
     # -- the simulator engine and simon apply -------------------------------
     sim_results, failures, sim_launches, sim_pops = simulator_phase(torch, dp, fast)
     if failures:
@@ -2659,7 +2876,7 @@ def run_all(opts, torch, tmp, children) -> int:
     launches += cap_launches
 
     # -- simon prove: universe engines, oracle, commit-order contract ------
-    prove_results, failures, prove_launches = join_phase_child(children[0], 420)
+    prove_results, failures, prove_launches = join_phase_child(children[1], 420)
     if failures:
         print("chip_smoke: prove FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -2681,7 +2898,7 @@ def run_all(opts, torch, tmp, children) -> int:
 
     # -- device meshes: node and lane splits, 2-D, elastic resume, bytes ----
     mesh_results, failures, mesh_launches = {}, [], 0
-    for phase, child in zip(MESH_LEGS, children[1:]):
+    for phase, child in zip(MESH_LEGS, children[2:]):
         got = join_phase_child(child, 600)
         mesh_results[phase] = got[0]
         failures += got[1]
@@ -2701,6 +2918,13 @@ def run_all(opts, torch, tmp, children) -> int:
         print("chip_smoke: resident FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     launches += resident_launches
+
+    # -- the runtime tooling: warmup, warm start, profile, sanitizer, trace --
+    tooling_results, failures, tooling_launches = join_phase_child(tooling_child, 300)
+    if failures:
+        print("chip_smoke: tooling FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    launches += tooling_launches
 
     # -- serving: simon server with admission control and the batching loop --
     serve_results, failures, serve_launches, serve_pops = serve_phase(torch, dp, fast)
@@ -2781,7 +3005,7 @@ def run_all(opts, torch, tmp, children) -> int:
                 "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
                 "capacity": cap_results, "prove": prove_results, "extenders": ext_results,
                 "durable": durable_results, "resident": resident_results,
-                "serve": serve_results, "mesh": mesh_results,
+                "serve": serve_results, "mesh": mesh_results, "tooling": tooling_results,
                 "kernels": kernel_rows,
             }, f, indent=1, default=str)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -1,5 +1,6 @@
 """Command line of the PyTorch/CUDA port: `simon apply`, `prove`, `runs`,
-`sweep`, `chaos` and `server` on the port's engine.
+`sweep`, `chaos`, `server`, `warmup`, `profile`, `interleave`, `version` and
+`gen-doc` on the port's engine.
 
     python -m open_simulator_tpu_torch.cli apply -f example/simon-config.yaml \\
         [--device cpu] [--output-file F] [--default-scheduler-config F] \\
@@ -17,6 +18,13 @@
     python -m open_simulator_tpu_torch.cli server [--port 9998] [--device cpu] \\
         [--kubeconfig F] [--master URL] [--queue-depth N] [--pack-window-ms MS] \\
         [--coalesce-ms MS] [--default-deadline-ms MS]
+    python -m open_simulator_tpu_torch.cli warmup [--check] [--no-sweep] \\
+        [--format text|json] [--device cpu]
+    python -m open_simulator_tpu_torch.cli profile [--gaps] [--entries A,B] \\
+        [--repeats N] [--out DIR] [--format text|json] [--device cpu] [-- COMMAND ...]
+    python -m open_simulator_tpu_torch.cli interleave [SCENARIO ...] [--quick] \\
+        [--seed N] [--mutate M] [--replay F] [--schedule-out F] [--format text|json]
+    python -m open_simulator_tpu_torch.cli version | gen-doc [--output-dir D]
 
 Runs on CUDA unless `--device` says otherwise, and fails without a card.
 The text output and exit codes are the JAX package's CLI's, the device name
@@ -52,6 +60,18 @@ admission control, the continuous-batching scheduler loop, warm scenario
 sessions, async jobs and, with --kubeconfig/--master, a cached live-cluster
 snapshot held on the device. SIGTERM or SIGINT drains it and exits 0.
 
+warmup: pay every one-time cost (kernel builds into the compile cache, the
+CUDA context, every registry entry's first launch, the capacity-sweep
+rehearsal); `--check` is the warm-start check (engine/warmup.py,
+analysis/entry_audit.py). Exit code 0 when ok, 1 otherwise.
+
+profile: run a command under a torch.profiler trace, and/or time every
+registry entry (device ms, dispatch ms, gap ratio; utils/profiling.py).
+
+interleave: the concurrency model checker over the admission, fence,
+session, journal and breaker protocols (analysis/interleave.py); exit code
+1 on a violation.
+
 prove: the small-scope semantics check (analysis/semantics.py). Exit code 0
 when every universe agrees with the oracle and the contract verifies, 1 on
 a divergence or a contract mismatch.
@@ -64,6 +84,9 @@ import json
 import os
 import sys
 from typing import List, Optional
+
+# the reference CLI's version string (open_simulator_tpu/cli/main.py)
+VERSION = "0.1.0"
 
 
 def _add_apply(sub) -> None:
@@ -192,15 +215,119 @@ def _add_server(sub) -> None:
                    "(default: OSIM_SERVER_DEFAULT_DEADLINE_MS or 0 = none)")
 
 
+def _add_warmup(sub) -> None:
+    p = sub.add_parser(
+        "warmup", help="pay every one-time cost: kernel builds, the CUDA context, the first "
+        "launch of every registry entry and the capacity-sweep rehearsal",
+        description=(
+            "Warm the process and the compile cache (OSIM_COMPILE_CACHE, else build/): "
+            "build the hand kernels, call every registry entry at its canonical shapes "
+            "(the capture list of analysis/entry_audit.py), time a second call of each, "
+            "and rehearse the canonical capacity sweep. `--check` runs the warm-start "
+            "check instead: the sweep in a process sharing the cache must build no kernel "
+            "and give equal serial and batched answers (exit 1 otherwise)."
+        ),
+    )
+    p.add_argument("--format", choices=("text", "json"), default="text")
+    p.add_argument("--no-sweep", action="store_true",
+                   help="skip the capacity-sweep rehearsal (registry entries only)")
+    p.add_argument("--check", action="store_true",
+                   help="run the warm-start check: zero kernel builds over the canonical "
+                   "capacity sweep and equal serial and batched answers")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+
+def _add_profile(sub) -> None:
+    p = sub.add_parser(
+        "profile", help="capture a device trace and/or run the dispatch-gap analyzer",
+        description=(
+            "Device-time profiling. With a trailing command (`profile -- apply -f "
+            "cfg.yaml`), run it under a torch.profiler trace written to --out as "
+            "trace.json (Chrome trace, CUDA kernels included on a card). Without a "
+            "command, or with --gaps, time every registry entry at its canonical shapes: "
+            "per-entry device time (kernel time from a torch.profiler capture of the "
+            "call), dispatch time (the call's wall between two synchronizes minus its "
+            "device time) and the dispatch-gap ratio, published as "
+            "osim_device_time_seconds / osim_dispatch_gap_ratio."
+        ),
+    )
+    p.add_argument("--out", default="",
+                   help="device-trace output directory (default: <runs root>/device-profile)")
+    p.add_argument("--gaps", action="store_true",
+                   help="also run the dispatch-gap analyzer after the traced command "
+                   "(implied when no command is given)")
+    p.add_argument("--entries", default="",
+                   help="comma-separated registry entry names to analyze (default: all)")
+    p.add_argument("--repeats", type=int, default=3,
+                   help="timed repeats per entry, keeping the fastest (default 3)")
+    p.add_argument("--format", choices=("text", "json"), default="text")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("cmd", nargs=argparse.REMAINDER, metavar="command",
+                   help="command to run under the device trace, e.g. "
+                   "`profile -- apply -f cfg.yaml`")
+
+
+def _add_interleave(sub) -> None:
+    p = sub.add_parser(
+        "interleave", help="deterministic concurrency model checker over the serving and "
+        "durability protocols",
+        description=(
+            "Stateless model checker: run the real AdmissionQueue / SchedulerLoop / "
+            "session-LRU / RunJournal / CircuitBreaker code under cooperative shim sync "
+            "primitives and explore every interleaving of each small-scope protocol "
+            "scenario within a context-switch bound, pruned by sleep-set DPOR. A violation "
+            "exits 1 with a minimized, replayable schedule."
+        ),
+    )
+    p.add_argument("scenario", nargs="*", metavar="SCENARIO",
+                   help="scenarios to explore (default: all: admission, fence, session, "
+                   "journal, breaker)")
+    p.add_argument("--format", choices=("text", "json"), default="text")
+    p.add_argument("--quick", action="store_true",
+                   help="preemption bound 1 and a smaller run budget")
+    p.add_argument("--seed", type=int, default=0,
+                   help="exploration-order seed; same seed => byte-identical report")
+    p.add_argument("--mutate", choices=("double-checkout", "double-probe", "fence-regression",
+                                        "lost-ticket", "torn-checkpoint"), default=None,
+                   help="run a scenario with a deliberately broken protocol; the checker "
+                   "must catch and minimize it")
+    p.add_argument("--replay", default=None, metavar="PATH",
+                   help="execute exactly one schedule from a violation's JSON schedule file")
+    p.add_argument("--schedule-out", default=None, metavar="PATH",
+                   help="write the first violation's minimized schedule JSON here")
+    p.add_argument("--preemptions", type=int, default=None, metavar="N",
+                   help="context-switch bound override (default: 2; --quick: 1)")
+    p.add_argument("--max-runs", type=int, default=None, metavar="N",
+                   help="per-scenario interleaving budget override (default: 60000; "
+                   "--quick: 8000)")
+    p.add_argument("--max-steps", type=int, default=None, metavar="N",
+                   help="per-run scheduling-decision cap (default: 500)")
+    p.add_argument("--no-dpor", action="store_true",
+                   help="disable sleep-set partial-order reduction")
+
+
 def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="open_simulator_tpu_torch.cli")
+    ap = argparse.ArgumentParser(
+        prog="open_simulator_tpu_torch.cli",
+        description="Cluster scheduling simulator (open-simulator capabilities) on PyTorch "
+        "and CUDA",
+    )
     sub = ap.add_subparsers(dest="command", required=True)
     _add_apply(sub)
     _add_chaos(sub)
+    _add_interleave(sub)
+    _add_profile(sub)
     _add_prove(sub)
     _add_runs(sub)
     _add_server(sub)
     _add_sweep(sub)
+    _add_warmup(sub)
+    sub.add_parser("version", help="print version", description="print version")
+    pd = sub.add_parser("gen-doc", help="generate CLI markdown docs",
+                        description="generate CLI markdown docs")
+    pd.add_argument("--output-dir", default="./docs/commandline-torch",
+                    help="where to write (default: ./docs/commandline-torch; the reference's "
+                    "docs/commandline is left as it is)")
     return ap
 
 
@@ -793,8 +920,135 @@ def _run_server(args) -> int:
         return 1
 
 
+def _run_warmup(args) -> int:
+    if args.check:
+        from .analysis.entry_audit import warm_start_check
+
+        result = warm_start_check(device=args.device)
+    else:
+        from .engine.warmup import run_warmup
+
+        result = run_warmup(include_sweep=not args.no_sweep, device=args.device)
+    if args.format == "json":
+        print(json.dumps(result.to_dict(), indent=2, sort_keys=True))
+    else:
+        print(result.render_text())
+    return 0 if result.ok else 1
+
+
+def _run_profile(args) -> int:
+    from .durable import default_runs_root
+    from .utils import profiling
+
+    cmd = [c for c in args.cmd if c != "--"]
+    report: dict = {}
+    rc = 0
+    if cmd:
+        out_dir = args.out or os.path.join(default_runs_root(), "device-profile")
+        rc_box: list = []
+        report["trace"] = profiling.capture_device_trace(
+            out_dir, fn=lambda: rc_box.append(main(cmd)), device=args.device,
+        )
+        rc = rc_box[0] if rc_box else 1
+        if not report["trace"].get("ok"):
+            rc = rc or 1
+    gaps = None
+    if args.gaps or not cmd:
+        names = [s.strip() for s in args.entries.split(",") if s.strip()] or None
+        try:
+            gaps = profiling.analyze_dispatch_gaps(
+                names=names, repeats=args.repeats, device=args.device,
+            )
+        except KeyError as e:
+            print(f"error: unknown audit entry {e}", file=sys.stderr)
+            return 1
+        report["dispatch_gaps"] = gaps.to_dict()
+    if args.format == "json":
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        if "trace" in report:
+            t = report["trace"]
+            state = "ok" if t.get("ok") else f"failed: {t.get('error')}"
+            print(f"device trace ({state}): {t.get('trace_dir')}")
+        if gaps is not None:
+            print(gaps.render_text())
+    return rc
+
+
+def _run_interleave(args) -> int:
+    from .analysis import interleave
+
+    replay = None
+    if args.replay:
+        with open(args.replay) as fh:
+            replay = json.load(fh)
+    try:
+        report = interleave.run_interleave(
+            args.scenario or None, seed=args.seed, quick=args.quick, mutate=args.mutate,
+            preemptions=args.preemptions, max_runs=args.max_runs, max_steps=args.max_steps,
+            use_dpor=not args.no_dpor, replay=replay,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if args.schedule_out:
+        for sc in report.scenarios:
+            if sc.violations:
+                sched = interleave._schedule_dict(sc.violations[0], report.seed, report.mutate)
+                with open(args.schedule_out, "w") as fh:
+                    json.dump(sched, fh, indent=2, sort_keys=True)
+                    fh.write("\n")
+                break
+    if args.format == "json":
+        print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
+    else:
+        print(report.render_text())
+    return 0 if report.ok else 1
+
+
+def _run_version(args) -> int:
+    print(f"simon-tpu version {VERSION}")
+    return 0
+
+
+def _gen_doc(parser: argparse.ArgumentParser, output_dir: str) -> int:
+    """Markdown docs, one file per command, as the reference's cobra doc
+    generator lays them out: simon.md and simon_<command>.md, cross-linked."""
+    os.makedirs(output_dir, exist_ok=True)
+    sub_actions = [a for a in parser._actions if isinstance(a, argparse._SubParsersAction)]
+    commands = dict(sub_actions[0].choices) if sub_actions else {}
+    written = []
+    root = os.path.join(output_dir, "simon.md")
+    with open(root, "w") as fh:
+        fh.write("## simon\n\n")
+        fh.write(f"{parser.description}\n\n")
+        fh.write("```\n" + parser.format_help() + "```\n\n")
+        if commands:
+            fh.write("### SEE ALSO\n\n")
+            for name, sp in commands.items():
+                help_line = (sp.description or "").strip()
+                fh.write(f"* [simon {name}](simon_{name}.md)"
+                         + (f" — {help_line}" if help_line else "") + "\n")
+    written.append(root)
+    for name, sp in commands.items():
+        path = os.path.join(output_dir, f"simon_{name}.md")
+        with open(path, "w") as fh:
+            fh.write(f"## simon {name}\n\n")
+            if sp.description:
+                fh.write(f"{sp.description}\n\n")
+            fh.write("```\n" + sp.format_help() + "```\n\n")
+            fh.write("### SEE ALSO\n\n* [simon](simon.md)\n")
+        written.append(path)
+    for path in written:
+        print(f"wrote {path}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.command == "gen-doc":
+        return _gen_doc(parser, args.output_dir)
     from .utils import flightrec
     from .utils.tracing import init_logging
 
@@ -815,8 +1069,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if plan is not None:
             faults.install_plan(plan)
     return {
-        "apply": _run_apply, "chaos": _run_chaos, "prove": _run_prove,
-        "runs": _run_runs, "server": _run_server, "sweep": _run_sweep,
+        "apply": _run_apply, "chaos": _run_chaos, "interleave": _run_interleave,
+        "profile": _run_profile, "prove": _run_prove, "runs": _run_runs,
+        "server": _run_server, "sweep": _run_sweep, "version": _run_version,
+        "warmup": _run_warmup,
     }[args.command](args)
 
 

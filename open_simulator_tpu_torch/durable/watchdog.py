@@ -17,8 +17,11 @@ BackendUnavailable. This is where the port departs from the reference,
 whose ladder ends by switching JAX to the CPU and stamping
 `fallback: cpu`: the port never moves a run to another device after a
 failure. The `fallback` fields of outcome.json and `simon runs` stay, and
-stay empty. There is no warmup phase either (ROADMAP.md item 14):
-OSIM_WARMUP=1 logs that it is not ported.
+stay empty. OSIM_WARMUP=1 (or `warmup=True`) runs the warmup phase
+(engine/warmup.run_warmup) right after the first contact, under its own
+deadline, and journals a `warmup` event; a warmup that fails is journaled
+(`warmup_error`) and the run goes on cold, on the same device, as the
+reference's does.
 
 The worker thread cannot be stopped and runs on; the CLI exits on
 DeadlineExceeded (code 3), which ends it with the process, and `simon runs
@@ -166,8 +169,31 @@ def _default_probe(device=DEFAULT_DEVICE) -> str:
 
 
 def warmup_requested() -> bool:
-    """OSIM_WARMUP=1 asks for the reference's warmup phase (not ported)."""
+    """OSIM_WARMUP=1 opts runs into the warmup phase after acquisition."""
     return os.environ.get("OSIM_WARMUP", "").strip().lower() in ("1", "true", "yes", "on")
+
+
+def _warm_phase(deadline_s: float, journal: Any, info: Dict[str, Any], device) -> None:
+    """The warmup phase after the first contact: every one-time cost paid
+    while nothing is timed, journaled so that a warm start is recorded. A
+    timeout or an error is journaled and the run goes on cold."""
+    from ..engine.warmup import run_warmup
+
+    try:
+        report = guarded_call("warmup", lambda: run_warmup(device=device), deadline_s,
+                              journal=journal)
+    except Exception as e:  # the run goes on cold; the journal records why
+        log.warning("warmup phase failed (%s); continuing cold", e)
+        info["warmup"] = {"ok": False, "error": str(e)}
+        if journal is not None:
+            journal.append("warmup_error", error=str(e))
+        return
+    info["warmup"] = {
+        "ok": report.ok, "entries": len(report.entries), "seconds": round(report.seconds, 3),
+        "cold_compiles": report.cold_compiles, "cache_dir": report.cache_dir,
+    }
+    if journal is not None:
+        journal.append("warmup", **info["warmup"])
 
 
 def acquire_backend(
@@ -178,15 +204,17 @@ def acquire_backend(
     clock: Callable[[], float] = time.monotonic,
     poll_s: float = 0.25,
     device=DEFAULT_DEVICE,
+    warmup: Optional[bool] = None,
 ) -> Dict[str, Any]:
     """Reach `device` under a hard deadline: one try, one journaled retry,
-    then `backend_error` and BackendUnavailable. Returns `{"device": name}`,
-    the provenance the caller stamps on its output."""
+    then `backend_error` and BackendUnavailable. `warmup` (default:
+    OSIM_WARMUP) runs the warmup phase after the contact. Returns
+    `{"device": name}` (plus `"warmup"` when the phase ran), the provenance
+    the caller stamps on its output."""
     if deadline_s is None:
         deadline_s = backend_deadline_s()
-    if warmup_requested():
-        log.warning("OSIM_WARMUP: the warmup phase is not ported to "
-                    "open_simulator_tpu_torch yet (ROADMAP.md Queue 1 item 14: tooling)")
+    if warmup is None:
+        warmup = warmup_requested()
     probe_fn = probe or (lambda: _default_probe(device))
 
     def _try(stage: str) -> str:
@@ -197,7 +225,10 @@ def acquire_backend(
         name = _try("backend-acquire")
         if journal is not None:
             journal.append("backend", device=name)
-        return {"device": name}
+        info: Dict[str, Any] = {"device": name}
+        if warmup:
+            _warm_phase(deadline_s, journal, info, device)
+        return info
     except Exception as first_err:  # DeadlineExceeded or a probe error
         if journal is not None:
             journal.append("backend_retry", error=str(first_err))
@@ -213,4 +244,7 @@ def acquire_backend(
             raise BackendUnavailable(reason) from second_err
         if journal is not None:
             journal.append("backend", device=name, retried=True)
-        return {"device": name}
+        info = {"device": name}
+        if warmup:
+            _warm_phase(deadline_s, journal, info, device)
+        return info

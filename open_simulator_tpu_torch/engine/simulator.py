@@ -35,6 +35,7 @@ plus the GreedQueue behind use_greed).
 from __future__ import annotations
 
 import copy
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -94,6 +95,12 @@ from ..plugins import split_registry
 from ..utils import metrics
 from ..utils.tracing import log, progress, span
 from .preemption import PodDisruptionBudget, try_preempt
+
+# The preemption probe's device calls and the lanes they carried, since
+# import: a plain counter (read by chip_smoke.py), not a metrics family, so
+# the port's /metrics declares exactly the reference's families.
+PROBE_LANES = {"calls": 0, "lanes": 0}
+_PROBE_LANES_LOCK = threading.Lock()
 
 
 @dataclass
@@ -958,8 +965,9 @@ class Simulator:
                         torch.from_numpy(cols).to(self.device),
                     ).cpu().numpy()
                 out.extend(bool(b) for b in res)
-                metrics.PROBE_LANES.inc(1, unit="calls")
-                metrics.PROBE_LANES.inc(len(chunk), unit="lanes")
+                with _PROBE_LANES_LOCK:
+                    PROBE_LANES["calls"] += 1
+                    PROBE_LANES["lanes"] += len(chunk)
             return out
 
         return fits_many

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .encode import round_up
+from .sanitize import sanitizable
 
 _MASK32 = 0xFFFFFFFF
 
@@ -48,6 +49,7 @@ def pad_indices(idx: Iterable[int], n: int) -> np.ndarray:
     return out
 
 
+@sanitizable("ops.delta:apply_rows", donate_argnums=(0,))
 def apply_rows(arr: torch.Tensor, idx: np.ndarray, rows: np.ndarray) -> torch.Tensor:
     """arr[idx[u]] = rows[u] for every live slot u (idx[u] < len(arr)); the
     pad slots are dropped. The live slots are picked on the host and only
@@ -60,6 +62,7 @@ def apply_rows(arr: torch.Tensor, idx: np.ndarray, rows: np.ndarray) -> torch.Te
     return arr
 
 
+@sanitizable("ops.delta:apply_flags", donate_argnums=(0,))
 def apply_flags(arr: torch.Tensor, idx: np.ndarray, vals: np.ndarray) -> torch.Tensor:
     """apply_rows for 1-D per-node vectors (flags, name ids); the same
     contract: `arr` is written and returned."""
@@ -73,6 +76,7 @@ def _bits_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _MASK32
 
 
+@sanitizable("ops.delta:digest_fold")
 def digest_fold(x: torch.Tensor) -> torch.Tensor:
     """i64[] holding the u32 position-weighted checksum of `x`, computed on
     its device (one 8-byte scalar to fetch)."""

@@ -43,11 +43,12 @@ from pathlib import Path
 
 import torch
 
+from ..utils import platform as _platform
 from .kernels import _EPS
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "domain_pop.cu"
-BUILD_DIR = _PKG.parent / "build"
+BUILD_DIR = _PKG.parent / "build"   # the default of build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -154,26 +155,42 @@ def _nvcc() -> str:
     )
 
 
+def build_dir() -> Path:
+    """The directory kernels are built into and loaded from, read at each
+    build: `$OSIM_COMPILE_CACHE/<card fingerprint>` when that is set, else
+    BUILD_DIR (utils/platform.py)."""
+    return Path(_platform.enable_compilation_cache())
+
+
 def build_libraries(*sources: Path) -> list[Path]:
-    """Compile each CUDA source into build/ (once per source content), all
-    nvcc processes started together, and return the shared libraries' paths.
-    One build at a time per process (a lock) and per build/ (a file lock);
-    a library that appeared while waiting is not built again."""
+    """Compile each CUDA source into build_dir() (once per source content),
+    all nvcc processes started together, and return the shared libraries'
+    paths. One build at a time per process (a lock) and per directory (a
+    file lock); a library that appeared while waiting is not built again.
+    Each source counts one compile-cache event (utils/platform.py): a
+    `backend_compile` when nvcc ran for it, else a `persistent_hit`."""
+    out_dir = build_dir()
     sos = []
     for source in sources:
         tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        sos.append(BUILD_DIR / f"lib{source.stem}-{tag}.so")
-    if all(so.is_file() for so in sos):
-        return sos
-    with _build_lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(BUILD_DIR / ".build.lock", "w") as lock_fh:
-            fcntl.flock(lock_fh, fcntl.LOCK_EX)
-            _build_missing(sources, sos)
+        sos.append(out_dir / f"lib{source.stem}-{tag}.so")
+    built: set = set()
+    if not all(so.is_file() for so in sos):
+        with _build_lock:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            with open(out_dir / ".build.lock", "w") as lock_fh:
+                fcntl.flock(lock_fh, fcntl.LOCK_EX)
+                built = _build_missing(sources, sos)
+    for so in sos:
+        _platform.compile_event(
+            _platform.BACKEND_COMPILE_EVENT if so in built else _platform.PERSISTENT_HIT_EVENT
+        )
     return sos
 
 
-def _build_missing(sources, sos) -> None:
+def _build_missing(sources, sos) -> set:
+    """Build the sources whose library is missing; returns the libraries
+    built."""
     global build_log
     todo = [(src, so) for src, so in zip(sources, sos) if not so.is_file()]
     if todo:
@@ -195,6 +212,7 @@ def _build_missing(sources, sos) -> None:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
+    return {so for _, so in todo}
 
 
 def _library():

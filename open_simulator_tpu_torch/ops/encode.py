@@ -34,6 +34,7 @@ from ..core.objects import (
     NodeLocalStorage,
     Pod,
 )
+from ..utils import metrics as _metrics
 
 # Resource scaling: canonical int units -> f32-safe units.
 # cpu is already milli; byte-like resources go to MiB so f32's 24-bit mantissa
@@ -741,6 +742,7 @@ def encode_nodes(
         else:
             pid, num = 0, _nan
         clones.setdefault(tmpl, []).append((i, nid, pid, num))
+    stamped = 0
     for tmpl, rows in clones.items():
         idx = np.fromiter((r[0] for r in rows), np.int32, len(rows))
         for f in _STAMP_FIELDS:
@@ -754,6 +756,9 @@ def encode_nodes(
             j = int(np.nonzero(table.label_key[tmpl] == key_id)[0][0])
             table.label_pair[idx, j] = np.fromiter((r[2] for r in rows), np.int32, len(rows))
             table.label_num[idx, j] = np.fromiter((r[3] for r in rows), np.float32, len(rows))
+        stamped += len(rows)
+    if stamped:
+        _metrics.ENCODE_STAMPED_ROWS.inc(stamped)
     return table
 
 

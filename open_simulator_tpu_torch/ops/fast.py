@@ -115,6 +115,7 @@ from .kernels import (
     resource_fail,
     schedule_step,
 )
+from .sanitize import sanitizable
 from .state import pod_rows_from_batch
 
 _log = logging.getLogger("osim")
@@ -138,10 +139,15 @@ _PATH_LOCK = threading.Lock()  # simulate() may run on two threads at once (the 
 
 
 def _count_path(route: str, n: int = 1) -> None:
-    if not nx.is_root():
+    """Tally a route in PATH_COUNTS and, for the reference's routes, in
+    osim_fast_path_total{path=} (the kernel launches are PATH_COUNTS
+    only)."""
+    if n <= 0 or not nx.is_root():
         return      # a mesh run counts its routes once, on its first slot
     with _PATH_LOCK:
         PATH_COUNTS[route] += n
+    if route != "domain_kernel":
+        _metrics.FAST_PATH.inc(n, path=route)
 
 # Channel layout of Trajectory.packed.
 CH_CPU, CH_MEM, CH_RES_FAIL, CH_PORT_OK, CH_STO_OK, CH_GPU_OK = range(6)
@@ -228,6 +234,7 @@ def _any_affinity(flags: GroupFlags) -> bool:
     return flags.any_req_aff or flags.any_pref_aff or flags.any_anti_sym
 
 
+@sanitizable("ops.fast:build_trajectory")
 def build_trajectory(
     ns: NodeStatic,
     carry: Carry,
@@ -460,6 +467,7 @@ def _filters_on(filter_on, dev) -> torch.Tensor:
     return filter_on
 
 
+@sanitizable("ops.fast:sort_select")
 def sort_select(
     ns: NodeStatic,
     traj: Trajectory,
@@ -509,6 +517,7 @@ def sort_select(
     return mono_ok, nodes, jidx, x
 
 
+@sanitizable("ops.fast:cur_at")
 def cur_at(traj: Trajectory, x: torch.Tensor) -> torch.Tensor:
     """packed[n, x_n] for every node."""
     return _sel_j(traj.packed, x)
@@ -530,6 +539,7 @@ def _step_outputs(vals: list, size: int, pad: int, dev) -> torch.Tensor:
     return out
 
 
+@sanitizable("ops.fast:light_scan")
 def light_scan(
     ns: NodeStatic,
     traj: Trajectory,
@@ -787,6 +797,13 @@ def _domain_plan(
     )
 
 
+def _takes_kernel(args: dict) -> bool:
+    """Whether a domain_select call launches the domain_pop CUDA kernel (a
+    spread-only group on a card): the sanitizer lets it run unchecked."""
+    return args["traj"].packed.device.type == "cuda" and not _any_affinity(args["flags"])
+
+
+@sanitizable("ops.fast:domain_select", skip=_takes_kernel)
 def domain_select(
     ns: NodeStatic,
     traj: Trajectory,
@@ -998,6 +1015,7 @@ def _affinity_pop(
     return _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
 
+@sanitizable("ops.fast:light_reasons")
 def light_reasons(
     ns: NodeStatic,
     carry0: Carry,
@@ -1030,6 +1048,7 @@ def light_reasons(
     return reason_row(first_fail, ns.valid)
 
 
+@sanitizable("ops.fast:gather_takes")
 def gather_takes(traj: Trajectory, nodes: torch.Tensor, jidxs: torch.Tensor):
     """Per-pod allocation takes from (chosen node, commit index)."""
     N = traj.packed.shape[0]
@@ -1043,6 +1062,7 @@ def gather_takes(traj: Trajectory, nodes: torch.Tensor, jidxs: torch.Tensor):
     )
 
 
+@sanitizable("ops.fast:exit_carry")
 def exit_carry(
     ns: NodeStatic, carry0: Carry, pod: PodRow, traj: Trajectory, x: torch.Tensor
 ) -> Carry:
@@ -1390,6 +1410,7 @@ def _scenario_step(ns: NodeStatic, filter_on):
     return torch.func.vmap(one, in_dims=(0, 0, 0, None, None))
 
 
+@sanitizable("ops.fast:schedule_scenarios")
 def schedule_scenarios(
     ns: NodeStatic,
     carry_s: Carry,
@@ -1437,6 +1458,7 @@ def _lanes_on_mesh(fn, *args):
     )
 
 
+@sanitizable("ops.fast:schedule_scenarios_chunked")
 def schedule_scenarios_chunked(
     ns: NodeStatic,
     carry_s: Carry,
@@ -1446,14 +1468,26 @@ def schedule_scenarios_chunked(
     count: int,
     filter_on=None,
 ):
-    """One chunk of the scenario scan, count-gated: only the first `count`
-    pods of the chunk step (the reference masks the carry writes of the
-    rest, which leaves the carry as it was); outputs cover those pods."""
-    return schedule_scenarios(
+    """One chunk of the scenario scan, count-gated, as the reference's: the
+    first `count` pods step and commit; each later pod of the chunk is a
+    pad step, evaluated against the carry the live steps left and
+    committing nothing (the reference masks its carry writes). Outputs
+    cover every pod of the chunk; the host driver trims the pad steps'."""
+    carry_s, *outs = schedule_scenarios(
         ns, carry_s, PodRow(*(a[:count] for a in pods)), weights_s, valid_s, filter_on
     )
+    pads = [
+        schedule_scenarios(
+            ns, carry_s, PodRow(*(a[i:i + 1] for a in pods)), weights_s, valid_s, filter_on,
+        )[1:]
+        for i in range(count, int(pods.req.shape[0]))
+    ]
+    if pads:
+        outs = [torch.cat([o] + [p[k] for p in pads], dim=1) for k, o in enumerate(outs)]
+    return (carry_s,) + tuple(outs)
 
 
+@sanitizable("ops.fast:schedule_wave")
 def schedule_wave(
     ns: NodeStatic,
     carry_s: Carry,
@@ -1481,6 +1515,7 @@ def schedule_wave(
     )
 
 
+@sanitizable("ops.fast:commit_choices")
 def commit_choices(
     ns: NodeStatic,
     carry_s: Carry,
@@ -1513,6 +1548,7 @@ def _universe_step(filter_on):
     return torch.func.vmap(one)
 
 
+@sanitizable("ops.fast:schedule_universes")
 def schedule_universes(
     ns_s: NodeStatic,
     carry_s: Carry,
@@ -1817,7 +1853,7 @@ def _schedule_scenarios_chunked_host(
             ns, carry_s, PodRow(*(a[lo:lo + chunk] for a in rows)),
             weights_s, valid_s, count, filter_on,
         )
-        drv.outs.append(_to_host(out))
+        drv.outs.append(tuple(a[:, :count] for a in _to_host(out)))
         drv.chunk_done(i, lo + count, carry_s)
         i += 1
     return drv.finish(carry_s, s_real)

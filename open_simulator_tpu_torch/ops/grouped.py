@@ -22,6 +22,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel import slots as nx
 from .encode import PodBatch, round_up
+from .sanitize import sanitizable
 from .kernels import (
     Carry,
     F_EXTRA,
@@ -86,6 +87,7 @@ def _static_parts(ns: NodeStatic, pod: PodRow, weights, filter_on=None):
     return ~fails.any(dim=1), first_failure(fails), static_scores, na_ok
 
 
+@sanitizable("ops.grouped:_group_jit")
 def schedule_group(
     ns: NodeStatic,
     carry: Carry,

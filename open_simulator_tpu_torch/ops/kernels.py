@@ -34,6 +34,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel import slots as nx
+from .sanitize import sanitizable
 from .encode import (
     GPU_COUNT_IDX,
     OP_EXISTS,
@@ -947,6 +948,7 @@ def schedule_step(
     )
 
 
+@sanitizable("ops.kernels:schedule_batch")
 def schedule_batch(
     ns: NodeStatic, carry: Carry, pods: PodRow, weights: torch.Tensor, filter_on=None,
     extra_filters=(), extra_scores=(),
@@ -966,6 +968,7 @@ def schedule_batch(
     return (carry,) + tuple(torch.stack(col) for col in zip(*outs))
 
 
+@sanitizable("ops.kernels:probe_step")
 def probe_step(
     ns: NodeStatic, carry: Carry, pod: PodRow, weights: torch.Tensor, filter_on=None,
     extra_filters=(), extra_scores=(),
@@ -981,6 +984,7 @@ def probe_step(
     return mask & ns.valid, score, first_fail
 
 
+@sanitizable("ops.kernels:commit_step")
 def commit_step(ns: NodeStatic, carry: Carry, pod: PodRow, node: torch.Tensor):
     """Commit ONE pod to node index `node` (i32 scalar, -1 = no commit): the
     scan's state transition for the same choice -> (carry, gpu_take
@@ -994,6 +998,7 @@ def commit_step(ns: NodeStatic, carry: Carry, pod: PodRow, node: torch.Tensor):
     return new_carry, gpu_take.to(torch.int32), vg_take, dev_take
 
 
+@sanitizable("ops.kernels:probe_many")
 def probe_many(
     ns: NodeStatic, carry: Carry, rows: PodRow, weights: torch.Tensor, filter_on=None,
     extra_filters=(), extra_scores=(),
@@ -1012,6 +1017,7 @@ def probe_many(
     return torch.func.vmap(one)(rows)
 
 
+@sanitizable("ops.kernels:commit_wave")
 def commit_wave(
     ns: NodeStatic, carry: Carry, rows: PodRow, weights: torch.Tensor,
     expected_mask: torch.Tensor, expected_ff: torch.Tensor, ext_allowed: torch.Tensor,

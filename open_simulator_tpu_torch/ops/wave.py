@@ -45,6 +45,7 @@ from .kernels import (
     run_filters,
     run_scores,
 )
+from .sanitize import sanitizable
 
 # auto mode takes the wave engine only from this many pods on
 WAVE_AUTO_MIN_PODS = 512
@@ -221,6 +222,7 @@ def _universe_commit(parts: frozenset):
     return torch.func.vmap(one)
 
 
+@sanitizable("ops.fast:schedule_universes_wave")
 def universe_round(
     ns_s: NodeStatic,
     weights_s: torch.Tensor,

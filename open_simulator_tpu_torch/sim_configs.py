@@ -135,6 +135,15 @@ MULTI_SCENARIO_DIGESTS = {
 # example/simon-config.yaml through run_apply(auto_plan=True) in the JAX
 # package: (report_digest, placement_digest, nodes_added, attempts).
 QUICKSTART_DIGEST = ("3140719f1dc40b4e23a84fdb1dbd5530", "65b089aece437ea2", 1, 2)
+# example/simon-config.yaml through simulate() (no capacity search) in the
+# JAX package after reset_name_rng(): (result_digest, placed, unscheduled).
+# chip_smoke.py's tooling phase holds the plain and the sanitized
+# (OSIM_SANITIZE=1) run against it.
+QUICKSTART_SIM_DIGEST = ("ba149f655c31c5fd3350142ea9e6f170", 66, 2)
+# nodes_added of the canonical capacity sweep (the reference's
+# analysis/jaxpr_audit._run_sweeps, serial and batched) in the JAX package:
+# what `simon warmup --check` must answer.
+WARM_START_NODES_ADDED = 7
 
 
 def _mk_node(name, cpu, mem, labels=None) -> dict:

@@ -122,8 +122,9 @@ def stamped_source() -> tuple[Path, list[str]]:
         "\nextern \"C\" int domain_pop_stages_read(void* out) {\n"
         f"  return static_cast<int>(cudaMemcpyFromSymbol(out, g_stage, {n + 1} * 8));\n}}\n"
     )
-    dp.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = dp.BUILD_DIR / "domain_pop_stamped.cu"
+    out_dir = dp.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "domain_pop_stamped.cu"
     path.write_text(prelude + body + tail)
     return path, names
 

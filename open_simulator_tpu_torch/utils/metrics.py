@@ -328,6 +328,11 @@ SCHEDULE_RESULT = REGISTRY.counter(
     "(victims evicted by a committed preemption).",
     labelnames=("result",),
 )
+COMPILE_CACHE = REGISTRY.counter(
+    "osim_compile_cache_total",
+    "Device-probe jit cache lookups (miss = new XLA compile).",
+    labelnames=("event",),
+)
 EXPAND_CACHE = REGISTRY.counter(
     "osim_expand_cache_total",
     "Workload expand-cache lookups inside simulate().",
@@ -339,16 +344,15 @@ FILTER_FAILURE = REGISTRY.counter(
     "by kube failure-reason string.",
     labelnames=("reason",),
 )
+FAST_PATH = REGISTRY.counter(
+    "osim_fast_path_total",
+    "schedule_batch_fast strategy selections, by path.",
+    labelnames=("path",),
+)
 PREEMPTION_ATTEMPTS = REGISTRY.counter(
     "osim_preemption_attempts_total",
     "Preemption attempts for unscheduled pods, by outcome.",
     labelnames=("outcome",),
-)
-PROBE_LANES = REGISTRY.counter(
-    "osim_preemption_probe_lanes_total",
-    "Post-eviction node states evaluated by the batched device probe "
-    "(Simulator._device_fits_many), and the probe calls that carried them.",
-    labelnames=("unit",),
 )
 APPLY_RUNS = REGISTRY.counter(
     "osim_apply_total",
@@ -597,6 +601,34 @@ JOBS = REGISTRY.counter(
     "Async jobs (POST /v1/jobs), by terminal outcome "
     "(completed | failed | rejected).",
     labelnames=("outcome",),
+)
+SANITIZER_VIOLATIONS = REGISTRY.counter(
+    "osim_sanitizer_violations_total",
+    "checkify violations (NaN/OOB/div) caught by OSIM_SANITIZE=1 runs, by "
+    "jit entry point.",
+    labelnames=("entry",),
+)
+ENCODE_STAMPED_ROWS = REGISTRY.counter(
+    "osim_encode_stamped_rows_total",
+    "Node rows materialized by the template-stamping encode fast path (row "
+    "broadcast of a previously-encoded identical node spec plus per-row "
+    "name fixups) instead of the per-node Python encode loop.",
+)
+DEVICE_TIME = REGISTRY.gauge(
+    "osim_device_time_seconds",
+    "Device seconds of one warmed call of each registry entry, from the "
+    "dispatch-gap analyzer (utils/profiling.py): on a CUDA device the kernel "
+    "time summed from a torch.profiler capture of the timed calls, per call; "
+    "0 on the CPU.",
+    labelnames=("entry",),
+)
+DISPATCH_GAP = REGISTRY.gauge(
+    "osim_dispatch_gap_ratio",
+    "Host dispatch-gap fraction per registry entry: (wall between two "
+    "torch.cuda.synchronize() calls around the call - its kernel time) / "
+    "that wall, the share of the entry's time the device sat idle waiting "
+    "for the host (1 on the CPU, where no device time is counted).",
+    labelnames=("entry",),
 )
 
 # span names with a dedicated kube-parity histogram

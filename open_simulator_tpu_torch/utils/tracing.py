@@ -1,7 +1,6 @@
-"""Timing spans, trace identity and logging.
+"""Timing spans, trace identity, the Chrome-trace export and logging.
 
-The port's copy of the JAX package's span tree, without the Chrome-trace
-export (ROADMAP.md item 14). Every span carries a trace id (32 hex digits,
+The port's copy of the JAX package's span tree. Every span carries a trace id (32 hex digits,
 shared by its trace) and a span id (16 hex digits). A `TraceContext`
 snapshot of the active span (`current_context()`) crosses a thread or a
 queue and is re-activated on the far side with `activate(ctx)`: the next
@@ -15,7 +14,9 @@ each finished root tree is kept in a bounded ring (`recent_timings`), which
 is where `chip_smoke.py` reads the simulator's phase split from, and fed
 to the crash flight recorder (utils/flightrec.py). A root span
 slower than OSIM_SLOW_TRACE seconds (default 1.0) logs its tree at WARNING,
-the reference's LogIfLong.
+the reference's LogIfLong. With OSIM_TRACE_FILE set, every finished root
+tree is also exported as Chrome trace events (Perfetto, chrome://tracing);
+see `_maybe_export_trace`.
 
 Spans are host wall time. A span around work queued on the card measures
 the enqueue unless the work ends in a transfer to the host, as every
@@ -24,6 +25,7 @@ simulator phase does (placements come back as numpy arrays).
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
@@ -174,6 +176,7 @@ def span(name: str, **meta):
                 _history.append(root)
                 del _history[:-HISTORY_MAX]
             _record_flight(root)
+            _maybe_export_trace(s)
             if s.duration > SLOW_TRACE_S:
                 log.warning("slow trace (> %.1fs):\n%s", SLOW_TRACE_S, s.render())
             else:
@@ -235,6 +238,95 @@ def recent_timings() -> List[dict]:
     """Recent root span trees, oldest first."""
     with _history_lock:
         return list(_history)
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event export (OSIM_TRACE_FILE)
+# ---------------------------------------------------------------------------
+#
+# Each finished root tree is flattened into "X" (complete) events with
+# epoch-microsecond `ts` and `dur`, and the whole accumulated event list is
+# rewritten to the file (to a temporary name, then renamed): roots are rare
+# (one per simulate() call), so the rewrite is cheap and the file is valid
+# JSON after every root, even if the process dies mid-run. Every event
+# carries its span's trace, span and parent ids (and links) as args, so the
+# exported file stays one connected, offline-reconnectable tree per request.
+# OSIM_TRACE_MAX_EVENTS (default 250,000) caps the events kept: past it the
+# oldest are rotated out, with one warning per process.
+
+_trace_lock = threading.Lock()
+_trace_events: List[dict] = []
+_TRACE_MAX_EVENTS = 250_000
+_trace_overflow_logged = False
+
+
+def _trace_max_events() -> int:
+    """OSIM_TRACE_MAX_EVENTS, read per export; a bad value keeps the
+    default."""
+    raw = os.environ.get("OSIM_TRACE_MAX_EVENTS", "").strip()
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            log.warning("ignoring non-integer OSIM_TRACE_MAX_EVENTS=%r", raw)
+    return _TRACE_MAX_EVENTS
+
+
+def _span_events(s: Span, pid: int, tid: int, out: List[dict]) -> None:
+    args = dict(s.meta)
+    args["trace_id"] = s.trace_id
+    args["span_id"] = s.span_id
+    if s.parent_id:
+        args["parent_id"] = s.parent_id
+    if s.links:
+        args["links"] = [dict(ln) for ln in s.links]
+    out.append({
+        "name": s.name, "cat": "osim", "ph": "X",
+        "ts": s.wall_start * 1e6, "dur": max(s.duration, 0.0) * 1e6,
+        "pid": pid, "tid": tid, "args": args,
+    })
+    for c in s.children:
+        _span_events(c, pid, tid, out)
+
+
+def _maybe_export_trace(root: Span) -> None:
+    """Append a finished root's events to OSIM_TRACE_FILE's list and
+    rewrite the file atomically; a no-op when the variable is unset."""
+    path = os.environ.get("OSIM_TRACE_FILE", "").strip()
+    if not path:
+        return
+    global _trace_overflow_logged
+    events: List[dict] = []
+    _span_events(root, os.getpid(), threading.get_ident(), events)
+    with _trace_lock:
+        cap = _trace_max_events()
+        _trace_events.extend(events)
+        overflow = len(_trace_events) - cap
+        if overflow > 0:
+            # oldest first: the newest spans are the ones an incident needs
+            del _trace_events[:overflow]
+            if not _trace_overflow_logged:
+                _trace_overflow_logged = True
+                log.warning(
+                    "OSIM_TRACE_FILE: event cap %d reached; rotating oldest events out "
+                    "(set OSIM_TRACE_MAX_EVENTS to resize)", cap,
+                )
+        payload = {"traceEvents": list(_trace_events), "displayTimeUnit": "ms"}
+        try:
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(payload, f, default=str)
+            os.replace(tmp, path)
+        except OSError as exc:
+            log.warning("OSIM_TRACE_FILE write failed: %s", exc)
+
+
+def reset_trace_events() -> None:
+    """Drop the accumulated trace events (and re-arm the cap warning)."""
+    global _trace_overflow_logged
+    with _trace_lock:
+        _trace_events.clear()
+        _trace_overflow_logged = False
 
 
 def span_seconds(tree: dict) -> dict:

@@ -2,8 +2,12 @@
 CPU: tests/test_metrics.py's rendering cases (label escaping, a counter
 that never fired, the default registry, the /metrics endpoint after a
 simulated request, format compliance, the single trailing newline) and
-`apply --metrics-file`. Tolerance: rendered text equal byte for byte, on
-the metrics both packages declare.
+`apply --metrics-file`; the two registries declare the same families (name,
+type, labels, buckets), and `osim_fast_path_total` and
+`osim_encode_stamped_rows_total` render the same after the same
+schedule_batch_fast and the same stamped encode (the port of
+tests/test_node_bucket.py's stamped-rows case). Tolerance: rendered text
+equal byte for byte, on the metrics both packages declare.
 """
 
 import json
@@ -245,3 +249,50 @@ def test_metrics_file_cli_flag(tmp_path, monkeypatch):
     for name in ("osim_schedule_result_total", "osim_apply_total",
                  "osim_pod_scheduling_attempts_total"):
         assert tsnap[name]["samples"] == jsnap[name]["samples"], name
+
+
+def test_registries_declare_the_same_families():
+    import open_simulator_tpu_torch.ops.fast  # noqa: F401  (every declaring module loaded)
+
+    assert set(tmetrics.REGISTRY._metrics) == set(jmetrics.REGISTRY._metrics)
+    for name, a in jmetrics.REGISTRY._metrics.items():
+        b = tmetrics.REGISTRY._metrics[name]
+        assert (type(a).__name__, a.labelnames, getattr(a, "buckets", None)) == (
+            type(b).__name__, b.labelnames, getattr(b, "buckets", None)), name
+
+
+def test_fast_path_and_stamped_rows_render_like_jax():
+    from open_simulator_tpu.core import objects as jobj
+    from open_simulator_tpu.ops import encode as jenc
+    from open_simulator_tpu.ops import fast as jfast
+    from open_simulator_tpu.ops.kernels import weights_array as jax_weights
+    from open_simulator_tpu_torch.core import objects as tobj
+    from open_simulator_tpu_torch.ops import encode as tenc
+    from open_simulator_tpu_torch.ops import fast as tfast
+    from open_simulator_tpu_torch.ops.kernels import weights_array as torch_weights
+    from tests.test_torch_fast import encode_both, pod_dict, spread, zone_nodes
+
+    for m in (jmetrics, tmetrics):
+        m.REGISTRY.reset()  # earlier tests of this process moved them apart
+    pods = [pod_dict(name="plain"),
+            pod_dict(labels={"app": "s"}, name="spread",
+                     spec_extra={"topologySpreadConstraints": [
+                         spread("topology.kubernetes.io/zone", 1, True, "s")]}),
+            pod_dict(cpu="64", name="huge")]
+    jstate, tstate = encode_both(zone_nodes(12), pods, [120, 60, 8])
+    jfast.schedule_batch_fast(*jstate, jax_weights(), force_fast=True)
+    tfast.schedule_batch_fast(*tstate, torch_weights(device="cpu"), force_fast=True,
+                              device="cpu")
+    stamped0 = tmetrics.ENCODE_STAMPED_ROWS.value()
+    for objs, enc in ((jobj, jenc), (tobj, tenc)):
+        nodes = [objs.Node.from_dict({
+            "metadata": {"name": f"m-{i}", "labels": {"kubernetes.io/hostname": f"m-{i}"}},
+            "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": "10"}},
+        }) for i in range(10)]
+        enc.encode_nodes(enc.Encoder(), nodes, stamp=True)
+    for name in ("osim_fast_path_total", "osim_encode_stamped_rows_total"):
+        got = tmetrics.REGISTRY._metrics[name].render()
+        assert got == jmetrics.REGISTRY._metrics[name].render(), name
+    assert tmetrics.ENCODE_STAMPED_ROWS.value() == stamped0 + 9  # 1 template, 9 clones
+    assert tmetrics.FAST_PATH.value(path="sort") >= 1
+    assert tmetrics.FAST_PATH.value(path="domain") >= 1

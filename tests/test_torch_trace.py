@@ -1,5 +1,8 @@
 """Trace identity on the port (utils/tracing.py TraceContext and its
-plumbing) against the JAX package's, on the CPU: the traceparent cases of
+plumbing) against the JAX package's, on the CPU: the OSIM_TRACE_FILE export
+cases of tests/test_metrics.py (a simulate() round trip, no file without
+the variable, the event cap's oldest-first rotation and its one warning, a
+bad cap value), then the traceparent cases of
 tests/test_trace_propagation.py (round trip, invalid headers, no context
 outside a trace, activation on another thread, the pack span's parent and
 links, the loop thread, an untraced submit, the server continuing an
@@ -332,3 +335,111 @@ def test_server_continues_incoming_trace_and_echoes_trace_id(monkeypatch):
             srv.server_close()
 
     assert both(scenario) == (200, upstream, True, "1234123412341234", True, 200, 32, True)
+
+
+# ---------------------------------------------------------------------------
+# OSIM_TRACE_FILE export
+# ---------------------------------------------------------------------------
+
+_NODE = {
+    "kind": "Node",
+    "metadata": {"name": "n0", "labels": {"kubernetes.io/hostname": "n0"}},
+    "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": "10"}},
+}
+_DEPLOY = {
+    "kind": "Deployment",
+    "metadata": {"name": "d", "namespace": "x"},
+    "spec": {
+        "replicas": 2,
+        "template": {
+            "metadata": {"labels": {"app": "d"}},
+            "spec": {"containers": [{"name": "c", "image": "i",
+                                     "resources": {"requests": {"cpu": "1"}}}]},
+        },
+    },
+}
+
+
+def test_trace_file_round_trip(monkeypatch, tmp_path):
+    """One simulate() -> valid JSON, every event a complete event inside the
+    root's window, the root's meta as args, and one connected tree: every
+    non-root event's parent id is another event's span id of the same
+    trace. The port's tree holds every (parent, child) edge of the JAX
+    export's (the port adds a `bind` span under `simulate`)."""
+
+    def scenario(p):
+        path = tmp_path / f"trace-{id(p)}.json"
+        monkeypatch.setenv("OSIM_TRACE_FILE", str(path))
+        p.tracing.reset_trace_events()
+        try:
+            p.sim.simulate(p.sim.ClusterResource(nodes=[p.Node.from_dict(_NODE)]),
+                           [p.sim.AppResource(name="a", objects=[_DEPLOY])], **p.kw)
+        finally:
+            monkeypatch.delenv("OSIM_TRACE_FILE")
+            payload = json.loads(path.read_text())
+            p.tracing.reset_trace_events()
+        events = payload["traceEvents"]
+        roots = [e for e in events if e["name"] == "simulate"]
+        assert len(roots) == 1
+        root = roots[0]
+        by_span = {e["args"]["span_id"]: e for e in events}
+        for e in events:
+            assert e["ph"] == "X" and e["pid"] and e["tid"]
+            assert isinstance(e["ts"], float) and e["ts"] > 0
+            assert isinstance(e["dur"], float) and e["dur"] >= 0
+            assert e["ts"] >= root["ts"] - 1e3
+            assert e["ts"] + e["dur"] <= root["ts"] + root["dur"] + 1e3
+            assert e["args"]["trace_id"] == root["args"]["trace_id"]
+            if e is not root:
+                assert e["args"]["parent_id"] in by_span
+        assert root["args"]["nodes"] == 1
+
+        return {(by_span[e["args"]["parent_id"]]["name"], e["name"])
+                for e in events if e is not root}
+
+    want, got = scenario(J), scenario(T)
+    assert want <= got, sorted(want - got)
+    assert {child for _, child in want} >= {
+        "expand-workloads", "encode-cluster", "encode", "schedule", "decode-result"}
+
+
+def test_trace_file_not_written_when_env_unset(tmp_path, monkeypatch):
+    monkeypatch.delenv("OSIM_TRACE_FILE", raising=False)
+    ttracing.reset_trace_events()
+    with ttracing.span("no-export"):
+        pass
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_trace_file_event_cap_rotates_oldest(monkeypatch, tmp_path, caplog):
+    import logging
+
+    path = tmp_path / "trace.json"
+    monkeypatch.setenv("OSIM_TRACE_FILE", str(path))
+    monkeypatch.setenv("OSIM_TRACE_MAX_EVENTS", "5")
+    ttracing.reset_trace_events()
+    try:
+        with caplog.at_level(logging.WARNING, logger=ttracing.log.name):
+            for i in range(9):
+                with ttracing.span(f"rotate-{i}"):
+                    pass
+        payload = json.loads(path.read_text())
+    finally:
+        ttracing.reset_trace_events()
+    assert [e["name"] for e in payload["traceEvents"]] == [f"rotate-{i}" for i in range(4, 9)]
+    warnings = [r for r in caplog.records if "event cap 5 reached" in r.getMessage()]
+    assert len(warnings) == 1  # once, not once per export
+
+
+def test_trace_event_cap_bad_value_falls_back(monkeypatch, tmp_path):
+    path = tmp_path / "trace.json"
+    monkeypatch.setenv("OSIM_TRACE_FILE", str(path))
+    monkeypatch.setenv("OSIM_TRACE_MAX_EVENTS", "not-a-number")
+    ttracing.reset_trace_events()
+    try:
+        with ttracing.span("cap-fallback"):
+            pass
+        payload = json.loads(path.read_text())
+    finally:
+        ttracing.reset_trace_events()
+    assert [e["name"] for e in payload["traceEvents"]] == ["cap-fallback"]
