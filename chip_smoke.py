@@ -109,8 +109,13 @@
    JAX sweep's answer), `profile --gaps` (device, dispatch and gap of the
    23 registry entries), `profile -- apply` on the quickstart (a trace with
    CUDA kernel events), the quickstart's simulate() plain and under
-   OSIM_SANITIZE=1 (the JAX digest, 0 violations), and one simulate() under
-   OSIM_TRACE_FILE (one connected tree).
+   OSIM_SANITIZE=1 (the JAX digest, 0 violations), one simulate() under
+   OSIM_TRACE_FILE (one connected tree), then the static analysers: `lint
+   --format json` (the AST rules, the op census of all 23 entries on the
+   card with `custom:domain_pop` under domain_select, and the recompile
+   guard), a census of seeded host reads on the card (`.item()`, `.cpu()`,
+   `.tolist()` all caught), `audit --format json` and `check --format sarif
+   --quick` (one SARIF 2.1.0 run per tool).
 13. Holds every kernel against its plain PyTorch version, bit for bit, on
    the inputs the main path gave it (the plain version on the card, which
    gives the row's plain time), on those of spread_affinity's DoNotSchedule
@@ -2472,7 +2477,19 @@ def tooling_phase(torch, dp, device="cuda"):
     5. the quickstart's simulate() plain and under OSIM_SANITIZE=1: both
        digests equal sim_configs.QUICKSTART_SIM_DIGEST, 0 violations;
     6. one simulate() under OSIM_TRACE_FILE: valid JSON, one root, one
-       connected tree.
+       connected tree;
+    7. `lint --format json`: exit 0, no AST finding, the census of all 23
+       entries with no required entry missing and no transfer outside the
+       listed ones, `custom:domain_pop` launched under ops.fast:domain_select
+       (on a card), and the recompile guard ok; then the census of seeded
+       host reads on the device (`.item()`, `.cpu()`, `.tolist()`), each
+       of which must be caught;
+    8. `audit --format json`: exit 0;
+    9. `check --format sarif --quick`: a SARIF 2.1.0 document, one run per
+       tool (simon-lint, simon-audit, simon-interleave), exit 0.
+    Steps 8 and 9 read Python only and run in processes of their own
+    beside step 7 (each wall counts from the start of step 7 to the end of
+    its process).
     `device="cpu"` rehearses it off the card (no kernel, no CUDA events).
     Returns (results, failures, domain_pop launches)."""
     import os
@@ -2560,8 +2577,9 @@ def tooling_phase(torch, dp, device="cuda"):
               f"{gaps.get('device_time_ms')} ms, aggregate gap ratio "
               f"{gaps.get('dispatch_gap_ratio')}", flush=True)
         for e in sorted(gaps.get("entries", []), key=lambda e: -e["device_ms"]):
-            print(f"tooling[gaps] {e['name']:34s} device {e['device_ms']:9.4f} ms, dispatch "
-                  f"{e['dispatch_ms']:9.4f} ms, total {e['total_ms']:9.4f} ms, gap "
+            print(f"tooling[gaps] {e['name']:34s} device {e['device_ms']:9.4f} ms "
+                  f"({e.get('device_source')}; events {e.get('events_ms', 0):9.4f} ms), "
+                  f"dispatch {e['dispatch_ms']:9.4f} ms, total {e['total_ms']:9.4f} ms, gap "
                   f"{e['gap_ratio']:.4f}; first call {first_s.get(e['name'], 0) * 1e3:.4f} ms",
                   flush=True)
         names = {e["name"] for e in gaps.get("entries", [])}
@@ -2569,6 +2587,9 @@ def tooling_phase(torch, dp, device="cuda"):
             failures.append(f"profile --gaps: exit {rc}, {len(names)} of 23 entries timed")
         if cuda and not gaps.get("device_time_ms"):
             failures.append("profile --gaps: the profiler recorded no device time")
+        zero = [e["name"] for e in gaps.get("entries", []) if e["device_ms"] == 0]
+        if cuda and zero:
+            failures.append(f"profile --gaps: 0 device ms for {zero}")
 
         # 4. an apply under the device trace
         out_dir = os.path.join(tmp, "profile")
@@ -2651,10 +2672,132 @@ def tooling_phase(torch, dp, device="cuda"):
         if [r["name"] for r in roots] != ["simulate"] or loose or len(trace_ids) != 1:
             failures.append(f"OSIM_TRACE_FILE: roots {[r['name'] for r in roots]}, "
                             f"unconnected {loose}")
+
+        # 7-9. the static analysers
+        analysers_phase(torch, device, cli_json, results, failures)
     finally:
         os.environ.pop("OSIM_COMPILE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
     return results, failures, dp.launches
+
+
+def analysers_phase(torch, device, cli_json, results, failures):
+    """Steps 7-9 of tooling_phase: `lint`, the seeded host reads, `audit`
+    and `check` on `device`, into `results` and `failures`."""
+    from open_simulator_tpu_torch.analysis import op_audit
+    from open_simulator_tpu_torch.analysis.entry_audit import REQUIRED_COVERAGE
+
+    import os
+
+    cuda = device == "cuda"
+    dev_args = [] if cuda else ["--device", device]
+    # audit and check read Python only (AST passes, the host model checker):
+    # they run in their own processes beside lint, which holds the card
+    import threading
+
+    t_steps = time.perf_counter()
+    side, side_out = {}, {}
+
+    def run_side(verb, extra):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "open_simulator_tpu_torch.cli", verb, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        out, err = proc.communicate(timeout=300)
+        side_out[verb] = (proc.returncode, out, err, time.perf_counter() - t_steps)
+
+    for verb, extra in (("audit", ["--format", "json"]),
+                        ("check", ["--format", "sarif", "--quick"])):
+        side[verb] = threading.Thread(target=run_side, args=(verb, extra), daemon=True)
+        side[verb].start()
+    rc, rep, wall = cli_json(["lint", "--format", "json", *dev_args])
+    census, guard = rep.get("jaxpr_audit") or {}, rep.get("recompile_guard") or {}
+    targets = {t["name"]: t for t in census.get("targets", [])}
+    results["lint"] = {"rc": rc, "wall_s": wall, "ast_s": rep.get("ast_seconds"),
+                       "census_s": census.get("seconds"), "guard_s": guard.get("seconds"),
+                       "findings": len(rep.get("findings", [])),
+                       "suppressed": len(rep.get("suppressed", [])),
+                       "census": census, "guard": guard}
+    print(f"tooling[lint] exit {rc}, {wall:.3f} s: AST {rep.get('ast_seconds')} s "
+          f"({len(rep.get('findings', []))} findings, {len(rep.get('suppressed', []))} "
+          f"suppressed), census {census.get('seconds')} s over {len(targets)} entries, "
+          f"guard {guard.get('seconds')} s", flush=True)
+    for name, t in sorted(targets.items()):
+        print(f"tooling[census] {name:34s} {t['n_ops']:8d} ops {t['seconds']:8.3f} s "
+              f"custom {t['custom']} listed {t['listed']} forbidden {t['forbidden']} "
+              f"wide {t['wide_avals']}", flush=True)
+    print(f"tooling[guard] ok {guard.get('ok')}: {guard.get('compiles')} programs "
+          f"(budget {guard.get('budget')}) {guard.get('programs')}, kernel builds "
+          f"{guard.get('kernel_builds')} / metric {guard.get('metric_compiles')}, nodes_added "
+          f"{guard.get('nodes_added')} / batched {guard.get('batched_nodes_added')}, "
+          f"scenario programs {guard.get('scenario_programs')}, rungs "
+          f"{guard.get('ladder_rungs')}", flush=True)
+    if rc != 0 or not rep.get("ok"):
+        failures.append(f"lint: exit {rc}, findings {rep.get('findings')}")
+    if census.get("required_missing") or set(targets) != set(REQUIRED_COVERAGE):
+        failures.append(f"lint: census covers {sorted(targets)}, missing "
+                        f"{census.get('required_missing')}")
+    bad = {n: t["forbidden"] for n, t in targets.items() if t["forbidden"]}
+    if bad:
+        failures.append(f"lint: transfers outside the listed ones: {bad}")
+    if cuda and not targets.get("ops.fast:domain_select", {}).get("custom", {}).get(
+            "custom:domain_pop"):
+        failures.append("lint: the census of ops.fast:domain_select shows no domain_pop launch")
+    if not guard.get("ok"):
+        failures.append(f"lint: the recompile guard failed: {guard}")
+
+    # seeded host reads, each of which the census must catch on the device
+    class Cap:
+        def __init__(self, name, fn, *args):
+            self.name, self.fn, self.args, self.kwargs = name, fn, args, {}
+
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    seeded = {"item": lambda t: (t * 2).sum().item(), "cpu": lambda t: (t * 2).cpu(),
+              "tolist": lambda t: (t * 2).tolist()}
+    caught = {}
+    for what, fn in seeded.items():
+        t = op_audit.audit_one(Cap(f"seeded:{what}", fn, x), device)
+        caught[what] = t.forbidden
+    results["seeded_transfers"] = caught
+    print(f"tooling[census seeded] {caught}", flush=True)
+    want = ("item", "cpu", "tolist") if cuda else ("item",)
+    missed = [w for w in want if not caught[w]]
+    if missed:
+        failures.append(f"census: seeded host reads not caught: {missed}")
+
+    def side_json(verb):
+        side[verb].join(timeout=300)
+        rc, out, err, wall = side_out.get(verb, (None, "", "did not end", 0.0))
+        try:
+            return rc, json.loads(out[out.index("{"):]), wall
+        except ValueError:
+            failures.append(f"{verb}: no JSON (exit {rc}): {err[-2000:]}")
+            return rc, {}, wall
+
+    rc, rep, wall = side_json("audit")
+    races = rep.get("races") or {}
+    results["audit"] = {"rc": rc, "wall_s": wall, "ok": rep.get("ok"),
+                        "thread_roots": len(races.get("thread_roots", [])),
+                        "audited_functions": races.get("audited_functions")}
+    print(f"tooling[audit] exit {rc}, {wall:.3f} s: {len(races.get('findings', []))} "
+          f"findings, {len(races.get('thread_roots', []))} thread roots, "
+          f"{races.get('audited_functions')} audited functions, invariants "
+          f"{rep.get('invariants')}", flush=True)
+    if rc != 0 or not rep.get("ok"):
+        failures.append(f"audit: exit {rc}, {races.get('findings')}")
+
+    rc, doc, wall = side_json("check")
+    tools = [r["tool"]["driver"]["name"] for r in doc.get("runs", [])]
+    results["check"] = {"rc": rc, "wall_s": wall, "version": doc.get("version"), "runs": tools}
+    print(f"tooling[check] exit {rc}, {wall:.3f} s: SARIF {doc.get('version')}, runs {tools}",
+          flush=True)
+    if rc != 0 or doc.get("version") != "2.1.0" or sorted(tools) != [
+            "simon-audit", "simon-interleave", "simon-lint"]:
+        failures.append(f"check: exit {rc}, version {doc.get('version')}, runs {tools}")
+    steps = time.perf_counter() - t_steps
+    results["analysers_wall_s"] = steps
+    print(f"tooling[analysers] lint, audit and check: {steps:.3f} s of wall (audit and "
+          f"check in processes of their own beside lint)", flush=True)
 
 
 def start_phase_child(phase, tmp, *args):
@@ -2920,7 +3063,7 @@ def run_all(opts, torch, tmp, children) -> int:
     launches += resident_launches
 
     # -- the runtime tooling: warmup, warm start, profile, sanitizer, trace --
-    tooling_results, failures, tooling_launches = join_phase_child(tooling_child, 300)
+    tooling_results, failures, tooling_launches = join_phase_child(tooling_child, 420)
     if failures:
         print("chip_smoke: tooling FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

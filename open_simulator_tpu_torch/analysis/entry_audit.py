@@ -33,11 +33,13 @@ batched) and `warm_start_check` runs it after a warmup, demanding zero
 kernel builds (utils/platform.py) and equal answers.
 
 The audit half of the reference (forbidden host transfers, wide dtypes,
-the recompile guard) is not ported yet.
+donation aliasing, the recompile guard) is analysis/op_audit.py, which runs
+on this capture list and on `_run_sweeps`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import time
@@ -221,6 +223,9 @@ class _Captured:
     #: wall seconds of the captured call, the entry's first in the capture
     #: (the device synchronized before and after it)
     first_seconds: float = 0.0
+    #: the storages of the arguments as the dispatcher passed them, before
+    #: the copies (`storages_of`): the donation check of op_audit.py
+    storages: Any = None
 
 
 def tree_map(fn: Callable[[Any], Any], x: Any) -> Any:
@@ -247,6 +252,15 @@ def copy_leaf(a):
     return a.clone() if isinstance(a, torch.Tensor) else a.copy()
 
 
+def storages_of(args: tuple, kwargs: dict) -> dict:
+    """{"args": [storage pointers of each positional argument's tensors],
+    "kwargs": {name: pointers}}: two views of one storage share a pointer."""
+    def ptrs(x):
+        return {a.untyped_storage().data_ptr() for a in tree_leaves(x) if isinstance(a, torch.Tensor)}
+
+    return {"args": [ptrs(a) for a in args], "kwargs": {k: ptrs(v) for k, v in kwargs.items()}}
+
+
 def _is_concrete(x: Any) -> bool:
     """No leaf is a functorch-wrapped tensor: the call is not made inside
     another entry's torch.func.vmap (the reference skips tracers)."""
@@ -260,9 +274,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _capture_calls(device=DEFAULT_DEVICE) -> List[_Captured]:
+def _capture_calls(device=DEFAULT_DEVICE, around=None) -> List[_Captured]:
     """Run the host dispatchers over the canonical state with every entry
     wrapped by a recorder; return each entry's first concrete call.
+
+    `around(name, fn, args, kwargs, storages)`, when given, returns a
+    context manager entered around each captured first call (the op census
+    of analysis/op_audit.py observes the calls this way).
 
     The scenario driver is pinned to its one-scan route (neither the wave
     driver nor the chunked scan, which OSIM_WAVE_COMMIT, the core count or
@@ -292,11 +310,15 @@ def _capture_calls(device=DEFAULT_DEVICE) -> List[_Captured]:
                     return _original(*args, **kwargs)
                 cap = captured[_name] = _Captured(
                     _name, _original, tree_map(copy_leaf, args), tree_map(copy_leaf, kwargs),
+                    storages=storages_of(args, kwargs),
                 )
+                ctx = (contextlib.nullcontext() if around is None
+                       else around(_name, _original, args, kwargs, cap.storages))
                 _sync(dev)
                 t0 = time.perf_counter()
-                out = _original(*args, **kwargs)
-                _sync(dev)
+                with ctx:
+                    out = _original(*args, **kwargs)
+                    _sync(dev)
                 cap.first_seconds = time.perf_counter() - t0
                 return out
 

@@ -24,6 +24,13 @@
         [--repeats N] [--out DIR] [--format text|json] [--device cpu] [-- COMMAND ...]
     python -m open_simulator_tpu_torch.cli interleave [SCENARIO ...] [--quick] \\
         [--seed N] [--mutate M] [--replay F] [--schedule-out F] [--format text|json]
+    python -m open_simulator_tpu_torch.cli lint [--format text|json] [--rules R,S] \\
+        [--list-rules] [--no-jaxpr] [--no-recompile-guard] [--entries A,B] [--device cpu]
+    python -m open_simulator_tpu_torch.cli audit [--format text|json] [--no-races] \\
+        [--no-invariants]
+    python -m open_simulator_tpu_torch.cli check [--format sarif|json|text] \\
+        [--output F] [--quick] [--no-lint] [--no-races] [--no-invariants] \\
+        [--no-preflight] [--no-interleave]
     python -m open_simulator_tpu_torch.cli version | gen-doc [--output-dir D]
 
 Runs on CUDA unless `--device` says otherwise, and fails without a card.
@@ -72,6 +79,14 @@ interleave: the concurrency model checker over the admission, fence,
 session, journal and breaker protocols (analysis/interleave.py); exit code
 1 on a violation.
 
+lint: the AST rules over the port's sources (analysis/lint.py and
+analysis/rules/), then, unless --no-jaxpr, the op census of every registry
+entry and the recompile guard on the device (analysis/op_audit.py). audit:
+the race and deadlock detector (analysis/races.py); the invariant pass is
+not in the port yet. check: lint's AST rules, audit and interleave in one
+SARIF 2.1.0 document. Each exits 0 when clean, 1 otherwise. `lint
+--no-jaxpr`, `audit` and `check` import no torch.
+
 prove: the small-scope semantics check (analysis/semantics.py). Exit code 0
 when every universe agrees with the oracle and the contract verifies, 1 on
 a divergence or a contract mismatch.
@@ -83,6 +98,7 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import List, Optional
 
 # the reference CLI's version string (open_simulator_tpu/cli/main.py)
@@ -306,6 +322,81 @@ def _add_interleave(sub) -> None:
                    help="disable sleep-set partial-order reduction")
 
 
+def _add_lint(sub) -> None:
+    p = sub.add_parser(
+        "lint", help="static analysis: AST rules + the op census and recompile guard",
+        description=(
+            "Run the static analysers over the port: the AST lint rules (host syncs "
+            "and unseeded randomness in entry code, CUDA at import, dtype drift, "
+            "unbucketed shapes, syncs in dispatch loops, per-call locks) and, unless "
+            "--no-jaxpr, the op census of every registry entry (forbidden transfers, "
+            "wide dtypes, donation aliasing, hand-kernel launches) and the recompile "
+            "guard over the canonical capacity sweep, on --device. Exit 0 = clean."
+        ),
+    )
+    p.add_argument("--format", choices=("text", "json"), default="text",
+                   help="output format (json is the machine-readable CI artifact)")
+    p.add_argument("--rules", default="",
+                   help="comma list of AST rule ids to run (default: all); see --list-rules")
+    p.add_argument("--list-rules", action="store_true", help="print the rule catalogue and exit")
+    p.add_argument("--no-jaxpr", action="store_true",
+                   help="skip the op census and the recompile guard (pure-AST mode: no "
+                   "torch import; the reference's flag name)")
+    p.add_argument("--no-recompile-guard", action="store_true",
+                   help="skip the capacity-sweep recompile guard")
+    p.add_argument("--entries", default="",
+                   help="comma-separated registry entries the census runs (default: all)")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+
+def _add_audit(sub) -> None:
+    p = sub.add_parser(
+        "audit", help="semantic verification: the race and deadlock detector",
+        description=(
+            "Run the semantic audit passes: the lock-discipline race detector and the "
+            "lock-order deadlock pass over thread-reachable code (server handlers, "
+            "thread targets, executor tasks, the watchdog, signal handlers). The "
+            "invariant pass is not in the port yet: the report carries invariants as "
+            "null, as the reference's --no-invariants report does. Deterministic output; "
+            "exit 0 = clean. Imports no torch."
+        ),
+    )
+    p.add_argument("--format", choices=("text", "json"), default="text",
+                   help="output format (json is the machine-readable CI artifact)")
+    p.add_argument("--no-races", action="store_true", help="skip the race detector")
+    p.add_argument("--no-invariants", action="store_true",
+                   help="skip the invariant pass (not in the port yet either way)")
+
+
+def _add_check(sub) -> None:
+    p = sub.add_parser(
+        "check", help="umbrella static gate: lint + audit + interleave in one SARIF 2.1.0 "
+        "report",
+        description=(
+            "Run the static passes (`simon lint`'s AST rules, `simon audit`'s race "
+            "detector, `simon interleave`) and emit one SARIF 2.1.0 document with a run "
+            "per producer, ready for a CI annotation step. Exit 1 if any pass fails. The "
+            "invariant and preflight passes are not in the port yet: each is reported "
+            "on stderr and skipped, as `--no-invariants --no-preflight` would."
+        ),
+    )
+    p.add_argument("--format", choices=("sarif", "json", "text"), default="sarif",
+                   help="sarif (default) = one SARIF 2.1.0 document; json/text = the "
+                   "concatenated native reports")
+    p.add_argument("--output", default=None, metavar="PATH",
+                   help="write the report here instead of stdout")
+    p.add_argument("--quick", action="store_true",
+                   help="bound the interleave pass to its CI quick budget")
+    p.add_argument("--no-lint", action="store_true", help="skip the lint pass")
+    p.add_argument("--no-races", action="store_true", help="skip the race-detector pass")
+    p.add_argument("--no-invariants", action="store_true",
+                   help="skip the invariant pass (not in the port yet)")
+    p.add_argument("--no-preflight", action="store_true",
+                   help="skip the preflight pass (not in the port yet)")
+    p.add_argument("--no-interleave", action="store_true",
+                   help="skip the concurrency model checker")
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="open_simulator_tpu_torch.cli",
@@ -314,8 +405,11 @@ def _parser() -> argparse.ArgumentParser:
     )
     sub = ap.add_subparsers(dest="command", required=True)
     _add_apply(sub)
+    _add_audit(sub)
     _add_chaos(sub)
+    _add_check(sub)
     _add_interleave(sub)
+    _add_lint(sub)
     _add_profile(sub)
     _add_prove(sub)
     _add_runs(sub)
@@ -1006,6 +1100,115 @@ def _run_interleave(args) -> int:
     return 0 if report.ok else 1
 
 
+def _run_lint(args) -> int:
+    from .analysis.lint import iter_rules, run_lint
+
+    if args.list_rules:
+        for rid, doc in iter_rules():
+            print(f"{rid}: {doc}")
+        return 0
+    only = [r.strip() for r in args.rules.split(",") if r.strip()] or None
+    unknown = set(only or ()) - {rid for rid, _ in iter_rules()}
+    if unknown:
+        print(f"error: unknown rule(s) {sorted(unknown)}", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    report = run_lint(only_rules=only)
+    ast_s = time.perf_counter() - t0
+    audit = guard = None
+    if not args.no_jaxpr:
+        from .analysis import op_audit
+
+        names = [s.strip() for s in args.entries.split(",") if s.strip()] or None
+        try:
+            audit = op_audit.run_audit(names=names, device=args.device)
+            if not args.no_recompile_guard:
+                guard = op_audit.run_recompile_guard(device=args.device)
+        except KeyError as e:
+            print(f"error: unknown audit entry {e}", file=sys.stderr)
+            return 1
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    ok = not report.active and (audit is None or audit.ok) and (guard is None or guard.ok)
+    if args.format == "json":
+        doc = json.loads(report.to_json())
+        doc["jaxpr_audit"] = audit.to_dict() if audit is not None else None
+        doc["recompile_guard"] = guard.to_dict() if guard is not None else None
+        doc["ast_seconds"] = round(ast_s, 4)
+        doc["ok"] = ok
+        print(json.dumps(doc, indent=2, sort_keys=True))
+    else:
+        print(report.render_text())
+        if audit is not None:
+            print(audit.render_text())
+        if guard is not None:
+            print(guard.render_text())
+    return 0 if ok else 1
+
+
+def _run_audit(args) -> int:
+    from .analysis.audit import INVARIANTS_PENDING, run_semantic_audit
+
+    if not args.no_invariants:
+        print(INVARIANTS_PENDING, file=sys.stderr)
+    report = run_semantic_audit(races=not args.no_races)
+    print(report.to_json() if args.format == "json" else report.render_text())
+    return 0 if report.ok else 1
+
+
+def _run_check(args) -> int:
+    from .analysis import sarif as sarif_mod
+
+    runs, texts, native = [], [], {}
+    ok = True
+    if not args.no_invariants:
+        from .analysis.audit import INVARIANTS_PENDING
+
+        print(INVARIANTS_PENDING, file=sys.stderr)
+    if not args.no_preflight:
+        print("check: the preflight pass is not in the port yet (ROADMAP item 14b-ii); "
+              "skipped", file=sys.stderr)
+    if not args.no_lint:
+        from .analysis.lint import run_lint
+
+        lint_report = run_lint()
+        ok = ok and not lint_report.active
+        runs.append(sarif_mod.lint_run(lint_report))
+        native["lint"] = json.loads(lint_report.to_json())
+        texts.append(lint_report.render_text())
+    if not args.no_races:
+        from .analysis.audit import run_semantic_audit
+
+        audit_report = run_semantic_audit()
+        ok = ok and audit_report.ok
+        runs.append(sarif_mod.audit_run(audit_report))
+        native["audit"] = audit_report.to_dict()
+        texts.append(audit_report.render_text())
+    if not args.no_interleave:
+        from .analysis import interleave
+
+        il_report = interleave.run_interleave(quick=args.quick)
+        ok = ok and il_report.ok
+        runs.append(sarif_mod.interleave_run(il_report))
+        native["interleave"] = il_report.to_dict()
+        texts.append(il_report.render_text())
+    if args.format == "sarif":
+        out = json.dumps(sarif_mod.sarif_document(runs), indent=2, sort_keys=True)
+    elif args.format == "json":
+        out = json.dumps({"ok": ok, "passes": native}, indent=2, sort_keys=True)
+    else:
+        texts.append(f"check: {'ok' if ok else 'FAILED'}")
+        out = "\n".join(texts)
+    if args.output:
+        with open(args.output, "w") as fh:
+            fh.write(out + "\n")
+        print(f"wrote {args.output}", file=sys.stderr)
+    else:
+        print(out)
+    return 0 if ok else 1
+
+
 def _run_version(args) -> int:
     print(f"simon-tpu version {VERSION}")
     return 0
@@ -1049,6 +1252,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "gen-doc":
         return _gen_doc(parser, args.output_dir)
+    if args.command in ("audit", "check") or (args.command == "lint" and args.no_jaxpr):
+        # the AST passes: no logging set-up, no crash hook, no torch
+        return {"audit": _run_audit, "check": _run_check, "lint": _run_lint}[args.command](args)
     from .utils import flightrec
     from .utils.tracing import init_logging
 
@@ -1069,7 +1275,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if plan is not None:
             faults.install_plan(plan)
     return {
-        "apply": _run_apply, "chaos": _run_chaos, "interleave": _run_interleave,
+        "apply": _run_apply, "audit": _run_audit, "chaos": _run_chaos,
+        "check": _run_check, "interleave": _run_interleave, "lint": _run_lint,
         "profile": _run_profile, "prove": _run_prove, "runs": _run_runs,
         "server": _run_server, "sweep": _run_sweep, "version": _run_version,
         "warmup": _run_warmup,

@@ -1,8 +1,19 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the TF32 switch.
+
+Counts are reconstructed as integer-valued f32 sums, which must stay exact,
+so TF32 is switched off for every float32 product and convolution when this
+module is imported; every module that computes imports it (ops/kernels.py
+does, and every other ops module imports that).
+"""
 
 from __future__ import annotations
 
 import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must stay off"
+assert not torch.backends.cudnn.allow_tf32, "TF32 convolution must stay off"
 
 DEFAULT_DEVICE = "cuda"
 

@@ -137,11 +137,12 @@ def digest_table(
     parts: List[int] = []
     for name in _DIGEST_FIELDS:
         parts.append(delta_ops.digest_fold_host(getattr(table, name)))
-    for name in DEVICE_PLANES:
-        if device is not None:
-            parts.append(int(delta_ops.digest_fold(device[name]).item()))
-        else:
-            parts.append(delta_ops.digest_fold_host(getattr(table, name)))
+    if device is not None:
+        # every plane folds on its device, and the folds come back in one read
+        folds = [delta_ops.digest_fold(device[name]) for name in DEVICE_PLANES]
+        parts.extend(int(v) for v in torch.stack(folds).cpu().tolist())
+    else:
+        parts.extend(delta_ops.digest_fold_host(getattr(table, name)) for name in DEVICE_PLANES)
     return delta_ops.combine_digests(parts)
 
 

@@ -744,7 +744,7 @@ class Simulator:
                     torch.tensor(best_ni, dtype=torch.int32, device=self.device),
                 )
                 self._bind_placed(
-                    pod, best_ni, take.cpu().numpy(), vg_take.cpu().numpy(), dev_take.cpu().numpy()
+                    pod, best_ni, *(t.cpu().numpy() for t in (take, vg_take, dev_take))
                 )
                 scheduled += 1
             sp.meta["scheduled"] = scheduled

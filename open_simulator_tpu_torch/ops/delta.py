@@ -57,7 +57,9 @@ def apply_rows(arr: torch.Tensor, idx: np.ndarray, rows: np.ndarray) -> torch.Te
     the plane it passed as consumed, as the reference's donation does."""
     live = idx < arr.shape[0]
     idx_t = torch.from_numpy(idx[live].astype(np.int64)).to(arr.device)
-    rows_t = torch.from_numpy(np.ascontiguousarray(rows[live])).to(arr.device, arr.dtype)
+    # `rows` is a host array argument: an upload, not a device read
+    rows_t = torch.from_numpy(np.ascontiguousarray(rows[live])).to(  # osim: lint-ok[tracer-coercion]
+        arr.device, arr.dtype)
     arr.index_put_((idx_t,), rows_t)
     return arr
 
@@ -70,10 +72,12 @@ def apply_flags(arr: torch.Tensor, idx: np.ndarray, vals: np.ndarray) -> torch.T
 
 
 def _bits_u32(x: torch.Tensor) -> torch.Tensor:
-    """The u32 image of every element, held in int64."""
+    """The u32 image of every element, held in int64 (the u32 checksum
+    arithmetic needs it: PyTorch has no uint32 arithmetic)."""
+    # int64 below: the checksum's u32 values, never a float or an index
     if x.dtype == torch.float32:
-        return x.contiguous().view(torch.int32).to(torch.int64) & _MASK32
-    return x.to(torch.int64) & _MASK32
+        return x.contiguous().view(torch.int32).to(torch.int64) & _MASK32  # osim: lint-ok[f64-literal]
+    return x.to(torch.int64) & _MASK32  # osim: lint-ok[f64-literal]
 
 
 @sanitizable("ops.delta:digest_fold")
@@ -81,7 +85,8 @@ def digest_fold(x: torch.Tensor) -> torch.Tensor:
     """i64[] holding the u32 position-weighted checksum of `x`, computed on
     its device (one 8-byte scalar to fetch)."""
     u = _bits_u32(x).reshape(-1)
-    w = (torch.arange(u.shape[0], dtype=torch.int64, device=u.device) * 2 + 1) & _MASK32
+    # the u32 position weights, held in int64 like the bits
+    w = (torch.arange(u.shape[0], dtype=torch.int64, device=u.device) * 2 + 1) & _MASK32  # osim: lint-ok[f64-literal]
     lo = u & 0xFFFF
     hi = u >> 16
     part = (lo * w + (((hi * w) & 0xFFFF) << 16)) & _MASK32

@@ -620,7 +620,8 @@ def _spread_tables(
     reductions (the reference's Precision.HIGHEST einsums)."""
     active_c = (pod.spread_topo >= 0) & ~pod.spread_hard
     hard_c = (pod.spread_topo >= 0) & pod.spread_hard
-    k_c = pod.spread_topo.clamp(min=0).long()
+    # a topology-key index, also compared with ns.domain_key (int64 there)
+    k_c = pod.spread_topo.clamp(min=0).long()  # osim: lint-ok[f64-literal]
     to_c = ns.topo_onehot[k_c]                                    # [C,D,N]
     elig_f = (na_ok & ns.valid).to(torch.float32)
     sel = pod.spread_sel.long()
@@ -840,7 +841,8 @@ def domain_select(
     big_n = nx.node_count(N)
 
     def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
+        # the plan's fields are host arrays: an upload, not a device read
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)  # osim: lint-ok[tracer-coercion]
 
     # partial8 lanes: the fold prefix BEFORE both coupled terms; the pop
     # loop adds w_ipa * ipa(class) and w_sp * sp(class), as combine_scores
@@ -860,9 +862,11 @@ def domain_select(
         by_score = torch.sort(neg, stable=True).indices
         sidx = by_score[torch.sort(flat_combo[by_score], stable=True).indices]
         sneg = neg[sidx]
-        counts = t(plan.counts, torch.int64)
+        # class lengths against an int64 lane arange, and offset + lane, a
+        # gather index into the sorted lanes
+        counts = t(plan.counts, torch.int64)  # osim: lint-ok[f64-literal]
         lane = torch.arange(l_cap, device=dev)
-        gidx = (t(plan.offsets, torch.int64)[:, None] + lane[None, :]).clamp(0, big_n * J - 1)
+        gidx = (t(plan.offsets, torch.int64)[:, None] + lane[None, :]).clamp(0, big_n * J - 1)  # osim: lint-ok[f64-literal]
         in_range = lane[None, :] < counts[:, None]
         hscore = torch.where(in_range, -sneg[gidx], _NEG_INF)  # [Dc,L]
         hflat = sidx[gidx]
@@ -885,7 +889,9 @@ def domain_select(
             in_key.contiguous(), t(plan.t_onehot), st.match_c.contiguous(),
             st.active_c.to(torch.float32), st.hard_c.to(torch.float32),
             pod.spread_skew.contiguous(), t(plan.has_key),
-            float(weights[SP_IDX]), bool(fo[F_SPREAD]), valid_count, group_size,
+            # the kernel takes the spread weight and filter bit by value: two
+            # scalar reads before the launch, listed in analysis/op_audit.py
+            float(weights[SP_IDX]), bool(fo[F_SPREAD]), valid_count, group_size,  # osim: lint-ok[tracer-coercion]
             flags.any_hard_spread, big_n,
         )
 
@@ -902,7 +908,8 @@ def _affinity_tables(ns, carry0, pod, flags: GroupFlags) -> dict:
     valid_f = ns.valid.to(torch.float32)
     if flags.any_req_aff or flags.any_pref_aff:
         # _domain_counts with elig=None counts over ALL valid nodes
-        k_a = pod.aff_topo.clamp(min=0).long()
+        # a topology-key index, also compared with ns.domain_key (int64 there)
+        k_a = pod.aff_topo.clamp(min=0).long()  # osim: lint-ok[f64-literal]
         to_a = ns.topo_onehot[k_a]                                # [CA,D,N]
         sel_a = pod.aff_sel.long()
         counts0_a = torch.where(valid_f > 0, carry0.sel_counts[sel_a], 0.0)
@@ -935,7 +942,8 @@ def _affinity_pop(
     Dc, L = hscore.shape
 
     def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
+        # the plan's fields are host arrays: an upload, not a device read
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)  # osim: lint-ok[tracer-coercion]
 
     w_sp, w_ipa = weights[SP_IDX], weights[IPA_IDX]
     combo_valid = t(plan.combo_valid, torch.bool)
@@ -960,7 +968,8 @@ def _affinity_pop(
         has_key_anti = t(plan.has_key_anti, torch.bool)
     aff_on = ~fo[F_POD_AFFINITY]
 
-    h = torch.zeros(Dc, dtype=torch.int64, device=dev)
+    # the class head pointers: a gather index, advanced by one per pop
+    h = torch.zeros(Dc, dtype=torch.int64, device=dev)  # osim: lint-ok[f64-literal]
     y = torch.zeros(Dc, dtype=torch.float32, device=dev)
     classes = torch.arange(Dc, device=dev)
     nodes, jidxs = [], []
@@ -1010,7 +1019,8 @@ def _affinity_pop(
         nodes.append(torch.where(ok, node_h.gather(0, m), -1))
         jidxs.append(torch.where(ok, j_h.gather(0, m), 0))
         oh = (classes == m) & ok
-        h = h + oh.to(torch.int64)
+        # the head pointers advance in int64, as they were made
+        h = h + oh.to(torch.int64)  # osim: lint-ok[f64-literal]
         y = y + oh.to(torch.float32)
     return _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
@@ -1607,7 +1617,8 @@ def schedule_universes_wave_host(
         carry_w, choices_new, *out = _wave.universe_round(
             ns_s, weights_s, carry_s, pods_s, choices, parts, filter_on
         )
-        ch = choices_new.cpu().numpy()
+        # the fixpoint test needs each round's choices on the host
+        ch = choices_new.cpu().numpy()  # osim: lint-ok[device-sync-in-loop]
         if np.array_equal(ch, prev):
             break
         if rounds > 1:
@@ -1903,7 +1914,8 @@ def _schedule_scenarios_wave_host(
             carry_w, choices_new, *out = schedule_wave(
                 ns, carry_s, rows_w, weights_s, valid_s, choices, None, parts, filter_on,
             )
-            ch = choices_new.cpu().numpy()
+            # the fixpoint test needs each round's choices on the host
+            ch = choices_new.cpu().numpy()  # osim: lint-ok[device-sync-in-loop]
             if np.array_equal(ch, prev):
                 converged = True
                 break

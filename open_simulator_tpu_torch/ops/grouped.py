@@ -13,6 +13,7 @@ exactly as the oracle does.
 from __future__ import annotations
 
 import hashlib
+import math
 from dataclasses import fields
 from typing import List, Tuple
 
@@ -234,8 +235,10 @@ def _grouped_run(
     done = 0
     while done < length:
         n = min(length - done, max_group_chunk)
+        # eager runs exactly n steps: the reference pads to _bucket(n) and
+        # gates the steps past n off, so the first n outputs are the same
         carry, chunk = schedule_group(
-            ns, carry, row, n, n, weights, filter_on, extra_filters, extra_scores
+            ns, carry, row, n, n, weights, filter_on, extra_filters, extra_scores  # osim: lint-ok[unbucketed-jit-shape]
         )
         for dst, got in zip(out, fetch(*chunk)):
             dst[start + done:start + done + n] = got
@@ -257,7 +260,7 @@ def fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
     host = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.int32)
     out, at = [], 0
     for dtype, shape in metas:
-        size = int(np.prod(shape, dtype=np.int64))
+        size = math.prod(shape)
         part = host[at:at + size].reshape(shape)
         at += size
         if dtype == torch.bool:

@@ -325,8 +325,9 @@ class RowKeys(NamedTuple):
 
 
 def row_keys(ns: NodeStatic, topo_idx: torch.Tensor) -> RowKeys:
-    k = topo_idx.clamp(min=0).long()
-    topo_k = ns.topo[:, k].T.long()
+    # key and domain ids: indices, also compared with other int64 ids
+    k = topo_idx.clamp(min=0).long()  # osim: lint-ok[f64-literal]
+    topo_k = ns.topo[:, k].T.long()  # osim: lint-ok[f64-literal]
     return RowKeys(
         k == HOSTNAME_KEY_IDX, ns.topo_onehot[k], topo_k, topo_k >= 0,
         ns.domain_key[None, :] == k[:, None],

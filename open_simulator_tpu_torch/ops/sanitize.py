@@ -34,10 +34,16 @@ would unsanitized: the hand kernel is never swapped for its plain version.
 `donate_argnums` lists the positional arguments the entry writes in place
 (`__osim_donate_argnums__`): the profiler and the warmup copy them afresh
 for every call (utils/profiling._fresh_args).
+
+`call_hook()` installs a function called as hook(name, args, kwargs) before
+every entry call, whatever name the caller imported the entry under: the
+recompile guard (analysis/op_audit.py) records each call's signature
+through it. With no hook installed the wrapper checks one empty tuple.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import os
@@ -73,6 +79,9 @@ _DIM_INDEX_OPS = frozenset({
 _DIV_OPS = frozenset({"div", "floor_divide", "remainder", "fmod"})
 
 _state = threading.local()
+#: functions called before every entry call (`call_hook`)
+_hooks: tuple = ()
+_hooks_lock = threading.Lock()
 
 
 class SanitizerViolation(RuntimeError):
@@ -88,7 +97,8 @@ class SanitizerViolation(RuntimeError):
 def sanitize_enabled() -> bool:
     """True when OSIM_SANITIZE is set to anything but ''/'0'/'false'/'no'.
     Read per call."""
-    return os.environ.get(SANITIZE_ENV, "").strip().lower() not in ("", "0", "false", "no")
+    # the switch only adds checks: a sanitized run is slower, never different
+    return os.environ.get(SANITIZE_ENV, "").strip().lower() not in ("", "0", "false", "no")  # osim: lint-ok[impure-read]
 
 
 def _op_name(func) -> str:
@@ -108,7 +118,8 @@ def _first_out_of_range(idx: torch.Tensor, lo: int, hi: int) -> Optional[int]:
     """The first index of `idx` outside [lo, hi), or None."""
     if idx.numel() == 0:
         return None
-    flat = idx.reshape(-1).to(torch.int64)
+    # widened so a negative or huge index compares exactly against the bounds
+    flat = idx.reshape(-1).to(torch.int64)  # osim: lint-ok[f64-literal]
     bad = (flat < lo) | (flat >= hi)
     if not bool(bad.any()):
         return None
@@ -212,6 +223,8 @@ def sanitizable(
 
         @functools.wraps(fn)
         def wrapper(*args: Any, **kwargs: Any):
+            for hook in _hooks:
+                hook(name, args, kwargs)
             if not sanitize_enabled() or getattr(_state, "active", False):
                 return fn(*args, **kwargs)
             if skip is not None:
@@ -237,6 +250,20 @@ def sanitizable(
         return wrapper
 
     return deco
+
+
+@contextlib.contextmanager
+def call_hook(hook: Callable[[str, tuple, dict], None]):
+    """Call `hook(name, args, kwargs)` before every entry call inside the
+    block (module docstring)."""
+    global _hooks
+    with _hooks_lock:
+        _hooks = _hooks + (hook,)
+    try:
+        yield hook
+    finally:
+        with _hooks_lock:
+            _hooks = tuple(h for h in _hooks if h is not hook)
 
 
 def sanitized_entries(*modules) -> dict:

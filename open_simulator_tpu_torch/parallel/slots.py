@@ -527,7 +527,7 @@ def spmd(fn: Callable, *args, layout: Optional[Layout] = None, n_nodes: Optional
     if n_nodes is None and first is not None:
         n_nodes = first.n_global
     sizes = split_sizes(n_nodes, layout.cols) if n_nodes is not None else [0] * layout.cols
-    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(int)
+    offsets = [sum(sizes[:j]) for j in range(len(sizes))]
     results: list = [None] * layout.slots
     errors: list = []
 
@@ -539,7 +539,7 @@ def spmd(fn: Callable, *args, layout: Optional[Layout] = None, n_nodes: Optional
         prev = getattr(_tls, "slot", 0), current()
         _tls.slot = k
         if group is not None:
-            _tls.ctx = SlotContext(group, j, int(offsets[j]), sizes[j], n_nodes, dev)
+            _tls.ctx = SlotContext(group, j, offsets[j], sizes[j], n_nodes, dev)
         try:
             if group is not None:
                 group.wait_turn(j)

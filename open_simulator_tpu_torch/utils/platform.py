@@ -62,7 +62,8 @@ def _card_fingerprint() -> str:
     if torch.cuda.is_available():
         parts += [torch.cuda.get_device_name(0),
                   "sm_%d%d" % torch.cuda.get_device_capability(0)]
-    nvcc = os.environ.get("NVCC") or shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    # names the cache directory only; the libraries in it compute the same bits
+    nvcc = os.environ.get("NVCC") or shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"  # osim: lint-ok[impure-read]
     try:
         parts.append(subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                                     timeout=60).stdout)
@@ -75,7 +76,8 @@ def enable_compilation_cache() -> str:
     """The directory the hand kernels are built into and loaded from (made
     when missing): `$OSIM_COMPILE_CACHE/<card fingerprint>` when the
     variable is set, else the repo's `build/`."""
-    root = os.environ.get(CACHE_ENV, "").strip()
+    # where kernel builds are kept; the libraries compute the same bits anywhere
+    root = os.environ.get(CACHE_ENV, "").strip()  # osim: lint-ok[impure-read]
     if not root:
         from ..ops import domain_pop
 

@@ -33,8 +33,20 @@ and a program that embeds the server on another thread calls it itself.
       device_ms   = the kernel time (CUDA activity: kernels, copies, sets)
                     summed from one torch.profiler capture of the timed
                     calls, divided by their number
+      events_ms   = the span between two torch.cuda.Event(enable_timing)
+                    recorded on the current stream around each timed call,
+                    averaged: an upper bound of the device-busy time
       dispatch_ms = total_ms - device_ms (0 when the capture sums longer)
       gap_ratio   = dispatch_ms / total_ms
+
+  The events cross-check the capture. A capture of an entry of a few us can
+  hold no kernel at all (CUPTI's activity records for it never reach the
+  capture), and a device time of 0 is never true on a card. So where the
+  capture holds no kernel but the events show time, the entry's device_ms
+  is its events_ms and `device_source` says "events" (in the JSON and the
+  text report); otherwise it is "profiler". The events span includes the
+  stream's idle waits on the host, so such an entry's gap ratio is a lower
+  bound. osim_device_time_seconds is never set to 0 on a card.
 
   On the CPU there is no device: device_ms is 0 and the gap ratio 1. The
   per-entry numbers are published as osim_device_time_seconds{entry=} and
@@ -48,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -75,6 +88,7 @@ def _activities(torch, device):
 
 
 _primed = False
+_prime_lock = threading.Lock()
 
 
 def primed() -> bool:
@@ -90,11 +104,14 @@ def prime(device="cuda") -> None:
     global _primed
     import torch
 
-    if _primed or torch.device(device).type != "cuda":
+    if torch.device(device).type != "cuda":
         return
-    with _profile(torch, _activities(torch, device)):
-        pass
-    _primed = True
+    with _prime_lock:
+        if _primed:
+            return
+        with _profile(torch, _activities(torch, device)):
+            pass
+        _primed = True
 
 
 def _profile(torch, activities):
@@ -156,16 +173,22 @@ class EntryTiming:
 
     name: str
     dispatch_ms: float  # total_ms - device_ms: host time the device waited
-    device_ms: float    # kernel time in the window (torch.profiler), 0 on the CPU
+    device_ms: float    # kernel time in the window, 0 on the CPU
     total_ms: float     # wall between two synchronizes around the call
     gap_ratio: float    # dispatch_ms / total_ms, in [0, 1]
     repeats: int
+    #: "profiler" (the capture's kernel sum), "events" (the capture held no
+    #: kernel: the CUDA events' span) or "none" (the CPU)
+    device_source: str = "none"
+    events_ms: float = 0.0  # CUDA events' span around the call, 0 on the CPU
 
     def to_dict(self) -> dict:
         return {
             "name": self.name,
             "dispatch_ms": round(self.dispatch_ms, 4),
             "device_ms": round(self.device_ms, 4),
+            "device_source": self.device_source,
+            "events_ms": round(self.events_ms, 4),
             "total_ms": round(self.total_ms, 4),
             "gap_ratio": round(self.gap_ratio, 4),
             "repeats": self.repeats,
@@ -206,9 +229,10 @@ class DispatchGapReport:
             f"aggregate gap ratio {self.dispatch_gap_ratio:.3f}"
         ]
         for e in sorted(self.entries, key=lambda e: -e.device_ms):
+            src = " (events)" if e.device_source == "events" else ""
             lines.append(
                 f"  {e.name:34s} device {e.device_ms:8.3f} ms  "
-                f"dispatch {e.dispatch_ms:7.3f} ms  gap {e.gap_ratio:.3f}"
+                f"dispatch {e.dispatch_ms:7.3f} ms  gap {e.gap_ratio:.3f}{src}"
             )
         return "\n".join(lines)
 
@@ -241,33 +265,58 @@ def _kernel_ms(prof) -> float:
 
 
 def _timed_calls(cap, dev, repeats: int) -> tuple:
-    """(fastest total ms, device ms a call) of `repeats` calls of `cap` on
-    `dev`. On a card one CUDA-only profiler capture spans the calls (a
-    capture costs seconds to start and stop, more than most entries take);
-    the arguments are copied before it, so no copy is billed."""
+    """(fastest total ms, profiler device ms a call, events ms a call) of
+    `repeats` calls of `cap` on `dev`. On a card one CUDA-only profiler
+    capture spans the calls (a capture costs seconds to start and stop, more
+    than most entries take) and a pair of timing events on the current
+    stream brackets each call; the arguments are copied before it, so no
+    copy is billed."""
     import torch
 
     arg_sets = [_fresh_args(cap) for _ in range(repeats)]
     totals = []
+    spans = []
 
     def timed(args):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
         cap.fn(*args, **cap.kwargs)
         if dev.type == "cuda":
+            end.record(torch.cuda.current_stream(dev))
             torch.cuda.synchronize(dev)
+            spans.append((start, end))
         totals.append((time.perf_counter() - t0) * 1e3)
 
     if dev.type != "cuda":
         for args in arg_sets:
             timed(args)
-        return min(totals), 0.0
+        return min(totals), 0.0, 0.0
     torch.cuda.synchronize(dev)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with _capture(torch) as prof:
         for args in arg_sets:
             timed(args)
-    return min(totals), _kernel_ms(prof) / repeats
+    events_ms = sum(s.elapsed_time(e) for s, e in spans) / repeats
+    return min(totals), _kernel_ms(prof) / repeats, events_ms
+
+
+def _capture(torch):
+    """The CUDA-only profiler capture around the timed calls."""
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+def device_reading(profiler_ms: float, events_ms: float, on_card: bool) -> tuple:
+    """(device ms, source) of one entry: the capture's kernel sum, or the
+    events' span where the capture held no kernel but the events show time
+    (module docstring)."""
+    if not on_card:
+        return 0.0, "none"
+    if profiler_ms <= 0.0 and events_ms > 0.0:
+        return events_ms, "events"
+    return profiler_ms, "profiler"
 
 
 def analyze_dispatch_gaps(
@@ -298,17 +347,20 @@ def analyze_dispatch_gaps(
             if not warmed:  # a first call must never be billed here
                 cap.fn(*_fresh_args(cap), **cap.kwargs)
             with span(f"device:{cap.name}", entry=cap.name) as dev_span:
-                total_ms, device_ms = _timed_calls(cap, dev, repeats)
+                total_ms, profiler_ms, events_ms = _timed_calls(cap, dev, repeats)
+                device_ms, source = device_reading(profiler_ms, events_ms, dev.type == "cuda")
                 dispatch_ms = max(total_ms - device_ms, 0.0)
                 gap = dispatch_ms / total_ms if total_ms > 0 else 0.0
                 dev_span.meta.update(
                     device_ms=round(device_ms, 4),
+                    device_source=source,
                     dispatch_ms=round(dispatch_ms, 4),
                     gap_ratio=round(gap, 4),
                 )
             entries.append(EntryTiming(
                 name=cap.name, dispatch_ms=dispatch_ms, device_ms=device_ms,
                 total_ms=total_ms, gap_ratio=gap, repeats=repeats,
+                device_source=source, events_ms=events_ms,
             ))
             metrics.DEVICE_TIME.set(device_ms / 1e3, entry=cap.name)
             metrics.DISPATCH_GAP.set(gap, entry=cap.name)

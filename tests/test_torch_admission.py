@@ -574,3 +574,17 @@ def test_server_close_sheds_queued_with_draining(monkeypatch):
 
     got = both(scenario)
     assert got == [(200, None, False), (503, "draining", True), (503, "draining", True)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -324,3 +324,17 @@ def test_simulate_result_pods_on():
         assert ([p.key for p in tout.result.pods_on(st.node.name)]
                 == [p.key for p in jout.result.pods_on(st.node.name)])
     assert tout.result.pods_on("no-such-node") == []
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -282,3 +282,17 @@ def test_capacity_digests_match_jax(name, n_pods, n_nodes, modes):
                                   sweep_mode=mode, **kw)
             got[pkg] = (p.nodes_added, p.attempts, p.batched_calls, sc.result_digest(p.result))
         assert got["torch"] == got["jax"] == sc.CAPACITY_DIGESTS[f"{name}/{mode}"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

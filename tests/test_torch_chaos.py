@@ -145,3 +145,17 @@ def test_chaos_capacity_device_lost_matches_jax(tmp_path, capsys, monkeypatch):
     assert "faulted run: completed — device faults recovered in place" in out
     assert "placement digest vs clean reference: match" in out
     assert "engine=serial" in out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -583,3 +583,17 @@ def test_full_width_scan_digest_matches_jax(monkeypatch):
         jnp.stack([sim.weights] * s_pad), jnp.asarray(np.stack(valid)), len(ladder))
     assert (n_pad, s_pad, len(ladder)) == (20_480, 8, 6)
     assert jfast.scenario_carry_digest(out[0]) == sc.CHUNK_SCAN_DIGEST
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -4,6 +4,7 @@ headings and cross-links for the verbs both CLIs have; the warm-start
 check's answer equal to the JAX sweep's constant, with no kernel built.
 """
 
+import pytest
 import json
 
 import torch
@@ -37,8 +38,8 @@ def test_gen_doc_layout_equals_jax(tmp_path, capsys):
     wrote = capsys.readouterr().out.splitlines()
     port_files = {p.name for p in tdir.iterdir()}
     assert {f"wrote {tdir / f}" for f in port_files} == set(wrote)
-    verbs = {"apply", "chaos", "interleave", "profile", "prove", "runs", "server", "sweep",
-             "warmup", "version", "gen-doc"}
+    verbs = {"apply", "audit", "chaos", "check", "interleave", "lint", "profile", "prove",
+             "runs", "server", "sweep", "warmup", "version", "gen-doc"}
     assert port_files == {"simon.md"} | {f"simon_{v}.md" for v in verbs}
     shared = port_files & {p.name for p in jdir.iterdir()}
     assert shared == port_files  # every port verb is one of the reference's
@@ -55,3 +56,17 @@ def test_warmup_check_cli(capsys):
     doc = json.loads(capsys.readouterr().out)
     assert doc["ok"] and doc["cold_compiles"] == 0
     assert doc["nodes_added"] == doc["batched_nodes_added"] == sim_configs.WARM_START_NODES_ADDED
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

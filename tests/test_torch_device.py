@@ -205,3 +205,17 @@ def test_simulator_path_imports_without_yaml():
         "assert profiles.load_scheduler_config('').profiles\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -258,3 +258,17 @@ def test_smem_budget_formula():
     assert dp.smem_bytes(2, 4, 4) < 4096
     assert dp.smem_bytes(2, 4, 4, hard=False) == 0
     assert dp.smem_bytes(2, 1024, 64) > dp.SMEM_BUDGET
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

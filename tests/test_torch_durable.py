@@ -894,3 +894,17 @@ def test_metrics_registry_snapshot_and_reset():
     assert metrics.REGISTRY.snapshot() == {}
     assert metrics.DEVICE_LOST.value(handled="yes") == 0
     assert metrics.CHECKPOINT_BYTES.snapshot()["samples"] == [{"labels": {}, "value": 0.0}]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

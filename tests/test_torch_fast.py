@@ -540,3 +540,17 @@ def test_workload_digest_constant_is_the_jax_result(name):
     assert headline.placement_digest(*result) == bench_configs.DIGESTS[name]
     deltas = {k: jfast.PATH_COUNTS[k] - before[k] for k in before}
     assert {k: v for k, v in deltas.items() if v} == bench_configs.PATHS[name]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -50,3 +50,17 @@ def test_fuzz_parity_with_jax_and_oracle(seed):
             np.testing.assert_array_equal(
                 getattr(oracle[0], f).numpy(), getattr(got[0], f).numpy(), err_msg=f
             )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -128,3 +128,17 @@ def test_fetch_round_trip():
     assert got[2].shape == () and bool(got[2])
     with pytest.raises(ValueError, match="32-bit"):
         tgrouped.fetch(torch.zeros(2, dtype=torch.int64))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -163,3 +163,17 @@ def test_cli_interleave_clean_scenario_exits_zero(capsys):
     assert rc == 0
     report = json.loads(capsys.readouterr().out)
     assert report["ok"] and report["bounds"]["preemptions"] == 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -274,3 +274,17 @@ def test_schedule_batch(state):
     _eq(tuple(want[0]), tuple(got[0]), f"{name} carry")
     _eq(tuple(want[1:]), tuple(got[1:]), name)
     assert (np.asarray(want[1]) >= 0).any()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -165,3 +165,17 @@ def test_apply_kubeconfig_error_is_apply_error(tmp_path):
     cfg_path = stubs.write_kube_apply_config(str(tmp_path), "http://127.0.0.1:9")
     with pytest.raises(tapply.ApplyError, match="spec.cluster.kubeConfig"):
         tapply.run_apply(TConfig.load(cfg_path), auto_plan=False, out=io.StringIO(), device="cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -411,3 +411,17 @@ def test_two_threads_simulate_like_serial():
     for spec, want in zip(specs, serial):
         cluster, apps = sc.build(spec, JNode, jsim.ClusterResource, jsim.AppResource)
         assert sc.response_census(jserver._format_result(jsim.simulate(cluster, apps))) == want
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

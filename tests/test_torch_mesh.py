@@ -339,3 +339,17 @@ def test_scheduling_ties_across_slots_follow_the_lowest_node():
         cluster, a = sc.build((nodes, apps), tobj.Node, tsim.ClusterResource, tsim.AppResource)
         runs.append(_placements(tsim.simulate(cluster, a, mesh=mesh, device="cpu")))
     assert runs[0] == runs[1] == runs[2]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

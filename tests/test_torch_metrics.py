@@ -296,3 +296,17 @@ def test_fast_path_and_stamped_rows_render_like_jax():
     assert tmetrics.ENCODE_STAMPED_ROWS.value() == stamped0 + 9  # 1 template, 9 clones
     assert tmetrics.FAST_PATH.value(path="sort") >= 1
     assert tmetrics.FAST_PATH.value(path="domain") >= 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

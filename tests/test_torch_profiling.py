@@ -84,6 +84,67 @@ def test_aggregate_gap_is_time_weighted_not_mean_of_ratios():
     assert "aggregate gap ratio 0.010" in rep.render_text()
 
 
+class _FakeCard:
+    """A card stand-in for the timing path: CUDA events that advance a clock
+    by `span_ms` per record pair, a profiler capture that records no kernel
+    (the missed capture of a few-us entry)."""
+
+    type = "cuda"
+
+    def __init__(self, monkeypatch, span_ms, profiler_ms=0.0):
+        import contextlib
+        import itertools
+
+        clock = itertools.count()
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                assert enable_timing
+                self.t = 0.0
+
+            def record(self, stream=None):
+                self.t = next(clock) * span_ms
+
+            def elapsed_time(self, end):
+                return end.t - self.t
+
+        monkeypatch.setattr(profiling, "resolve_device", lambda device: self)
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: None)
+        monkeypatch.setattr(profiling, "_capture", lambda torch: contextlib.nullcontext())
+        monkeypatch.setattr(profiling, "_kernel_ms", lambda prof: profiler_ms)
+
+
+def test_missed_capture_reports_the_events_not_zero(monkeypatch):
+    """A capture holding no kernel while the CUDA events show time: the
+    entry's device time is the events' span, marked as such, never 0, and
+    osim_device_time_seconds is never set to 0."""
+    _FakeCard(monkeypatch, span_ms=0.25)
+    rep = analyze_dispatch_gaps(captures=_caps(), repeats=2, device="cuda")
+    for e in rep.entries:
+        assert e.device_ms == pytest.approx(0.25) and e.events_ms == pytest.approx(0.25)
+        assert e.device_source == "events"
+        assert e.to_dict()["device_source"] == "events"
+        assert metrics.DEVICE_TIME.value(entry=e.name) == pytest.approx(0.25e-3)
+    assert "(events)" in rep.render_text()
+
+
+def test_a_capture_with_kernels_keeps_the_profiler_reading(monkeypatch):
+    _FakeCard(monkeypatch, span_ms=0.25, profiler_ms=0.3)
+    rep = analyze_dispatch_gaps(captures=_caps()[:1], repeats=3, device="cuda")
+    (e,) = rep.entries
+    assert e.device_source == "profiler" and e.device_ms == pytest.approx(0.1)
+    assert e.events_ms == pytest.approx(0.25)
+
+
+def test_device_reading():
+    assert profiling.device_reading(0.0, 0.25, True) == (0.25, "events")
+    assert profiling.device_reading(0.1, 0.25, True) == (0.1, "profiler")
+    assert profiling.device_reading(0.0, 0.0, True) == (0.0, "profiler")
+    assert profiling.device_reading(0.0, 0.0, False) == (0.0, "none")
+
+
 def test_fresh_args_recopies_donated_argnums():
     def fn(a, b):
         return a.add_(b)
@@ -158,3 +219,17 @@ def test_cli_profile_unknown_entry_exits_1(capsys):
     rc = cli.main(["profile", "--entries", "ops.fast:no_such_entry", "--device", "cpu"])
     assert rc == 1
     assert "unknown audit entry" in capsys.readouterr().err
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

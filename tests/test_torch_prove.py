@@ -282,3 +282,17 @@ def test_whole_corpus_verifies_banked_contract(engine, tmp_path):
     out = tmp_path / "c.json"
     semantics.write_contract(str(out), SmallScope(), report)
     assert json.load(open(out)) == json.load(open(semantics.CONTRACT_PATH))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -558,3 +558,17 @@ def test_scenario_session_with_resident(tmp_path):
         assert [sc.result_digest(r) for r in lanes] == [sc.result_digest(r) for r in want]
     assert metrics.RESIDENT_FALLBACKS.value(reason="not_covering") == not_covering
     assert session.sim._resident is res
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -198,3 +198,17 @@ def test_simulation_parity_plain_vs_sanitized(monkeypatch):
     monkeypatch.setenv(SANITIZE_ENV, "1")
     assert _quickstart_digest("open_simulator_tpu_torch") == want
     assert sum(s["value"] for s in metrics.SANITIZER_VIOLATIONS.snapshot()["samples"]) == violations0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -275,3 +275,17 @@ def test_scenario_validation():
     assert tsim.Scenario(node_count=3).keep_mask(3) is None
     assert tfast.scenario_bucket(3) == 8 and tfast.scenario_bucket(3, floor=16) == 16
     assert os.environ.get("OSIM_COMMIT_CHUNK", "") in ("", "0")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -494,3 +494,17 @@ def test_sim_digests_match_jax(name):
     result = jsim.simulate(cluster, apps)
     assert sc.result_digest(result) == sc.SIM_DIGESTS[name]
     assert sc.result_counts(result) == sc.SIM_COUNTS[name]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -320,3 +320,17 @@ def test_durable_metrics_tripwire(name):
     ours, theirs = getattr(tm, name), getattr(jm, name)
     assert (ours.name, ours.kind, ours.labelnames) == (theirs.name, theirs.kind, theirs.labelnames)
     assert tm.REGISTRY._metrics[ours.name] is ours
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

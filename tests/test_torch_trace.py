@@ -443,3 +443,17 @@ def test_trace_event_cap_bad_value_falls_back(monkeypatch, tmp_path):
     finally:
         ttracing.reset_trace_events()
     assert [e["name"] for e in payload["traceEvents"]] == ["cap-fallback"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -282,3 +282,17 @@ def test_acquire_backend_runs_the_warm_phase(tmp_path, monkeypatch):
     assert [e["event"] for e in j2.events()][-1] == "warmup_error"
     monkeypatch.delenv("OSIM_WARMUP")
     assert "warmup" not in watchdog.acquire_backend(device="cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()

@@ -304,3 +304,17 @@ def test_wave_enabled_policy(monkeypatch):
     assert twave.wave_size() == 16
     monkeypatch.setenv("OSIM_WAVE_ROUNDS", "junk")
     assert twave.wave_max_rounds() == twave.DEFAULT_MAX_ROUNDS
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untraced_allocations():
+    """Pause tracemalloc for this file: an earlier file in the same worker
+    may have left it tracing (a heap-profile test does), which slows
+    Python-heavy tests tens of times."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    tracemalloc.stop()
+    yield
+    if tracing:
+        tracemalloc.start()
