@@ -2682,17 +2682,19 @@ def tooling_phase(torch, dp, device="cuda"):
 
 
 def analysers_phase(torch, device, cli_json, results, failures):
-    """Steps 7-9 of tooling_phase: `lint`, the seeded host reads, `audit`
-    and `check` on `device`, into `results` and `failures`."""
+    """Steps 7-9 of tooling_phase: `lint`, the seeded host reads, `audit
+    --memory`, the standalone `preflight` (the verdict and its entry's
+    cells; `check` runs the whole matrix), its seeded transfers and
+    replication, and `check` on `device`, into `results` and `failures`."""
     from open_simulator_tpu_torch.analysis import op_audit
+    from open_simulator_tpu_torch.analysis import preflight as pf
     from open_simulator_tpu_torch.analysis.entry_audit import REQUIRED_COVERAGE
 
     import os
 
     cuda = device == "cuda"
     dev_args = [] if cuda else ["--device", device]
-    # audit and check read Python only (AST passes, the host model checker):
-    # they run in their own processes beside lint, which holds the card
+    # audit, preflight and check run in their own processes beside lint
     import threading
 
     t_steps = time.perf_counter()
@@ -2703,11 +2705,13 @@ def analysers_phase(torch, device, cli_json, results, failures):
             [sys.executable, "-m", "open_simulator_tpu_torch.cli", verb, *extra],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             cwd=os.path.dirname(os.path.abspath(__file__)))
-        out, err = proc.communicate(timeout=300)
+        out, err = proc.communicate(timeout=600)
         side_out[verb] = (proc.returncode, out, err, time.perf_counter() - t_steps)
 
-    for verb, extra in (("audit", ["--format", "json"]),
-                        ("check", ["--format", "sarif", "--quick"])):
+    for verb, extra in (("audit", ["--memory", "--format", "json", *dev_args]),
+                        ("preflight", ["--entries", "ops.fast:schedule_scenarios",
+                                       "--format", "json", *dev_args]),
+                        ("check", ["--format", "sarif", "--quick", *dev_args])):
         side[verb] = threading.Thread(target=run_side, args=(verb, extra), daemon=True)
         side[verb].start()
     rc, rep, wall = cli_json(["lint", "--format", "json", *dev_args])
@@ -2765,8 +2769,37 @@ def analysers_phase(torch, device, cli_json, results, failures):
     if missed:
         failures.append(f"census: seeded host reads not caught: {missed}")
 
+    # seeded cases the preflight must catch: a host-to-card and a card-to-host
+    # copy inside an entry (the transfer pass), and a fixture that gathers
+    # the whole node table on a 1x2 layout at rung 128 (the replication
+    # detector)
+    host = torch.arange(8, dtype=torch.float32)
+    fixtures = {
+        "h2d": lambda t: t + host.to(t.device),
+        "d2h": lambda t: (t * 2).to("cpu"),
+        "clean": lambda t: t * 2.0,
+    }
+    verdicts = {}
+    for what, fn in fixtures.items():
+        chk = pf.guarded_steady_state_check(fn, (x,), {}, name=f"seeded:{what}")
+        verdicts[what] = (chk.ok, chk.error)
+    from open_simulator_tpu_torch.parallel import slots as nx_slots
+
+    rep_pa = pf.audit_program(
+        Cap("seeded:replicate", lambda t: nx_slots.on_root(lambda v: v + 1.0, t),
+            torch.zeros((64, 4), device=device)), 128, "1x2", device=device)
+    verdicts["replicate"] = (rep_pa.ok, rep_pa.node_gathers)
+    results["seeded_preflight"] = verdicts
+    print(f"tooling[preflight seeded] {verdicts}", flush=True)
+    want_fail = ("h2d", "d2h") if cuda else ()
+    if any(verdicts[w][0] for w in want_fail) or not verdicts["clean"][0]:
+        failures.append(f"preflight: seeded transfers {verdicts}")
+    if verdicts["replicate"][0] or not rep_pa.node_gathers:
+        failures.append(f"preflight: the seeded node-table gather was not flagged: "
+                        f"{rep_pa.to_dict()}")
+
     def side_json(verb):
-        side[verb].join(timeout=300)
+        side[verb].join(timeout=600)
         rc, out, err, wall = side_out.get(verb, (None, "", "did not end", 0.0))
         try:
             return rc, json.loads(out[out.index("{"):]), wall
@@ -2776,28 +2809,90 @@ def analysers_phase(torch, device, cli_json, results, failures):
 
     rc, rep, wall = side_json("audit")
     races = rep.get("races") or {}
+    inv = rep.get("invariants") or {}
+    mem = rep.get("memory") or {}
+    entries = {e["entry"]: e for e in inv.get("entries", [])}
     results["audit"] = {"rc": rc, "wall_s": wall, "ok": rep.get("ok"),
                         "thread_roots": len(races.get("thread_roots", [])),
-                        "audited_functions": races.get("audited_functions")}
+                        "audited_functions": races.get("audited_functions"),
+                        "invariants_ok": inv.get("ok"), "memory_ok": mem.get("ok"),
+                        "memory_s": mem.get("seconds")}
     print(f"tooling[audit] exit {rc}, {wall:.3f} s: {len(races.get('findings', []))} "
           f"findings, {len(races.get('thread_roots', []))} thread roots, "
-          f"{races.get('audited_functions')} audited functions, invariants "
-          f"{rep.get('invariants')}", flush=True)
+          f"{races.get('audited_functions')} audited functions, invariants ok "
+          f"{inv.get('ok')}, memory ok {mem.get('ok')} ({mem.get('seconds')} s)", flush=True)
     if rc != 0 or not rep.get("ok"):
-        failures.append(f"audit: exit {rc}, {races.get('findings')}")
+        failures.append(f"audit: exit {rc}, {races.get('findings')}, invariants "
+                        f"{[e['findings'] for e in entries.values() if e['findings']]}")
+    for name, e in sorted(entries.items()):
+        counts = {}
+        for p in e["commit_carry"]:
+            counts[p["verdict"]] = counts.get(p["verdict"], 0) + 1
+        print(f"tooling[invariants] {name:34s} ok {e['ok']} masks {e['bool_outputs']} "
+              f"floats {e['float_outputs']} carry {counts}", flush=True)
+    for p in inv.get("plugins", []):
+        print(f"tooling[invariants] plugin {p['plugin']:20s} ok {p['ok']} range {p['range']}",
+              flush=True)
+    if set(entries) != set(REQUIRED_COVERAGE) or not inv.get("ok"):
+        failures.append(f"invariants: {sorted(entries)} ok {inv.get('ok')}")
+    for name in ("ops.fast:domain_select", "ops.kernels:probe_step", "ops.delta:apply_flags"):
+        if entries.get(name, {}).get("bool_outputs", 0) < 1:
+            failures.append(f"invariants: {name} has no mask output")
+    plugins = inv.get("plugins", [])
+    if len(plugins) != 10 or any(not p["ok"] or p["range"][0] < 0 or p["range"][1] > 100
+                                 for p in plugins):
+        failures.append(f"invariants: plugins {plugins}")
+    for name in ("ops.kernels:schedule_batch", "ops.fast:schedule_scenarios",
+                 "ops.fast:schedule_universes", "ops.kernels:commit_step",
+                 "ops.kernels:commit_wave"):
+        verdicts_ = [p["verdict"] for p in entries.get(name, {}).get("commit_carry", [])]
+        if "proved" not in verdicts_ or "unguarded" in verdicts_:
+            failures.append(f"invariants: {name} carry verdicts {verdicts_}")
+    if "virtual" not in [p["verdict"] for p in
+                         entries.get("ops.fast:build_trajectory", {}).get("commit_carry", [])]:
+        failures.append("invariants: build_trajectory has no virtual carry slot")
+    canon = [p for p in mem.get("programs", []) if p["rung"] == 64 and p["mesh"] == "1"]
+    for p in sorted(canon, key=lambda p: p["entry"]):
+        print(f"tooling[memory] {p['entry']} tracker {p['tracker_peak_bytes']} cuda "
+              f"{p['cuda_peak_bytes']} (peak {p['peak_bytes']}, on {p['ran_on']}, ok {p['ok']})",
+              flush=True)
+    if not mem.get("ok") or {p["entry"] for p in canon} != set(REQUIRED_COVERAGE):
+        failures.append(f"audit --memory: ok {mem.get('ok')}, "
+                        f"{[(p['key'], p['error']) for p in mem.get('programs', []) if not p['ok']]}")
+    if cuda and any(p["cuda_peak_bytes"] <= 0 for p in canon):
+        failures.append("audit --memory: an entry shows no CUDA peak")
+
+    rc, rep, wall = side_json("preflight")
+    vd = rep.get("verdict") or {}
+    results["preflight"] = {"rc": rc, "wall_s": wall, "ok": rep.get("ok"),
+                            "programs": len(rep.get("programs", [])), "verdict": vd,
+                            "transfers": rep.get("transfers")}
+    print(f"tooling[preflight] exit {rc}, {wall:.3f} s: {len(rep.get('programs', []))} "
+          f"program(s), {len(rep.get('programs_skipped', []))} skipped, violations "
+          f"{rep.get('violations')}, transfers {rep.get('transfers')}", flush=True)
+    print(f"tooling[verdict] plan_1m_100k peak {vd.get('peak_gib')} of {vd.get('hbm_gib')} GiB "
+          f"(rung {vd.get('rung')}, {vd.get('pod_bucket')} pods, mesh {vd.get('mesh')}, "
+          f"node table sharded {vd.get('node_table_sharded')}, {vd.get('compile_seconds')} s)",
+          flush=True)
+    if rc != 0 or not rep.get("ok") or not vd.get("ok") or not vd.get("node_table_sharded"):
+        failures.append(f"preflight: exit {rc}, verdict {vd}, "
+                        f"{[(p['key'], p['error']) for p in rep.get('programs', []) if not p['ok']]}"
+                        f", violations {rep.get('violations')}, transfers {rep.get('transfers')}")
 
     rc, doc, wall = side_json("check")
     tools = [r["tool"]["driver"]["name"] for r in doc.get("runs", [])]
     results["check"] = {"rc": rc, "wall_s": wall, "version": doc.get("version"), "runs": tools}
     print(f"tooling[check] exit {rc}, {wall:.3f} s: SARIF {doc.get('version')}, runs {tools}",
           flush=True)
-    if rc != 0 or doc.get("version") != "2.1.0" or sorted(tools) != [
-            "simon-audit", "simon-interleave", "simon-lint"]:
-        failures.append(f"check: exit {rc}, version {doc.get('version')}, runs {tools}")
+    if rc != 0 or doc.get("version") != "2.1.0" or tools != [
+            "simon-lint", "simon-audit", "simon-preflight", "simon-interleave"]:
+        failures.append(f"check: exit {rc}, version {doc.get('version')}, runs {tools}, "
+                        f"results {[r.get('results') for r in doc.get('runs', [])]}")
     steps = time.perf_counter() - t_steps
     results["analysers_wall_s"] = steps
-    print(f"tooling[analysers] lint, audit and check: {steps:.3f} s of wall (audit and "
-          f"check in processes of their own beside lint)", flush=True)
+    print(f"tooling[analysers] lint, audit --memory, preflight and check: {steps:.3f} s of "
+          f"wall (audit, preflight and check in processes of their own beside lint)",
+          flush=True)
 
 
 def start_phase_child(phase, tmp, *args):

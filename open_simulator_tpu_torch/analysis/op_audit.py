@@ -104,6 +104,23 @@ LISTED_TRANSFERS: Dict[str, Dict[str, Tuple[int, str]]] = {
             "filter bit by value: two scalar reads before the launch "
             "(ops/fast.py domain_select)"
         )),
+        "_to_copy:to_cuda": (11, (
+            "the domain plan is built on the host from the gathered node "
+            "tables: its class tables are uploaded per call, 7 on the "
+            "spread-only path, 11 with affinity terms (ops/fast.py t())"
+        )),
+    },
+    "ops.delta:apply_rows": {
+        "_to_copy:to_cuda": (2, (
+            "a resident-state delta arrives from the host: its row indices "
+            "and row values are uploaded per call (ops/delta.py)"
+        )),
+    },
+    "ops.delta:apply_flags": {
+        "_to_copy:to_cuda": (2, (
+            "a resident-state delta arrives from the host: its row indices "
+            "and flags are uploaded per call (ops/delta.py)"
+        )),
     },
 }
 

@@ -2,23 +2,24 @@
 
 The port of the JAX package's analysis/sarif.py. Every static pass emits a
 deterministic JSON report of its own shape (`simon lint`, `simon audit`,
-`simon interleave`); CI annotation UIs speak SARIF. This module converts
-each pass's report into a SARIF *run* (one `tool.driver` per producer, so
-annotations are attributed to the pass that found them) and
-`sarif_document` stitches the runs into one 2.1.0 document. The preflight
-run arrives with `simon preflight` (ROADMAP item 14b-ii).
+`simon preflight`, `simon interleave`); CI annotation UIs speak SARIF.
+This module converts each pass's report into a SARIF *run* (one
+`tool.driver` per producer, so annotations are attributed to the pass that
+found them) and `sarif_document` stitches the runs into one 2.1.0
+document.
 
 Shape conventions:
 
 * one SARIF `run` per producer (`simon-lint`, `simon-audit`,
-  `simon-interleave`), even when a producer has zero results: the empty run
-  is the machine-readable "this pass ran and was clean" statement;
+  `simon-preflight`, `simon-interleave`), even when a producer has zero
+  results: the empty run is the machine-readable "this pass ran and was
+  clean" statement;
 * the lint run's rule metadata (id and one-line description) comes from
   the port's rule registry (`analysis.lint.iter_rules`);
 * findings with a source position (lint, races) carry a
   `physicalLocation`; interleaving violations anchor to the module whose
-  protocol the scenario drives, so annotation UIs have somewhere to pin
-  them;
+  protocol the scenario drives, and preflight results to the budget book,
+  so annotation UIs have somewhere to pin them;
 * all output is plain dicts ordered for `json.dumps(sort_keys=True)`
   byte-stability: no wall clock, no randomness.
 
@@ -138,9 +139,9 @@ def lint_run(report) -> dict:
 
 
 def audit_run(report) -> dict:
-    """`simon audit` SemanticAuditReport (the race pass) -> SARIF run.
-    Unused suppressions are findings too: a stale ``audit-ok`` hides future
-    regressions."""
+    """`simon audit` SemanticAuditReport -> SARIF run. Unused suppressions
+    are findings too: a stale ``audit-ok`` hides future regressions;
+    invariant findings ride along with their op path."""
     results: List[dict] = []
     rule_ids: List[str] = []
     races = getattr(report, "races", None)
@@ -168,7 +169,90 @@ def audit_run(report) -> dict:
                     line=u.line,
                 )
             )
+    inv = getattr(report, "invariants", None)
+    if inv is not None and not inv.ok:
+        for f in inv.findings:
+            rule_ids.append(f.kind)
+            results.append(
+                _result(
+                    f.kind,
+                    f"{f.entry} at {f.path}: {f.message}",
+                    properties={"primitive": f.primitive},
+                )
+            )
     return _run("simon-audit", rule_ids, results)
+
+
+def preflight_run(report) -> dict:
+    """`simon preflight` PreflightReport -> SARIF run. Everything is
+    report-level (budgets live in budgets/preflight_torch.json), so results
+    anchor to the budget book."""
+    results: List[dict] = []
+    rule_ids: List[str] = []
+    anchor = report.budgets_path or "budgets/preflight_torch.json"
+    for v in report.violations:
+        d = v.to_dict() if hasattr(v, "to_dict") else dict(v)
+        rule = str(d.get("kind", "budget"))
+        rule_ids.append(rule)
+        results.append(
+            _result(
+                rule,
+                f"{d.get('key', '?')}: {d.get('message', '')}",
+                path=anchor,
+                properties={k: d[k] for k in sorted(d)},
+            )
+        )
+    for p in report.programs:
+        if p.error:
+            rule_ids.append("lowering-error")
+            results.append(_result("lowering-error", f"{p.key}: {p.error}", path=anchor))
+        elif not p.estimate_ok:
+            rule_ids.append("estimator-mismatch")
+            results.append(
+                _result(
+                    "estimator-mismatch",
+                    f"{p.key}: the tracker does not cover the measured bytes (arguments "
+                    f"{p.argument_bytes} vs estimate {p.est_argument_bytes}; peak "
+                    f"{p.tracker_peak_bytes} vs card {p.cuda_peak_bytes})",
+                    path=anchor,
+                )
+            )
+        if p.node_gathers:
+            rule_ids.append("node-table-replication")
+            results.append(_result("node-table-replication",
+                                   f"{p.key}: gathers {p.node_gathers}", path=anchor))
+        if p.lane_parallel_violation:
+            rule_ids.append("lane-parallel-exchange")
+            results.append(_result("lane-parallel-exchange",
+                                   f"{p.key}: exchanges {p.collectives} on a scenario-only mesh",
+                                   path=anchor))
+    for t in report.transfers:
+        if not t.ok:
+            rule_ids.append("steady-state-transfer")
+            results.append(
+                _result(
+                    "steady-state-transfer",
+                    f"{t.entry}: host transfer in steady state"
+                    + (f" ({t.error})" if t.error else ""),
+                    path=anchor,
+                )
+            )
+    verdict = report.verdict
+    if verdict is not None and not verdict.get("ok", False):
+        rule_ids.append("plan-verdict")
+        results.append(
+            _result(
+                "plan-verdict",
+                f"plan verdict {verdict.get('config', '?')} failed: "
+                f"{verdict.get('error') or 'does not fit'}",
+                path=anchor,
+            )
+        )
+    # the audited inventory rides in the run's property bag: a clean run
+    # then still NAMES every covered program, so a regression that drops an
+    # entry from the budget book is visible as an inventory diff
+    covered = sorted({p.key for p in report.programs})
+    return _run("simon-preflight", rule_ids, results, properties={"programs": covered})
 
 
 def interleave_run(report) -> dict:

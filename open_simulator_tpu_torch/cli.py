@@ -82,10 +82,16 @@ session, journal and breaker protocols (analysis/interleave.py); exit code
 lint: the AST rules over the port's sources (analysis/lint.py and
 analysis/rules/), then, unless --no-jaxpr, the op census of every registry
 entry and the recompile guard on the device (analysis/op_audit.py). audit:
-the race and deadlock detector (analysis/races.py); the invariant pass is
-not in the port yet. check: lint's AST rules, audit and interleave in one
-SARIF 2.1.0 document. Each exits 0 when clean, 1 otherwise. `lint
---no-jaxpr`, `audit` and `check` import no torch.
+the race and deadlock detector (analysis/races.py) and the invariant prover
+over every registry entry's aten op graph (analysis/invariants.py);
+`--memory` adds the canonical-rung slice of the preflight. preflight: the
+device-memory, cross-slot exchange and host-transfer audit of every registry
+entry at each rung x mesh on `meta` tensors, diffed against
+budgets/preflight_torch.json, with the plan_1m_100k verdict
+(analysis/preflight.py). check: lint's AST rules, audit, preflight and
+interleave in one SARIF 2.1.0 document. Each exits 0 when clean, 1
+otherwise. `lint --no-jaxpr`, `audit --no-invariants` and `check
+--no-invariants --no-preflight` import no torch.
 
 prove: the small-scope semantics check (analysis/semantics.py). Exit code 0
 when every universe agrees with the oracle and the contract verifies, 1 on
@@ -351,33 +357,80 @@ def _add_lint(sub) -> None:
 
 def _add_audit(sub) -> None:
     p = sub.add_parser(
-        "audit", help="semantic verification: the race and deadlock detector",
+        "audit", help="semantic verification: races, deadlocks, numeric invariants",
         description=(
             "Run the semantic audit passes: the lock-discipline race detector and the "
             "lock-order deadlock pass over thread-reachable code (server handlers, "
-            "thread targets, executor tasks, the watchdog, signal handlers). The "
-            "invariant pass is not in the port yet: the report carries invariants as "
-            "null, as the reference's --no-invariants report does. Deterministic output; "
-            "exit 0 = clean. Imports no torch."
+            "thread targets, executor tasks, the watchdog, signal handlers), and the "
+            "invariant prover: an interval domain over every registry entry's aten op "
+            "graph on --device (masks {0,1}, score plugins in [0,100], no NaN at a "
+            "selection op or an output, commit-carry counters non-negative). --memory "
+            "adds the preflight's canonical-rung slice. Deterministic output; exit 0 = "
+            "clean."
         ),
     )
     p.add_argument("--format", choices=("text", "json"), default="text",
                    help="output format (json is the machine-readable CI artifact)")
     p.add_argument("--no-races", action="store_true", help="skip the race detector")
     p.add_argument("--no-invariants", action="store_true",
-                   help="skip the invariant pass (not in the port yet either way)")
+                   help="skip the invariant prover (no torch import)")
+    p.add_argument("--memory", action="store_true",
+                   help="also run the preflight's memory and exchange slice at the canonical "
+                   "rung on every mesh (on a card, each entry's tracker against its CUDA peak)")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+
+def _add_preflight(sub) -> None:
+    p = sub.add_parser(
+        "preflight",
+        help="device-memory budgets, exchange census and transfer audit of every entry",
+        description=(
+            "Pre-flight program auditor: run every registry entry at each node-ladder "
+            "rung x mesh shape on meta tensors (slots share one device), track the live "
+            "bytes of every storage its ops make (argument, output, alias, temp, peak "
+            "per slot), count the cross-slot exchanges (failing on node-table "
+            "replication or exchanges in lane-parallel programs), re-run each entry "
+            "under a guard against host<->device copies and scalar reads, and diff "
+            "everything against the checked-in budget book. The plan_1m_100k "
+            "configuration gets a fits-in-device-memory verdict at mesh 1x4. On a card "
+            "the canonical point of each entry also runs for real and the tracker must "
+            "cover the CUDA peak."
+        ),
+    )
+    p.add_argument("--format", choices=("text", "json"), default="text",
+                   help="output format (json is the machine-readable CI artifact)")
+    p.add_argument("--budgets", default="budgets/preflight_torch.json",
+                   help="budget book to diff against (default: budgets/preflight_torch.json)")
+    p.add_argument("--write-budgets", action="store_true",
+                   help="rewrite the budget book from this run's measurements instead of "
+                   "diffing — the only sanctioned way to admit a memory or exchange change")
+    p.add_argument("--rungs", default="", help="comma-separated node-ladder rungs "
+                   "(default: 64,128)")
+    p.add_argument("--meshes", default="", help="comma-separated mesh tags like 1,2x1,2x2 "
+                   "(default)")
+    p.add_argument("--entries", default="",
+                   help="comma-separated audit names (e.g. ops.fast:schedule_scenarios) to "
+                   "restrict the matrix; default: every captured entry")
+    p.add_argument("--no-transfers", action="store_true",
+                   help="skip the transfer audit (the pass that calls entries for real)")
+    p.add_argument("--no-verdict", action="store_true",
+                   help="skip the plan_1m_100k fits-in-device-memory verdict")
+    p.add_argument("--hbm-gib", type=float, default=None,
+                   help="device memory for the verdict off a card (default: 80, an H100 "
+                   "80GB HBM3's); on a card its total memory")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
 
 def _add_check(sub) -> None:
     p = sub.add_parser(
-        "check", help="umbrella static gate: lint + audit + interleave in one SARIF 2.1.0 "
-        "report",
+        "check", help="umbrella static gate: lint + audit + preflight + interleave in one "
+        "SARIF 2.1.0 report",
         description=(
             "Run the static passes (`simon lint`'s AST rules, `simon audit`'s race "
-            "detector, `simon interleave`) and emit one SARIF 2.1.0 document with a run "
-            "per producer, ready for a CI annotation step. Exit 1 if any pass fails. The "
-            "invariant and preflight passes are not in the port yet: each is reported "
-            "on stderr and skipped, as `--no-invariants --no-preflight` would."
+            "detector and invariant prover, `simon preflight` against "
+            "budgets/preflight_torch.json, `simon interleave`) and emit one SARIF 2.1.0 "
+            "document with a run per producer, ready for a CI annotation step. Exit 1 "
+            "if any pass fails."
         ),
     )
     p.add_argument("--format", choices=("sarif", "json", "text"), default="sarif",
@@ -389,12 +442,11 @@ def _add_check(sub) -> None:
                    help="bound the interleave pass to its CI quick budget")
     p.add_argument("--no-lint", action="store_true", help="skip the lint pass")
     p.add_argument("--no-races", action="store_true", help="skip the race-detector pass")
-    p.add_argument("--no-invariants", action="store_true",
-                   help="skip the invariant pass (not in the port yet)")
-    p.add_argument("--no-preflight", action="store_true",
-                   help="skip the preflight pass (not in the port yet)")
+    p.add_argument("--no-invariants", action="store_true", help="skip the invariant pass")
+    p.add_argument("--no-preflight", action="store_true", help="skip the preflight pass")
     p.add_argument("--no-interleave", action="store_true",
                    help="skip the concurrency model checker")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -410,6 +462,7 @@ def _parser() -> argparse.ArgumentParser:
     _add_check(sub)
     _add_interleave(sub)
     _add_lint(sub)
+    _add_preflight(sub)
     _add_profile(sub)
     _add_prove(sub)
     _add_runs(sub)
@@ -1148,12 +1201,48 @@ def _run_lint(args) -> int:
 
 
 def _run_audit(args) -> int:
-    from .analysis.audit import INVARIANTS_PENDING, run_semantic_audit
+    from .analysis.audit import run_semantic_audit
 
-    if not args.no_invariants:
-        print(INVARIANTS_PENDING, file=sys.stderr)
-    report = run_semantic_audit(races=not args.no_races)
+    try:
+        report = run_semantic_audit(
+            races=not args.no_races, invariants=not args.no_invariants, memory=args.memory,
+            device=args.device,
+        )
+    except RuntimeError as e:   # no card for the device passes
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     print(report.to_json() if args.format == "json" else report.render_text())
+    return 0 if report.ok else 1
+
+
+def _run_preflight(args) -> int:
+    from .analysis.budget import BudgetBook
+    from .analysis.preflight import run_preflight
+
+    book = None
+    if not args.write_budgets and os.path.exists(args.budgets):
+        book = BudgetBook.load(args.budgets)
+    rungs = [int(r) for r in args.rungs.split(",") if r.strip()] or None
+    meshes = [m.strip() for m in args.meshes.split(",") if m.strip()] or None
+    entries = [e.strip() for e in args.entries.split(",") if e.strip()] or None
+    try:
+        report = run_preflight(
+            rungs=rungs, meshes=meshes, entries=entries, book=book,
+            transfers=not args.no_transfers, verdict=not args.no_verdict,
+            hbm_gib=args.hbm_gib, device=args.device,
+        )
+    except RuntimeError as e:   # no card
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    report.budgets_path = args.budgets
+    if args.write_budgets:
+        base = BudgetBook.load(args.budgets) if os.path.exists(args.budgets) else None
+        report.to_book(base).save(args.budgets)
+        print(f"wrote {args.budgets}", file=sys.stderr)
+    if args.format == "json":
+        print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
+    else:
+        print(report.render_text())
     return 0 if report.ok else 1
 
 
@@ -1162,13 +1251,17 @@ def _run_check(args) -> int:
 
     runs, texts, native = [], [], {}
     ok = True
-    if not args.no_invariants:
-        from .analysis.audit import INVARIANTS_PENDING
+    captures = None
+    if not (args.no_invariants and args.no_preflight):
+        # one registry capture serves the invariant and the preflight pass
+        from .analysis import entry_audit
+        from .device import resolve_device
 
-        print(INVARIANTS_PENDING, file=sys.stderr)
-    if not args.no_preflight:
-        print("check: the preflight pass is not in the port yet (ROADMAP item 14b-ii); "
-              "skipped", file=sys.stderr)
+        try:
+            captures = entry_audit._capture_calls(resolve_device(args.device))
+        except RuntimeError as e:   # no card for the device passes
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     if not args.no_lint:
         from .analysis.lint import run_lint
 
@@ -1177,14 +1270,29 @@ def _run_check(args) -> int:
         runs.append(sarif_mod.lint_run(lint_report))
         native["lint"] = json.loads(lint_report.to_json())
         texts.append(lint_report.render_text())
-    if not args.no_races:
+    if not (args.no_races and args.no_invariants):
         from .analysis.audit import run_semantic_audit
 
-        audit_report = run_semantic_audit()
+        audit_report = run_semantic_audit(
+            races=not args.no_races, invariants=not args.no_invariants, memory=False,
+            device=args.device, captures=captures,
+        )
         ok = ok and audit_report.ok
         runs.append(sarif_mod.audit_run(audit_report))
         native["audit"] = audit_report.to_dict()
         texts.append(audit_report.render_text())
+    if not args.no_preflight:
+        from .analysis.budget import BudgetBook
+        from .analysis.preflight import run_preflight
+
+        budgets = "budgets/preflight_torch.json"
+        book = BudgetBook.load(budgets) if os.path.exists(budgets) else None
+        pf_report = run_preflight(book=book, caps=captures, device=args.device)
+        pf_report.budgets_path = budgets
+        ok = ok and pf_report.ok
+        runs.append(sarif_mod.preflight_run(pf_report))
+        native["preflight"] = pf_report.to_dict()
+        texts.append(pf_report.render_text())
     if not args.no_interleave:
         from .analysis import interleave
 
@@ -1253,7 +1361,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "gen-doc":
         return _gen_doc(parser, args.output_dir)
     if args.command in ("audit", "check") or (args.command == "lint" and args.no_jaxpr):
-        # the AST passes: no logging set-up, no crash hook, no torch
+        # the static passes: no logging set-up, no crash hook (and with the
+        # device passes skipped, no torch)
         return {"audit": _run_audit, "check": _run_check, "lint": _run_lint}[args.command](args)
     from .utils import flightrec
     from .utils.tracing import init_logging
@@ -1277,7 +1386,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     return {
         "apply": _run_apply, "audit": _run_audit, "chaos": _run_chaos,
         "check": _run_check, "interleave": _run_interleave, "lint": _run_lint,
-        "profile": _run_profile, "prove": _run_prove, "runs": _run_runs,
+        "preflight": _run_preflight, "profile": _run_profile, "prove": _run_prove, "runs": _run_runs,
         "server": _run_server, "sweep": _run_sweep, "version": _run_version,
         "warmup": _run_warmup,
     }[args.command](args)

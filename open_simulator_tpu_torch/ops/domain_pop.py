@@ -45,6 +45,7 @@ import torch
 
 from ..utils import platform as _platform
 from ..utils.concurrency import guarded_by
+from . import scanmark
 from .kernels import _EPS
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -336,4 +337,7 @@ def domain_pop(
     with _count_lock:
         launches += 1
     _local.launches = thread_launches() + 1
+    # what the launch wrote, for an analysis that cannot see inside it: node
+    # indices in [-1, big_n), lane indices from the head table (or 0)
+    scanmark.custom_outputs("domain_pop", [(nodes, -1, big_n - 1), (jidx, hj)])
     return nodes, jidx

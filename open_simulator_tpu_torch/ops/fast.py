@@ -115,6 +115,7 @@ from .kernels import (
     resource_fail,
     schedule_step,
 )
+from . import scanmark
 from .sanitize import sanitizable
 from .state import pod_rows_from_batch
 
@@ -254,48 +255,33 @@ def build_trajectory(
     equal to its entry value at every step — the reference's updates add or
     subtract exact zeros — so its masks, scores and takes are evaluated once
     and broadcast over the J lanes."""
-    N, R = carry.free.shape
+    N = carry.free.shape[0]
     J = j_steps
-    dev = carry.free.device
-
-    def lanes(shape, dtype=torch.float32):
-        return torch.empty((N, J) + tuple(shape), dtype=dtype, device=dev)
 
     def bcast(v):
         return v[:, None].expand((N, J) + tuple(v.shape[1:]))
 
-    free = lanes((R,))
-    res_fail = lanes((), torch.bool)
     if flags.dyn_ports:
         add_any, add_wild, add_ipc = port_adds(
             carry.port_any.shape[0], carry.port_ipc.shape[0], pod
         )
-        port_ok = lanes((), torch.bool)
     else:
         port_ok = bcast(ports_mask(carry, pod))
-    if flags.dyn_storage:
-        vg_free, dev_free = lanes(carry.vg_free.shape[1:]), lanes(carry.dev_free.shape[1:])
-        vg_take, dev_take = lanes(carry.vg_free.shape[1:]), lanes(carry.dev_free.shape[1:])
-        sto_ok, sto_raw = lanes((), torch.bool), lanes(())
-    else:
+    if not flags.dyn_storage:
         ok, vg_t, dev_t, raw = local_storage_eval(ns, carry, pod)
         vg_free, dev_free = bcast(carry.vg_free), bcast(carry.dev_free)
         vg_take, dev_take, sto_ok, sto_raw = bcast(vg_t), bcast(dev_t), bcast(ok), bcast(raw)
-    if flags.dyn_gpu:
-        gpu_free, gpu_take = lanes(carry.gpu_free.shape[1:]), lanes(carry.gpu_free.shape[1:])
-        g_ok, g_raw = lanes((), torch.bool), lanes(())
-    else:
+    if not flags.dyn_gpu:
         gpu_free = bcast(carry.gpu_free)
         gpu_take = bcast(gpu_allocate_rowwise(ns, carry.gpu_free, pod))
         g_ok, g_raw = bcast(gpu_mask(ns, carry, pod)), bcast(gpu_share_raw(ns, carry, pod))
 
-    vc = carry
-    for j in range(J):
-        free[:, j] = vc.free
-        res_fail[:, j] = resource_fail(ns, vc, pod)
+    def step(vc):
+        # the node-local rows of lane j, recorded before its virtual commit
+        rows = {"free": vc.free, "res_fail": resource_fail(ns, vc, pod)}
         upd = {"free": vc.free - pod.req[None, :]}
         if flags.dyn_ports:
-            port_ok[:, j] = ports_mask(vc, pod)
+            rows["port_ok"] = ports_mask(vc, pod)
             upd.update(
                 port_any=vc.port_any + add_any[:, None],
                 port_wild=vc.port_wild + add_wild[:, None],
@@ -303,15 +289,35 @@ def build_trajectory(
             )
         if flags.dyn_storage:
             ok, vg_t, dev_t, raw = local_storage_eval(ns, vc, pod)
-            vg_free[:, j], dev_free[:, j] = vc.vg_free, vc.dev_free
-            vg_take[:, j], dev_take[:, j], sto_ok[:, j], sto_raw[:, j] = vg_t, dev_t, ok, raw
+            rows.update(vg_free=vc.vg_free, dev_free=vc.dev_free, vg_take=vg_t, dev_take=dev_t,
+                        sto_ok=ok, sto_raw=raw)
             upd.update(vg_free=vc.vg_free - vg_t, dev_free=vc.dev_free - dev_t)
         if flags.dyn_gpu:
             g_t = gpu_allocate_rowwise(ns, vc.gpu_free, pod)
-            gpu_free[:, j], gpu_take[:, j] = vc.gpu_free, g_t
-            g_ok[:, j], g_raw[:, j] = gpu_mask(ns, vc, pod), gpu_share_raw(ns, vc, pod)
+            rows.update(gpu_free=vc.gpu_free, gpu_take=g_t, g_ok=gpu_mask(ns, vc, pod),
+                        g_raw=gpu_share_raw(ns, vc, pod))
             upd.update(gpu_free=vc.gpu_free - g_t * pod.gpu_mem)
-        vc = vc._replace(**upd)
+        return vc._replace(**upd), rows
+
+    vc = carry
+    per_j = []
+    for _ in range(J):
+        vc, rows = scanmark.step("ops.fast:build_trajectory.step", 0, step, vc)
+        per_j.append(rows)
+
+    def lanes(name):
+        return torch.stack([r[name] for r in per_j], dim=1)
+
+    free, res_fail = lanes("free"), lanes("res_fail")
+    if flags.dyn_ports:
+        port_ok = lanes("port_ok")
+    if flags.dyn_storage:
+        vg_free, dev_free = lanes("vg_free"), lanes("dev_free")
+        vg_take, dev_take, sto_ok, sto_raw = (
+            lanes("vg_take"), lanes("dev_take"), lanes("sto_ok"), lanes("sto_raw"))
+    if flags.dyn_gpu:
+        gpu_free, gpu_take = lanes("gpu_free"), lanes("gpu_take")
+        g_ok, g_raw = lanes("g_ok"), lanes("g_raw")
 
     f32 = torch.float32
     packed = torch.stack(
@@ -577,8 +583,8 @@ def light_scan(
     x = x0.clone()
     cur = cur_at(traj, x0)
     hoisted = _hoisted_values(ns, pod, cur, flags)
-    nodes, jidxs = [], []
-    for _ in range(_active_steps(offset, group_size, valid_count)):
+    def step(state):
+        x, cur = state
         score, _ = _light_eval(
             ns, carry0, pod, static_ok, static_scores, na_ok, weights, fo,
             x, cur, flags, hoisted,
@@ -587,8 +593,7 @@ def light_scan(
         # any(mask) == the winning score is finite (infeasible rows are -inf)
         ok = best > _NEG_INF
         x_node = nx.take(x, node)
-        nodes.append(torch.where(ok, node, -1))
-        jidxs.append(torch.where(ok, x_node, 0))
+        out = (torch.where(ok, node, -1), torch.where(ok, x_node, 0))
         # the chosen node's row, written on the slot that holds it
         row, mine = nx.local_index(node, N)
         own = ok if mine is None else ok & mine
@@ -596,6 +601,14 @@ def light_scan(
         j_next = (x_node + 1).clamp(0, J - 1)
         new_row = packed_flat.index_select(0, row * J + j_next)
         cur.index_copy_(0, row, torch.where(own[:, None], new_row, cur.index_select(0, row)))
+        return (x, cur), out
+
+    nodes, jidxs = [], []
+    state = (x, cur)
+    for _ in range(_active_steps(offset, group_size, valid_count)):
+        state, (node, jidx) = scanmark.step("ops.fast:light_scan.step", 0, step, state)
+        nodes.append(node)
+        jidxs.append(jidx)
     dev = x0.device
     return x, _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
@@ -684,9 +697,8 @@ def _light_scan_micro(
     # p9 and feasibility are selected separately: a one-hot multiply of the
     # -inf lanes would give NaN
     cur_s = torch.where(_sel_j(feas, x0), _sel_j(p9, x0), _NEG_INF)
-    x = x0.clone()
-    nodes, jidxs = [], []
-    for _ in range(_active_steps(offset, group_size, valid_count)):
+    def step(state):
+        x, cur_s, y = state
         dom = st.base_dom + st.match_c[:, None] * y
         cnt = (dom[:, :, None] * st.to_c).sum(dim=1)              # [C,N]
         raw = torch.where(st.active_c[:, None], cnt, 0.0).sum(dim=0)
@@ -699,8 +711,7 @@ def _light_scan_micro(
         node, best = nx.argmax_value(score)
         ok = best > _NEG_INF
         x_node = nx.take(x, node)
-        nodes.append(torch.where(ok, node, -1))
-        jidxs.append(torch.where(ok, x_node, 0))
+        out = (torch.where(ok, node, -1), torch.where(ok, x_node, 0))
         row, mine = nx.local_index(node, N)
         own = ok if mine is None else ok & mine
         x.index_add_(0, row, own.to(torch.int32))
@@ -709,6 +720,15 @@ def _light_scan_micro(
         cur_s.index_copy_(0, row, torch.where(own, new_s, cur_s.index_select(0, row)))
         to_col = st.to_c.index_select(2, row)[:, :, 0]            # [C,D]
         y = y + nx.owned(to_col * (st.elig_f.index_select(0, row) * ok.to(torch.float32)), mine)
+        return (x, cur_s, y), out
+
+    nodes, jidxs = [], []
+    state = (x0.clone(), cur_s, y)
+    for _ in range(_active_steps(offset, group_size, valid_count)):
+        state, (node, jidx) = scanmark.step("ops.fast:_light_scan_micro.step", 0, step, state)
+        nodes.append(node)
+        jidxs.append(jidx)
+    x = state[0]
     dev = x0.device
     return x, _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
@@ -972,8 +992,9 @@ def _affinity_pop(
     h = torch.zeros(Dc, dtype=torch.int64, device=dev)  # osim: lint-ok[f64-literal]
     y = torch.zeros(Dc, dtype=torch.float32, device=dev)
     classes = torch.arange(Dc, device=dev)
-    nodes, jidxs = [], []
-    for _ in range(_active_steps(0, group_size, valid_count)):
+
+    def step(state):
+        h, y = state
         if any_spread:
             dom = st.base_dom + st.match_c[:, None] * (t_onehot * (y * elig_combo)).sum(dim=2)
             cnt_cm = (dom[:, :, None] * t_onehot).sum(dim=1)      # [C,Dc]
@@ -1016,12 +1037,19 @@ def _affinity_pop(
         mx_t = total.amax()
         m = torch.where(total == mx_t, node_h, big_n).argmin().view(1)
         ok = (mx_t > _NEG_INF).view(1)
-        nodes.append(torch.where(ok, node_h.gather(0, m), -1))
-        jidxs.append(torch.where(ok, j_h.gather(0, m), 0))
+        out = (torch.where(ok, node_h.gather(0, m), -1), torch.where(ok, j_h.gather(0, m), 0))
         oh = (classes == m) & ok
         # the head pointers advance in int64, as they were made
         h = h + oh.to(torch.int64)  # osim: lint-ok[f64-literal]
         y = y + oh.to(torch.float32)
+        return (h, y), out
+
+    nodes, jidxs = [], []
+    state = (h, y)
+    for _ in range(_active_steps(0, group_size, valid_count)):
+        state, (node, jidx) = scanmark.step("ops.fast:_affinity_pop.step", 0, step, state)
+        nodes.append(node)
+        jidxs.append(jidx)
     return _step_outputs(nodes, group_size, -1, dev), _step_outputs(jidxs, group_size, 0, dev)
 
 
@@ -1448,10 +1476,15 @@ def schedule_scenarios(
     if isinstance(carry_s, nx.Sharded):
         return _lanes_on_mesh(schedule_scenarios, ns, carry_s, pods, weights_s, valid_s, filter_on)
     step = _scenario_step(ns, filter_on)
+
+    def keyed(valid_s, weights_s, carry_s, pod):
+        return step(valid_s, weights_s, carry_s, pod, pod_keys(ns, pod))
+
     outs = []
     for i in range(pods.req.shape[0]):
         pod = PodRow(*(a[i] for a in pods))
-        carry_s, out = step(valid_s, weights_s, carry_s, pod, pod_keys(ns, pod))
+        carry_s, out = scanmark.step("ops.fast:_scenario_step", 2, keyed, valid_s, weights_s,
+                                     carry_s, pod)
         outs.append(out)
     return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*outs))
 
@@ -1578,7 +1611,7 @@ def schedule_universes(
     outs = []
     for i in range(pods_s.req.shape[1]):
         pod = PodRow(*(a[:, i] for a in pods_s))
-        carry_s, out = step(ns_s, weights_s, carry_s, pod)
+        carry_s, out = scanmark.step("ops.fast:_universe_step", 2, step, ns_s, weights_s, carry_s, pod)
         outs.append(out)
     return (carry_s,) + tuple(torch.stack(col, dim=1) for col in zip(*outs))
 

@@ -23,6 +23,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel import slots as nx
 from .encode import PodBatch, round_up
+from . import scanmark
 from .sanitize import sanitizable
 from .kernels import (
     Carry,
@@ -177,10 +178,11 @@ def schedule_group(
 
     outs = []
     for _ in range(min(valid_count, group_size)):
-        carry, out = step(carry, True)
+        carry, out = scanmark.step("ops.grouped:step", 0, step, carry, True)
         outs.append(out)
     if group_size > valid_count:
-        outs += [step(carry, False)[1]] * (group_size - max(valid_count, 0))
+        outs += [scanmark.step("ops.grouped:step", 0, step, carry, False)[1]] * (
+            group_size - max(valid_count, 0))
     return carry, tuple(torch.stack(col) for col in zip(*outs))
 
 

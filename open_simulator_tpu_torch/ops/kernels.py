@@ -34,6 +34,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel import slots as nx
+from . import scanmark
 from .sanitize import sanitizable
 from .encode import (
     GPU_COUNT_IDX,
@@ -540,6 +541,46 @@ def gpu_share_raw(ns: NodeStatic, carry: Carry, pod: PodRow) -> torch.Tensor:
 # Open-Local: LVM volume-group binpack + exclusive-device allocation
 # ---------------------------------------------------------------------------
 
+def _lvm_slot(state, req, want, vg_name, vcols):
+    """One LVM volume slot of local_storage_eval on every node: binpack the
+    request into the fullest VG that fits -> ((vg_free, vg_take, ok), None)."""
+    vg_free, vg_take, lvm_ok = state
+    active = req > 0
+    fits = (vg_free + _EPS >= req) & (vg_name != 0)
+    elig = torch.where(want != 0, fits & (vg_name == want), fits)
+    choice = torch.where(elig, vg_free, _INF).argmin(dim=1)
+    any_elig = elig.any(dim=1)
+    onehot = (
+        (vcols[None, :] == choice[:, None]) & any_elig[:, None] & active
+    ).to(torch.float32)
+    return (vg_free - onehot * req, vg_take + onehot * req, lvm_ok & (any_elig | ~active)), None
+
+
+def _dev_slot(state, req, media_ssd, dev_ssd, dev_cap, dcols):
+    """One exclusive-device slot of local_storage_eval on every node: the
+    smallest free device that fits -> ((avail, dev_take, frac_sum, ok),
+    None)."""
+    avail, dev_take, frac_sum, dev_ok = state
+    active = req > 0
+    elig = (
+        (avail > 0.5)
+        & (dev_ssd == media_ssd)
+        & (dev_cap + _EPS >= req)
+        & (dev_cap > 0)
+    )
+    choice = torch.where(elig, dev_cap, _INF).argmin(dim=1)
+    any_elig = elig.any(dim=1)
+    onehot = (
+        (dcols[None, :] == choice[:, None]) & any_elig[:, None] & active
+    ).to(torch.float32)
+    # one selected device per row: the sum is that capacity, exactly
+    cap_chosen = (onehot * dev_cap).sum(dim=1)
+    frac_sum = frac_sum + torch.where(
+        any_elig & active, req / cap_chosen.clamp(min=1e-9), 0.0
+    )
+    return (avail - onehot, dev_take + onehot, frac_sum, dev_ok & (any_elig | ~active)), None
+
+
 def local_storage_eval(ns: NodeStatic, carry: Carry, pod: PodRow):
     """Simulate this pod's storage allocation on EVERY node at once.
 
@@ -552,48 +593,24 @@ def local_storage_eval(ns: NodeStatic, carry: Carry, pod: PodRow):
     vcols = torch.arange(V, device=dev)
     dcols = torch.arange(DV, device=dev)
 
-    vg_free, vg_take = carry.vg_free, torch.zeros_like(carry.vg_free)
-    lvm_ok = torch.ones(N, dtype=torch.bool, device=dev)
+    state = (carry.vg_free, torch.zeros_like(carry.vg_free), torch.ones(N, dtype=torch.bool, device=dev))
     for s in range(SV):
-        req = pod.lvm_req[s]
-        active = req > 0
-        want = pod.lvm_vg[s]
-        fits = (vg_free + _EPS >= req) & (ns.vg_name != 0)
-        elig = torch.where(want != 0, fits & (ns.vg_name == want), fits)
-        choice = torch.where(elig, vg_free, _INF).argmin(dim=1)
-        any_elig = elig.any(dim=1)
-        onehot = (
-            (vcols[None, :] == choice[:, None]) & any_elig[:, None] & active
-        ).to(torch.float32)
-        vg_free = vg_free - onehot * req
-        vg_take = vg_take + onehot * req
-        lvm_ok = lvm_ok & (any_elig | ~active)
+        state, _ = scanmark.step(
+            "ops.kernels:_lvm_slot", 0, _lvm_slot, state, pod.lvm_req[s], pod.lvm_vg[s],
+            ns.vg_name, vcols,
+        )
+    _, vg_take, lvm_ok = state
 
-    avail, dev_take = carry.dev_free, torch.zeros_like(carry.dev_free)
-    frac_sum = torch.zeros(N, dtype=torch.float32, device=dev)
-    dev_ok = torch.ones(N, dtype=torch.bool, device=dev)
+    state = (
+        carry.dev_free, torch.zeros_like(carry.dev_free),
+        torch.zeros(N, dtype=torch.float32, device=dev), torch.ones(N, dtype=torch.bool, device=dev),
+    )
     for s in range(SV):
-        req = pod.dev_req[s]
-        active = req > 0
-        elig = (
-            (avail > 0.5)
-            & (ns.dev_ssd == pod.dev_media_ssd[s])
-            & (ns.dev_cap + _EPS >= req)
-            & (ns.dev_cap > 0)
+        state, _ = scanmark.step(
+            "ops.kernels:_dev_slot", 0, _dev_slot, state, pod.dev_req[s],
+            pod.dev_media_ssd[s], ns.dev_ssd, ns.dev_cap, dcols,
         )
-        choice = torch.where(elig, ns.dev_cap, _INF).argmin(dim=1)
-        any_elig = elig.any(dim=1)
-        onehot = (
-            (dcols[None, :] == choice[:, None]) & any_elig[:, None] & active
-        ).to(torch.float32)
-        # one selected device per row: the sum is that capacity, exactly
-        cap_chosen = (onehot * ns.dev_cap).sum(dim=1)
-        frac_sum = frac_sum + torch.where(
-            any_elig & active, req / cap_chosen.clamp(min=1e-9), 0.0
-        )
-        avail = avail - onehot
-        dev_take = dev_take + onehot
-        dev_ok = dev_ok & (any_elig | ~active)
+    _, dev_take, frac_sum, dev_ok = state
 
     ok = torch.where(
         pod.has_local, lvm_ok & dev_ok & ns.has_storage,
@@ -962,11 +979,19 @@ def schedule_batch(
     outs = []
     for i in range(pods.req.shape[0]):
         pod = PodRow(*(a[i] for a in pods))
-        carry, out = schedule_step(
-            ns, weights, carry, pod, filter_on, extra_filters, extra_scores, pod_keys(ns, pod)
+        carry, out = scanmark.step(
+            "ops.kernels:schedule_step", 2, _keyed_step,
+            ns, weights, carry, pod, filter_on, extra_filters, extra_scores,
         )
         outs.append(out)
     return (carry,) + tuple(torch.stack(col) for col in zip(*outs))
+
+
+def _keyed_step(ns, weights, carry, pod, filter_on, extra_filters, extra_scores):
+    """schedule_step with the pod's topology keys computed for it."""
+    return schedule_step(
+        ns, weights, carry, pod, filter_on, extra_filters, extra_scores, pod_keys(ns, pod)
+    )
 
 
 @sanitizable("ops.kernels:probe_step")
@@ -1052,27 +1077,34 @@ def commit_wave(
     n = ns.valid.shape[0]
     dev = ns.valid.device
     nodes_idx = nx.node_ids(n, dev)
-    blocked = torch.zeros((), dtype=torch.bool, device=dev)
-    outs = []
-    for w in range(rows.req.shape[0]):
-        pod = PodRow(*(a[w] for a in rows))
+
+    def step(state, pod, exp_mask, exp_ff, allowed, escore, want):
+        carry, blocked = state
         mask, first_fail = run_filters(ns, carry, pod, filter_on, extra_filters)
         mask = mask & ns.valid
-        match = nx.node_all(mask == expected_mask[w]) & nx.node_all(first_fail == expected_ff[w])
+        match = nx.node_all(mask == exp_mask) & nx.node_all(first_fail == exp_ff)
         respill = blocked | ~match
         score = run_scores(ns, carry, pod, weights, extra_scores)
-        allow = mask & ext_allowed[w]
-        total = torch.where(allow, score + ext_score[w], -_INF)
+        allow = mask & allowed
+        total = torch.where(allow, score + escore, -_INF)
         node = nx.node_argmax(total)   # first max: lowest node index wins ties
-        ok = want_commit[w] & ~respill & nx.node_any(allow) & pod.valid
+        ok = want & ~respill & nx.node_any(allow) & pod.valid
         onehot = (nodes_idx == node) & ok
         carry, gpu_take, vg_take, dev_take = commit_onehot(ns, carry, pod, onehot)
-        outs.append((
+        return (carry, respill), (
             torch.where(ok, node, -1).to(torch.int32), respill,
             gpu_take.to(torch.int32), vg_take, dev_take,
-        ))
-        blocked = respill
-    return (carry,) + tuple(torch.stack(col) for col in zip(*outs))
+        )
+
+    state = (carry, torch.zeros((), dtype=torch.bool, device=dev))
+    outs = []
+    for w in range(rows.req.shape[0]):
+        state, out = scanmark.step(
+            "ops.kernels:commit_wave.step", 0, step, state, PodRow(*(a[w] for a in rows)),
+            expected_mask[w], expected_ff[w], ext_allowed[w], ext_score[w], want_commit[w],
+        )
+        outs.append(out)
+    return (state[0],) + tuple(torch.stack(col) for col in zip(*outs))
 
 
 # ---------------------------------------------------------------------------

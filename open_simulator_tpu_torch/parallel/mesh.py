@@ -268,16 +268,15 @@ def leaf_bytes_by_device(leaf, default_device=None) -> dict:
     return {str(default_device): nbytes}
 
 
-def hbm_bytes_per_device(*trees, default_device=None) -> dict:
+def bytes_per_device(*trees, default_device=None) -> dict:
     """Bytes resident per device (per slot) for the given trees — real or
     planned. A tree laid out over a mesh counts each block on its slot;
     slots that share a device count apart, keyed `<device>#<slot>`, so a
     4-slot layout on one card shows its per-shard bytes. A plain tensor
     counts on its device; a `meta` tensor or numpy array on
-    `default_device` (the first CUDA device, else the CPU). Snapshots into
-    the osim_hbm_bytes_per_device gauge and returns {device: bytes}."""
-    from ..utils import metrics
-
+    `default_device` (the first CUDA device, else the CPU). Returns
+    {device: bytes}; the static estimator of analysis/budget.py is this
+    function."""
     if default_device is None:
         default_device = "cuda:0" if torch.cuda.is_available() else "cpu"
     out: dict = {}
@@ -293,6 +292,15 @@ def hbm_bytes_per_device(*trees, default_device=None) -> dict:
         for leaf in ([tree] if isinstance(tree, (torch.Tensor, np.ndarray)) else leaves(tree)):
             for key, n in leaf_bytes_by_device(leaf, default_device).items():
                 out[key] = out.get(key, 0) + n
+    return out
+
+
+def hbm_bytes_per_device(*trees, default_device=None) -> dict:
+    """bytes_per_device(*trees), snapshotted into the
+    osim_hbm_bytes_per_device gauge."""
+    from ..utils import metrics
+
+    out = bytes_per_device(*trees, default_device=default_device)
     for dev, nbytes in sorted(out.items()):
         metrics.HBM_BYTES_PER_DEVICE.set(nbytes, device=dev)
     return out

@@ -27,6 +27,14 @@ first, the plain tensors are combined (every combine is elementwise over
 leading dimensions) and the result is wrapped back at the same levels.
 The partials of one combine must sit at the same levels.
 
+Two hooks serve the preflight (analysis/preflight.py) and cost nothing
+otherwise: `census(fn)` calls fn(kind, operand bytes, output shape) on the
+mesh's first slot for every combine (`all-reduce:<kind>`) and every gather
+of node data (`all-gather:<site>`); `slot_hook(factory)` enters
+factory() around each slot's call on that slot's thread (a dispatch mode
+is thread-local, so an analysis that follows the slots' work enters its
+own there).
+
 `on_root` runs a whole-vector step (a stable sort of all lanes, a pop
 loop) once, on the group's first slot: it gathers the given node vectors
 there in global order, runs the function with the hooks switched off, and
@@ -38,6 +46,7 @@ block of the node vector that comes out.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import threading
 from typing import Callable, List, NamedTuple, Optional, Sequence
@@ -46,6 +55,45 @@ import numpy as np
 import torch
 
 _tls = threading.local()
+
+#: the census callback of the running preflight (None: off); a ContextVar,
+#: so spmd's slot threads see the caller's
+_census: contextvars.ContextVar = contextvars.ContextVar("osim_mesh_census", default=None)
+#: context-manager factories entered around each slot's call (`slot_hook`)
+_slot_hooks: tuple = ()
+_hooks_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def census(fn: Callable):
+    """Call fn(kind, operand_bytes, output_shape) for every cross-slot
+    exchange inside the block, on the mesh's first slot (module
+    docstring)."""
+    token = _census.set(fn)
+    try:
+        yield fn
+    finally:
+        _census.reset(token)
+
+
+def _count(kind: str, nbytes: int, shape: tuple) -> None:
+    fn = _census.get()
+    if fn is not None and getattr(_tls, "slot", 0) == 0:
+        fn(kind, nbytes, tuple(shape))
+
+
+@contextlib.contextmanager
+def slot_hook(factory: Callable):
+    """Enter factory() around every slot's call inside the block, on the
+    slot's thread."""
+    global _slot_hooks
+    with _hooks_lock:
+        _slot_hooks = _slot_hooks + (factory,)
+    try:
+        yield factory
+    finally:
+        with _hooks_lock:
+            _slot_hooks = tuple(h for h in _slot_hooks if h is not factory)
 
 
 class _Group:
@@ -148,6 +196,8 @@ def _exchange_reduce(kind: str, *parts):
     """The combine of `kind` over the group's plain partials `parts`, on
     this slot's device."""
     ctx = current()
+    _count(f"all-reduce:{kind}", sum(t.numel() * t.element_size() for t in parts),
+           tuple(parts[0].shape))
     got = ctx.exchange(parts)
     return _reduce(kind, [tuple(_here(t, ctx.device) for t in p) for p in got])
 
@@ -289,6 +339,9 @@ def host_nodes(t: torch.Tensor, dim: int = 0) -> np.ndarray:
     ctx = current()
     if ctx is None:
         return t.cpu().numpy()
+    shape = list(t.shape)
+    shape[dim] = ctx.n_global
+    _count("all-gather:host_nodes", t.numel() * t.element_size(), tuple(shape))
     return np.concatenate(ctx.exchange(t.cpu().numpy()), axis=dim)
 
 
@@ -300,6 +353,9 @@ def on_root(fn: Callable, *node_vecs: torch.Tensor):
     ctx = current()
     if ctx is None:
         return fn(*node_vecs)
+    for v in node_vecs:
+        _count("all-gather:on_root", v.numel() * v.element_size(),
+               (v.shape[0] * ctx.n_global // max(ctx.size, 1),) + tuple(v.shape[1:]))
     parts = ctx.exchange(node_vecs)
     out = None
     if ctx.rank == 0:
@@ -332,6 +388,12 @@ def whole_nodes(fn: Callable, args: Sequence, dims: Sequence):
     for a, d in zip(args, dims):
         ds = leaves(d) if d is not None else [None] * len(leaves(a))
         flat.append([(*_unbatch(x), nd) for x, nd in zip(leaves(a), ds)])
+    for arg in flat:
+        for p, levels, nd in arg:
+            if nd is not None:
+                shape = list(p.shape)
+                shape[nd + len(levels)] = ctx.n_global
+                _count("all-gather:whole_nodes", p.numel() * p.element_size(), tuple(shape))
     parts = ctx.exchange([[p if nd is not None else None for p, _, nd in arg] for arg in flat])
     out = None
     if ctx.rank == 0:
@@ -439,6 +501,8 @@ class Sharded:
         """The whole tree, in global order, on `device` (default: slot 0's)."""
         dev = self.layout.device(0) if device is None else torch.device(device)
         L = self.layout
+        for leaf, shape in zip(leaves(self.blocks[0]), self.shapes or ()):
+            _count("all-gather:gather", leaf.numel() * leaf.element_size(), tuple(shape))
         out = []
         for li, (ld, nd) in enumerate(zip(leaves(self.lane_dims), leaves(self.node_dims))):
             rows = []
@@ -543,13 +607,16 @@ def spmd(fn: Callable, *args, layout: Optional[Layout] = None, n_nodes: Optional
         try:
             if group is not None:
                 group.wait_turn(j)
-            slot_args = [
-                a.blocks[k] if isinstance(a, Sharded)
-                else _slice_for(a, layout, k).to(dev) if isinstance(a, NodeSlice)
-                else _on_device(a, dev)
-                for a in args
-            ]
-            results[k] = fn(*slot_args)
+            with contextlib.ExitStack() as hooks:
+                for factory in _slot_hooks:
+                    hooks.enter_context(factory())
+                slot_args = [
+                    a.blocks[k] if isinstance(a, Sharded)
+                    else _slice_for(a, layout, k).to(dev) if isinstance(a, NodeSlice)
+                    else _on_device(a, dev)
+                    for a in args
+                ]
+                results[k] = fn(*slot_args)
         except BaseException as e:  # noqa: BLE001 - re-raised by the caller
             errors.append((k, e))
             if group is not None:

@@ -1,9 +1,11 @@
 """`simon check` on the port (open_simulator_tpu_torch/analysis/sarif.py and
 the CLI verb) on the CPU: a SARIF 2.1.0 document with one run per tool
-(simon-lint, simon-audit, simon-interleave), the lint run's rule metadata
-from the port's registry, findings located in the source, the json and
-text formats, --output, the --no-* flags, the passes not yet in the port
-reported on stderr, and the exit codes.
+(simon-lint, simon-audit, simon-preflight, simon-interleave), the lint run's
+rule metadata from the port's registry, findings located in the source, the
+json and text formats, --output, the --no-* flags and the exit codes; the
+`preflight` verb's exit codes against the budget book and `audit --memory`'s
+report. The device passes run on a few registry captures (one capture for
+the file) at the canonical rung.
 """
 
 import json
@@ -21,14 +23,37 @@ def _check(capsys, *argv):
     return rc, captured.out, captured.err
 
 
-def test_check_sarif_one_run_per_tool(capsys):
-    rc, out, err = _check(capsys, "--format", "sarif", "--quick")
+#: the captures the device passes run on here: the verdict's entry and two
+#: short ones
+SUBSET = ("ops.fast:schedule_scenarios", "ops.kernels:probe_step", "ops.kernels:commit_step")
+
+
+@pytest.fixture(scope="module")
+def _captures():
+    from open_simulator_tpu_torch.analysis import entry_audit
+
+    return [c for c in entry_audit._capture_calls("cpu") if c.name in SUBSET]
+
+
+@pytest.fixture
+def subset(_captures, monkeypatch):
+    """The device passes on SUBSET at the canonical rung and mesh."""
+    from open_simulator_tpu_torch.analysis import entry_audit, preflight
+
+    monkeypatch.setattr(entry_audit, "_capture_calls", lambda *a, **k: list(_captures))
+    monkeypatch.setattr(preflight, "DEFAULT_RUNGS", (64,))
+    monkeypatch.setattr(preflight, "DEFAULT_MESHES", ("1",))
+    return _captures
+
+
+def test_check_sarif_one_run_per_tool(capsys, subset):
+    rc, out, err = _check(capsys, "--format", "sarif", "--quick", "--device", "cpu")
     assert rc == 0, err
     doc = json.loads(out)
     assert doc["version"] == "2.1.0"
     assert doc["$schema"].endswith("sarif-2.1.0.json")
     names = [r["tool"]["driver"]["name"] for r in doc["runs"]]
-    assert names == ["simon-lint", "simon-audit", "simon-interleave"]
+    assert names == ["simon-lint", "simon-audit", "simon-preflight", "simon-interleave"]
     for run in doc["runs"]:
         assert run["results"] == []          # a clean tree: empty runs
         assert run["columnKind"] == "utf16CodeUnits"
@@ -37,17 +62,20 @@ def test_check_sarif_one_run_per_tool(capsys):
     assert [r["id"] for r in lint_rules] == [rid for rid, _ in iter_rules()]
     assert all(r["shortDescription"]["text"] == doc_ for r, (_id, doc_) in
                zip(lint_rules, iter_rules()))
-    assert "invariant pass is not in the port yet" in err
-    assert "preflight pass is not in the port yet" in err
+    assert doc["runs"][2]["properties"]["programs"] == sorted(
+        f"{name}@r64@m1" for name in SUBSET)
+    assert "not in the port yet" not in err
 
 
 def test_check_json_and_text_formats(capsys):
-    rc, out, _ = _check(capsys, "--format", "json", "--no-interleave")
+    rc, out, _ = _check(capsys, "--format", "json", "--no-interleave", "--no-invariants",
+                        "--no-preflight")
     doc = json.loads(out)
     assert rc == 0 and doc["ok"] is True
     assert set(doc["passes"]) == {"lint", "audit"}
     assert doc["passes"]["audit"]["invariants"] is None
-    rc, out, _ = _check(capsys, "--format", "text", "--no-interleave", "--no-races")
+    rc, out, _ = _check(capsys, "--format", "text", "--no-interleave", "--no-races",
+                        "--no-invariants", "--no-preflight")
     assert rc == 0 and out.strip().endswith("check: ok")
     assert "simon lint: 0 finding(s)" in out
 
@@ -148,9 +176,10 @@ def test_check_exit_1_on_a_failing_pass(capsys, monkeypatch, flag):
         real = lint.run_lint
         monkeypatch.setattr(lint, "run_lint", lambda **kw: _failing_lint(real))
         skip = "--no-lint"
-    rc, _, _ = _check(capsys, "--format", "json", "--no-interleave", flag)
+    quiet = ("--no-interleave", "--no-invariants", "--no-preflight")
+    rc, _, _ = _check(capsys, "--format", "json", *quiet, flag)
     assert rc == 1
-    rc, _, _ = _check(capsys, "--format", "json", "--no-interleave", flag, skip)
+    rc, _, _ = _check(capsys, "--format", "json", *quiet, flag, skip)
     assert rc == 0
 
 
@@ -174,3 +203,43 @@ def _untraced_allocations():
     yield
     if tracing:
         tracemalloc.start()
+
+
+def test_preflight_cli_exits_0_on_the_book_and_1_on_a_shrunken_one(capsys, subset, tmp_path):
+    from open_simulator_tpu_torch.analysis.budget import BudgetBook
+
+    path = str(tmp_path / "preflight_torch.json")
+    BudgetBook.load("budgets/preflight_torch.json").save(path)
+    argv = ["preflight", "--device", "cpu", "--entries", "ops.kernels:probe_step",
+            "--no-transfers", "--no-verdict", "--budgets", path, "--format", "json"]
+    assert cli.main(argv) == 0
+    captured = capsys.readouterr()
+    doc = json.loads(captured.out)
+    assert doc["ok"] is True and doc["violations"] == []
+    assert [p["key"] for p in doc["programs"]] == ["ops.kernels:probe_step@r64@m1"]
+    assert "not in the port yet" not in captured.err
+    book = BudgetBook.load(path)
+    book.programs["ops.kernels:probe_step@r64@m1"].peak_bytes = 1
+    book.slack_bytes = 0
+    book.save(path)
+    assert cli.main(argv) == 1
+    doc = json.loads(capsys.readouterr().out)
+    assert [(v["kind"], v["field"]) for v in doc["violations"]] == [("memory", "peak_bytes")]
+
+
+def test_audit_memory_report_shape(capsys, subset):
+    from open_simulator_tpu.analysis.audit import SemanticAuditReport as RefReport
+
+    assert cli.main(["audit", "--memory", "--device", "cpu", "--format", "json"]) == 0
+    captured = capsys.readouterr()
+    doc = json.loads(captured.out)
+    assert set(doc) == set(RefReport(races=None, invariants=None).to_dict())
+    assert doc["ok"] is True
+    assert doc["invariants"] is not None and doc["invariants"]["ok"] is True
+    assert {e["entry"] for e in doc["invariants"]["entries"]} == set(SUBSET)
+    assert len(doc["invariants"]["plugins"]) == 10
+    mem = doc["memory"]
+    assert mem["verdict"] is None and mem["transfers"] == []
+    assert {p["key"] for p in mem["programs"]} == {f"{n}@r64@m1" for n in SUBSET}
+    assert all(p["ok"] and p["peak_bytes"] > 0 for p in mem["programs"])
+    assert "not in the port yet" not in captured.err

@@ -38,8 +38,8 @@ def test_gen_doc_layout_equals_jax(tmp_path, capsys):
     wrote = capsys.readouterr().out.splitlines()
     port_files = {p.name for p in tdir.iterdir()}
     assert {f"wrote {tdir / f}" for f in port_files} == set(wrote)
-    verbs = {"apply", "audit", "chaos", "check", "interleave", "lint", "profile", "prove",
-             "runs", "server", "sweep", "warmup", "version", "gen-doc"}
+    verbs = {"apply", "audit", "chaos", "check", "interleave", "lint", "preflight", "profile",
+             "prove", "runs", "server", "sweep", "warmup", "version", "gen-doc"}
     assert port_files == {"simon.md"} | {f"simon_{v}.md" for v in verbs}
     shared = port_files & {p.name for p in jdir.iterdir()}
     assert shared == port_files  # every port verb is one of the reference's
