@@ -4,12 +4,21 @@
     python3 chip_smoke.py [--out results.json]
 
 1. Prints the card (nvidia-smi name and power limit) and the torch version,
-   and builds every CUDA kernel of the port from the sources in the checkout.
+   and builds every CUDA kernel of the port from the sources in the checkout,
+   then the native host runtime (native/osim_native.cpp, g++) into the same
+   build directory, and prints its build seconds; it fails when the library
+   does not load.
 2. Drives the main path at full size: the headline cluster (10,000 nodes,
    100,000 pods) through `schedule_batch_fast` on the card: one warm pass,
    one timed pass, and one pass synced at each phase end for the phase
    split. It holds the timed pass's result against the placement digest the
-   JAX package computes for the same input.
+   JAX package computes for the same input, and fails when the timed pass
+   made no native `hash_rows` call (group_runs' row hash). Then the native
+   phase (native_phase): the compiled quantity parser against the exact
+   Fraction path on 100,000 seeded values (0 mismatches, invalid values
+   rejected), and group_runs with the native row hash against the blake2b
+   path on the headline's batch and on plan_full's first (identical runs),
+   with _row_signature's seconds both ways.
 3. Drives every other route: each `bench_configs` workload (spread_affinity,
    gpushare, mixed) through the same passes, holding its digest, its route
    counts and its domain_pop launches against the JAX package's run, and
@@ -354,6 +363,122 @@ def run_oracle(kernels, ns, carry, batch, w, fast_result, torch, budget_s=30.0, 
             if not torch.equal(getattr(carry, f), getattr(fast_result[0], f)):
                 bad.append(f"carry.{f}")
     return done, seconds, bad
+
+
+NATIVE_CORPUS = 100_000     # quantity strings the compiled parser is held on
+NATIVE_INVALID = ("", "bogus", "1.2.3", "Ki", "--1", "1..", "e3", "1ee3", "1 Gi", "1KiB")
+
+
+def quantity_corpus(n, seed=0):
+    """`n` quantity strings of the randomized grammar of tests/test_native.py
+    (an integer up to 10^12, a decimal, or a bare fraction; a minus sign one
+    time in five; a suffix of 11), drawn with numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    suffixes = ("", "m", "k", "M", "G", "Ki", "Mi", "Gi", "Ti", "n", "u")
+    form = rng.integers(0, 3, n)
+    a = rng.integers(0, 10**12 + 1, n)
+    b, c = rng.integers(0, 10**6 + 1, n), rng.integers(0, 10**6, n)
+    d = rng.integers(1, 1000, n)
+    neg = rng.random(n) < 0.2
+    suf = rng.integers(0, len(suffixes), n)
+    out = []
+    for i in range(n):
+        num = (str(a[i]), f"{b[i]}.{c[i]}", f".{d[i]}")[form[i]]
+        out.append(("-" if neg[i] else "") + num + suffixes[suf[i]])
+    return out
+
+
+def plan_first_batch(spec, device="cuda"):
+    """The PodBatch of plan_full's first probe: plan_capacity starts with 0
+    nodes added, a simulate() of the spec's own cluster, whose one app is
+    one batch (one profile, no extenders). Built the way Simulator.run
+    builds it: expansion, the cluster's encoding, then encode_pods."""
+    from open_simulator_tpu_torch import sim_configs as sc
+    from open_simulator_tpu_torch.core.workloads import reset_name_rng
+    from open_simulator_tpu_torch.engine.simulator import Simulator
+    from open_simulator_tpu_torch.ops.encode import encode_pods
+
+    reset_name_rng()
+    cluster, apps = sc._port_build(spec)
+    sim = Simulator(cluster, device=device)
+    app_pods = sim._expand_apps(apps)
+    sim._build_device_state(sim._pending_cluster + [p for pods in app_pods for p in pods])
+    return encode_pods(sim.enc, app_pods[0])
+
+
+def _median_s(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def native_phase(card, batches, n_corpus=NATIVE_CORPUS):
+    """The native host runtime (open_simulator_tpu_torch/native/), in the
+    main process; the library was built and loaded before the headline.
+    1. the compiled parser against the exact Fraction path
+       (utils/quantity.py:exact_quad) on `n_corpus` seeded strings of
+       tests/test_native.py's grammar: 0 mismatches (a punt is legal), and
+       every invalid string rejected;
+    2. per batch of `batches` ({label: PodBatch}): group_runs with the
+       native hasher against group_runs on the blake2b path, identical
+       runs; _row_signature's seconds both ways, the median of 3 each.
+    Returns (results, failures)."""
+    from dataclasses import fields
+
+    from open_simulator_tpu_torch import native
+    from open_simulator_tpu_torch.ops import grouped
+    from open_simulator_tpu_torch.utils.quantity import exact_quad
+
+    results, failures = {}, []
+    if not native.available():
+        return results, ["native: the library did not load (no g++, or the build failed)"]
+    corpus = quantity_corpus(n_corpus)
+    t0 = time.perf_counter()
+    got = [native.parse_quantity_one(s) for s in corpus]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [exact_quad(s) for s in corpus]
+    exact_s = time.perf_counter() - t0
+    punts = sum(g is None for g in got)
+    bad = [s for s, g, w in zip(corpus, got, want) if g is not None and g != w]
+    rejected = [s for s in NATIVE_INVALID if native.parse_quantity_one(s) is None]
+    results["parse"] = {"values": n_corpus, "mismatches": len(bad), "punts": punts,
+                        "native_s": native_s, "exact_s": exact_s,
+                        "invalid_rejected": len(rejected)}
+    print(f"native[parse] {n_corpus} seeded values: {len(bad)} mismatches, {punts} punts; "
+          f"native {native_s:.4f} s, exact path {exact_s:.4f} s; invalid rejected "
+          f"{len(rejected)} of {len(NATIVE_INVALID)} ({card})", flush=True)
+    if bad:
+        failures.append(f"native parse: {len(bad)} mismatches, first {bad[:3]}")
+    if len(rejected) != len(NATIVE_INVALID):
+        failures.append(f"native parse accepted invalid values "
+                        f"{sorted(set(NATIVE_INVALID) - set(rejected))}")
+
+    hash_rows = native.hash_rows
+    for label, batch in batches.items():
+        runs = grouped.group_runs(batch)
+        sig_native = _median_s(lambda: grouped._row_signature(batch))
+        native.hash_rows = lambda data: None  # the blake2b path
+        try:
+            runs_b2 = grouped.group_runs(batch)
+            sig_b2 = _median_s(lambda: grouped._row_signature(batch))
+        finally:
+            native.hash_rows = hash_rows
+        same = runs == runs_b2
+        row_bytes = sum(np.asarray(getattr(batch, f.name)).nbytes // batch.p
+                        for f in fields(batch) if f.name not in ("keys", "valid"))
+        results[label] = {"rows": batch.p, "row_bytes": row_bytes, "runs": len(runs),
+                          "identical": same, "native_s": sig_native, "blake2b_s": sig_b2}
+        print(f"native[{label}] {batch.p} rows of {row_bytes} bytes: group_runs {len(runs)} runs, identical to "
+              f"blake2b's: {same}; _row_signature median of 3: native {sig_native:.4f} s, "
+              f"blake2b {sig_b2:.4f} s ({sig_b2 / max(sig_native, 1e-9):.1f}x) ({card})",
+              flush=True)
+        if not same:
+            failures.append(f"native[{label}]: group_runs differs from the blake2b path")
+    return results, failures
 
 
 def routes_phase(torch, dp, fast, kernels, w, captured):
@@ -2466,10 +2591,11 @@ def tooling_phase(torch, dp, device="cuda"):
     """The runtime tooling on the card, in its own process (a child beside
     the capacity phase):
     1. `warmup --format json` with OSIM_COMPILE_CACHE a fresh directory:
-       at least one nvcc build, every registry entry present;
+       at least one nvcc build, one g++ build of the native library, every
+       registry entry present;
     2. `warmup --check --format json` in a second process sharing the
-       directory: 0 builds, the sweep's serial and batched answers equal to
-       the JAX package's (sim_configs.WARM_START_NODES_ADDED);
+       directory: 0 builds (nvcc and g++), the sweep's serial and batched
+       answers equal to the JAX package's (sim_configs.WARM_START_NODES_ADDED);
     3. `profile --gaps --repeats 1 --format json`: device, dispatch and gap
        of all 23 entries, one line each (some device time recorded);
     4. `profile -- apply -f example/simon-config.yaml`: exit 0 and a trace
@@ -2536,6 +2662,11 @@ def tooling_phase(torch, dp, device="cuda"):
             failures.append(f"warmup: exit {rc}, missing {rep['missing']}")
         if cuda and rep["backend_compiles"] < 1:
             failures.append("warmup: a fresh compile cache built no kernel")
+        print(f"tooling[warmup] native host runtime: loaded {rep.get('native')}, "
+              f"{rep.get('native_builds')} g++ build(s) into the fresh cache", flush=True)
+        if not rep.get("native") or rep.get("native_builds") != 1:
+            failures.append(f"warmup: the native library was not built into the fresh cache "
+                            f"(loaded {rep.get('native')}, {rep.get('native_builds')} builds)")
         if {e["name"] for e in rep["entries"]} != set(REQUIRED_COVERAGE):
             failures.append("warmup: the registry does not cover REQUIRED_COVERAGE")
 
@@ -2564,6 +2695,11 @@ def tooling_phase(torch, dp, device="cuda"):
             failures.append(f"warmup --check: exit {child.returncode}, {chk or child.stderr[-2000:]}")
         if cuda and not chk.get("persistent_hits"):
             failures.append("warmup --check: the kernel library was not found in the cache")
+        print(f"tooling[warmup --check] native g++ builds {chk.get('native_builds')}",
+              flush=True)
+        if chk.get("native_builds") != 0:
+            failures.append(f"warmup --check: {chk.get('native_builds')} g++ build(s) of the "
+                            f"native library on a warm cache")
 
         # 3. the dispatch-gap analyzer over every registry entry
         # one timed call an entry: three took 432 s on the card beside the other
@@ -2988,6 +3124,8 @@ def run_all(opts, torch, tmp, children) -> int:
     phase and the mesh phase's two halves in child processes started before
     the capacity phase, prove joined after it, the mesh after the durable
     phase); 0 when all pass."""
+    from open_simulator_tpu_torch import native
+    from open_simulator_tpu_torch import sim_configs as sc
     from open_simulator_tpu_torch.headline import (
         HEADLINE_DIGEST_100K_10K, build_state, placement_digest,
     )
@@ -3009,6 +3147,15 @@ def run_all(opts, torch, tmp, children) -> int:
     for line in dp.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  nvcc: {line.strip()}", flush=True)
+    # the native host runtime: g++ at first use, into the same build directory
+    t0 = time.perf_counter()
+    native_ok = native.available()
+    native_load_s = time.perf_counter() - t0
+    print(f"native host runtime: loaded {native_ok}, {native.builds} g++ build(s) "
+          f"{native.build_seconds:.3f} s, load {native_load_s:.3f} s ({card})", flush=True)
+    if not native_ok:
+        print("chip_smoke: native FAILED: the library did not load", file=sys.stderr)
+        return 1
 
     # -- main path at full size ------------------------------------------
     n_nodes, n_pods = 10_000, 100_000
@@ -3029,6 +3176,7 @@ def run_all(opts, torch, tmp, children) -> int:
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
     dp.launches = 0
+    native.calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
@@ -3036,6 +3184,7 @@ def run_all(opts, torch, tmp, children) -> int:
     run_s = time.perf_counter() - t0
     paths = dict(fast.PATH_COUNTS)
     launches = dp.launches
+    hash_calls = native.calls
     # the phase split comes from a third pass: timings= syncs the card at
     # every phase end, which the timed pass must not pay for
     phases: dict = {}
@@ -3055,7 +3204,8 @@ def run_all(opts, torch, tmp, children) -> int:
     for name, ph in (("warm", warm_phases), ("phase", phases)):
         print(f"{name}-pass phases (s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in ph.items()), flush=True)
-    print(f"paths {paths} domain_pop launches {launches}", flush=True)
+    print(f"paths {paths} domain_pop launches {launches}, native hash_rows calls "
+          f"{hash_calls}", flush=True)
     print(f"digest {digest}", flush=True)
     failures = []
     if scheduled != n_pods:
@@ -3070,10 +3220,28 @@ def run_all(opts, torch, tmp, children) -> int:
         failures.append("non-finite carry leaf")
     if not captured:
         failures.append("the main path made no domain_pop call")
+    if hash_calls < 1:
+        failures.append("the main path made no native hash_rows call")
     if failures:
         print("chip_smoke: main path FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    del ns, carry, batch, result, carry_out
+    del ns, carry, result, carry_out
+
+    # -- the native host runtime: parser and row hasher against their plain
+    # paths, on the headline's batch and plan_full's first
+    t0 = time.perf_counter()
+    native_results, failures = native_phase(card, {
+        "headline": batch, "plan_full": plan_first_batch(sc.plan_spec()),
+    })
+    native_wall = time.perf_counter() - t0
+    print(f"native phase: {native_wall:.3f} s ({card})", flush=True)
+    if failures:
+        print("chip_smoke: native FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    native_results.update(builds=native.builds, build_s=native.build_seconds,
+                          load_s=native_load_s, headline_hash_calls=hash_calls,
+                          wall_s=native_wall)
+    del batch
 
     # -- every other route: the bench_configs workloads -------------------
     route_captures: dict = {}
@@ -3244,6 +3412,7 @@ def run_all(opts, torch, tmp, children) -> int:
                 "capacity": cap_results, "prove": prove_results, "extenders": ext_results,
                 "durable": durable_results, "resident": resident_results,
                 "serve": serve_results, "mesh": mesh_results, "tooling": tooling_results,
+                "native": native_results,
                 "kernels": kernel_rows,
             }, f, indent=1, default=str)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

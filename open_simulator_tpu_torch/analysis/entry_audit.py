@@ -468,13 +468,16 @@ def _run_sweeps(device=DEFAULT_DEVICE):
 class WarmStartResult:
     """The canonical capacity sweep re-run after `simon warmup`: no kernel
     may be built (every library the run loads is found in the cache) and
-    the serial and batched searches must agree."""
+    the serial and batched searches must agree. `native_builds` reports the
+    g++ runs of the native host runtime in the check (0 on a warm cache);
+    it is host code, so `ok` reads the kernel builds only."""
 
     backend_compiles: int
     persistent_hits: int
     nodes_added: int
     batched_nodes_added: int
     cache_dir: str = ""
+    native_builds: int = 0
 
     @property
     def cold_compiles(self) -> int:
@@ -493,6 +496,7 @@ class WarmStartResult:
             "nodes_added": self.nodes_added,
             "batched_nodes_added": self.batched_nodes_added,
             "cache_dir": self.cache_dir,
+            "native_builds": self.native_builds,
         }
 
     def render_text(self) -> str:
@@ -502,7 +506,8 @@ class WarmStartResult:
             f"({self.backend_compiles} compile request(s), "
             f"{self.persistent_hits} persistent-cache hit(s)) over the "
             f"full capacity sweep; answers "
-            f"{'agree' if self.nodes_added == self.batched_nodes_added else 'DISAGREE'}"
+            f"{'agree' if self.nodes_added == self.batched_nodes_added else 'DISAGREE'}; "
+            f"{self.native_builds} g++ build(s) of the native host runtime"
         )
 
 
@@ -511,15 +516,18 @@ def warm_start_check(device=DEFAULT_DEVICE) -> WarmStartResult:
     load the hand kernels (on a card) and run the canonical capacity sweep,
     counting kernel builds and cache hits. ok demands zero builds and equal
     serial and batched answers."""
+    from .. import native
     from ..ops import domain_pop
     from ..utils.platform import CompileCounter, enable_compilation_cache, install_compile_listener
 
     dev = resolve_device(device)
     cache_dir = enable_compilation_cache()
     install_compile_listener()
+    native_builds0 = native.builds
     with CompileCounter() as counter:
         if dev.type == "cuda":
             domain_pop.build_libraries(domain_pop.SOURCE)
+        native.load()
         plan, plan_b = _run_sweeps(dev)
     return WarmStartResult(
         backend_compiles=counter.backend_compiles,
@@ -527,4 +535,5 @@ def warm_start_check(device=DEFAULT_DEVICE) -> WarmStartResult:
         nodes_added=plan.nodes_added,
         batched_nodes_added=plan_b.nodes_added,
         cache_dir=cache_dir,
+        native_builds=native.builds - native_builds0,
     )

@@ -7,6 +7,10 @@ every one-time cost paid in this phase:
 
   - the nvcc builds of the hand kernels (ops/domain_pop.py), into the
     compile cache (utils/platform.py: OSIM_COMPILE_CACHE, else build/);
+  - the g++ build of the native host runtime (native/), into the same
+    directory, on every device: quantity parsing and group_runs' row hash
+    run on the host. It is reported as `native_builds`, not as a compile
+    event: the compile events count kernel builds;
   - the CUDA context;
   - the first launch of each registry entry (lazy module loading, library
     handles, the caching allocator's growth): `warmup_registry()` runs the
@@ -77,8 +81,13 @@ class WarmupReport:
     swept: bool = True
     #: node-bucket ladder rungs the sweep rehearsal ran batched programs at
     ladder_rungs: List[int] = dataclasses.field(default_factory=list)
-    #: seconds of the kernel builds (or of finding them in the cache)
+    #: seconds of the kernel builds and the native library's (or of finding
+    #: them in the cache)
     build_seconds: float = 0.0
+    #: g++ runs of the native host runtime in this warmup (0 when cached)
+    native_builds: int = 0
+    #: whether the native host runtime loaded (False: no compiler)
+    native: bool = False
 
     @property
     def cold_compiles(self) -> int:
@@ -95,6 +104,8 @@ class WarmupReport:
             "missing": list(self.missing),
             "seconds": round(self.seconds, 4),
             "build_seconds": round(self.build_seconds, 4),
+            "native": self.native,
+            "native_builds": self.native_builds,
             "backend_compiles": self.backend_compiles,
             "persistent_hits": self.persistent_hits,
             "cold_compiles": self.cold_compiles,
@@ -112,7 +123,9 @@ class WarmupReport:
             f"{self.cold_compiles} cold)"
         ]
         if self.cache_dir:
-            lines.append(f"  cache: {self.cache_dir} (kernel builds {self.build_seconds:.2f}s)")
+            lines.append(f"  cache: {self.cache_dir} (builds {self.build_seconds:.2f}s)")
+        lines.append(f"  native host runtime: {'loaded' if self.native else 'unavailable'} "
+                     f"({self.native_builds} g++ build(s))")
         if not self.swept:
             lines.append("  sweep rehearsal: skipped (--no-sweep)")
         elif self.ladder_rungs:
@@ -165,6 +178,7 @@ def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupRepor
     """Pay the one-time costs on `device`, in order: the kernel builds into
     the compile cache, the registry capture (every entry's first call,
     timed), and with `include_sweep` the canonical capacity sweep."""
+    from .. import native
     from ..analysis.entry_audit import REQUIRED_COVERAGE, _run_sweeps
     from ..ops import domain_pop
     from ..ops.fast import reset_scenario_programs, scenario_programs
@@ -175,9 +189,11 @@ def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupRepor
     install_compile_listener()
     reset_scenario_programs()
     t_start = time.perf_counter()
+    native_builds0 = native.builds
     with CompileCounter() as counter:
         if dev.type == "cuda":
             domain_pop.build_libraries(domain_pop.SOURCE)
+        loaded = native.available()
         build_s = time.perf_counter() - t_start
         entries = [
             EntryWarmup(
@@ -199,4 +215,6 @@ def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupRepor
         swept=include_sweep,
         ladder_rungs=sorted({n for (n, _p) in scenario_programs()}),
         build_seconds=build_s,
+        native_builds=native.builds - native_builds0,
+        native=loaded,
     )

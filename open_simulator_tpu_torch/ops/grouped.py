@@ -20,6 +20,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel import slots as nx
 from .encode import PodBatch, round_up
@@ -275,8 +276,9 @@ def fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
 
 
 def _row_signature(batch: PodBatch) -> np.ndarray:
-    """Byte-hash every pod row's feature arrays (blake2b) to detect
-    identical specs."""
+    """Byte-hash every pod row's feature arrays to detect identical specs.
+    Uses the compiled 128-bit row hasher (native/osim_native.cpp) when
+    available; blake2b otherwise."""
     parts = []
     for f in fields(batch):
         if f.name in ("keys", "valid"):
@@ -284,6 +286,12 @@ def _row_signature(batch: PodBatch) -> np.ndarray:
         arr = getattr(batch, f.name)
         parts.append(np.ascontiguousarray(arr).reshape(batch.p, -1).view(np.uint8))
     blob = np.concatenate(parts, axis=1)
+
+    hashed = native.hash_rows(blob)
+    if hashed is not None:
+        # host-side reinterpretation of a 128-bit digest; never enters a
+        # kernel, and the view width must match the digest exactly
+        return hashed.view([("a", np.uint64), ("b", np.uint64)]).reshape(-1)  # osim: lint-ok[f64-literal]
     return np.array(
         [hashlib.blake2b(row.tobytes(), digest_size=8).digest() for row in blob]
     )
@@ -295,7 +303,18 @@ def group_runs(batch: PodBatch) -> List[Tuple[int, int]]:
     if total == 0:
         return []
     sig = _row_signature(batch)
-    change = np.nonzero(sig[1:total] != sig[: total - 1])[0] + 1
+    # Vectorized boundary detection: per-element comparison of structured
+    # rows re-promotes the dtype for every row. Iterate the signature's
+    # fields generically so a digest-width or dtype change in the native
+    # hasher can't silently break this.
+    if sig.dtype.fields:
+        diff = np.zeros(max(total - 1, 0), bool)
+        for fname in sig.dtype.fields:
+            col = sig[fname][:total]
+            diff |= col[1:] != col[:-1]
+    else:
+        diff = sig[1:total] != sig[: total - 1]
+    change = np.nonzero(diff)[0] + 1
     starts = np.concatenate(([0], change))
     ends = np.concatenate((change, [total]))
     return [(int(s), int(e - s)) for s, e in zip(starts, ends)]

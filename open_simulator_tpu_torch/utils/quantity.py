@@ -1,4 +1,4 @@
-"""Kubernetes resource.Quantity parsing (pure Python).
+"""Kubernetes resource.Quantity parsing and formatting.
 
 Quantities are kept as exact integers in a canonical base unit:
   - cpu-like quantities: millivalue (1 cpu == 1000)
@@ -69,10 +69,10 @@ def parse_quantity(value) -> Fraction:
     return num
 
 
-@functools.lru_cache(maxsize=131072)
-def parse_quad(s: str) -> tuple:
-    """(milli_ceil, milli_floor, base_ceil, base_floor) for a quantity string.
-    Quantity strings repeat massively across pod templates, hence the cache."""
+def exact_quad(s: str) -> tuple:
+    """(milli_ceil, milli_floor, base_ceil, base_floor) through the exact
+    Fraction path: the plain version of the compiled parser, and the answer
+    for every value it punts on."""
     q = parse_quantity(s)
     m, b = q * 1000, q
     return (
@@ -81,6 +81,27 @@ def parse_quad(s: str) -> tuple:
         int(math.ceil(b)),
         int(math.floor(b)),
     )
+
+
+def _native_parse_one(s: str):
+    """(milli_ceil, milli_floor, base_ceil, base_floor) via the compiled
+    parser (native/osim_native.cpp), or None when the library is unavailable
+    or the value needs the exact path."""
+    from ..native import parse_quantity_one
+
+    return parse_quantity_one(s)
+
+
+@functools.lru_cache(maxsize=131072)
+def parse_quad(s: str) -> tuple:
+    """(milli_ceil, milli_floor, base_ceil, base_floor) for a quantity string.
+    Quantity strings repeat massively across pod templates, hence the cache;
+    a miss takes the compiled parser first and the exact path when it
+    punts."""
+    native = _native_parse_one(s)
+    if native is not None:
+        return native
+    return exact_quad(s)
 
 
 def parse_milli(value) -> int:

@@ -197,6 +197,7 @@ def test_run_warmup_ok(captures, monkeypatch):
     assert report.ok, report.missing
     assert {e.name for e in report.entries} == set(taudit.REQUIRED_COVERAGE)
     assert report.backend_compiles == 0  # the CPU builds no kernel
+    assert report.native  # the native host runtime loads on every device
     assert 0 <= report.build_seconds < report.seconds
     assert report.ladder_rungs and all(n % 64 == 0 for n in report.ladder_rungs)
     assert {e.name: e.seconds for e in report.entries} == {
