@@ -9,9 +9,9 @@
    build directory, and prints its build seconds; it fails when the library
    does not load.
 2. Drives the main path at full size: the headline cluster (10,000 nodes,
-   100,000 pods) through `schedule_batch_fast` on the card: one warm pass,
-   one timed pass, and one pass synced at each phase end for the phase
-   split. It holds the timed pass's result against the placement digest the
+   100,000 pods) through `schedule_batch_fast` on the card: one warm pass
+   and one timed pass, each inside a root span whose children give the
+   phase split. It holds the timed pass's result against the placement digest the
    JAX package computes for the same input, and fails when the timed pass
    made no native `hash_rows` call (group_runs' row hash). Then the native
    phase (native_phase): the compiled quantity parser against the exact
@@ -23,7 +23,7 @@
    gpushare, mixed) through the same passes, holding its digest, its route
    counts and its domain_pop launches against the JAX package's run, and
    printing wall, pods/s, the phase split and the microseconds per step of
-   each scan body (grouped, light scan, micro, affinity pop). On `mixed` the
+   each route's select spans (grouped, scan, micro, domain_affinity). On `mixed` the
    port's sequential oracle `kernels.schedule_batch` runs on the card too
    (all pods, or the first 1,000 when all would take over 30 s) and must
    equal the fast path.
@@ -483,12 +483,15 @@ def native_phase(card, batches, n_corpus=NATIVE_CORPUS):
 
 def routes_phase(torch, dp, fast, kernels, w, captured):
     """Each bench_configs workload on the card: a warm pass, a timed pass
-    (route counts and kernel launches read around it), a pass synced at
-    phase ends for the phase split and the per-route step times, the digest
-    against the JAX package's; on `mixed`, the port's oracle against the fast
-    path. Returns (per-workload results, failure list)."""
+    inside a root span (route counts and kernel launches read around it;
+    the phase split and the per-route steps and select seconds read from
+    its spans), the digest against the JAX package's; on `mixed`, the
+    port's oracle against the fast path. Returns (per-workload results,
+    failure list)."""
     from open_simulator_tpu_torch import bench_configs
     from open_simulator_tpu_torch.headline import placement_digest
+    from open_simulator_tpu_torch.tools.route_profile import route_split
+    from open_simulator_tpu_torch.utils import tracing
 
     results, failures = {}, []
     for name in bench_configs.WORKLOADS:
@@ -512,33 +515,30 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
         dp.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        result = fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
+        with tracing.span("routes-pass"):
+            result = fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        root = tracing.recent_timings()[-1]
         paths = {k: v for k, v in fast.PATH_COUNTS.items() if v and k != "domain_kernel"}
         kernel_groups, launches = fast.PATH_COUNTS["domain_kernel"], dp.launches
 
-        timings: dict = {}
-        t0 = time.perf_counter()
-        fast.schedule_batch_fast(ns, carry, batch, w, device="cuda", timings=timings)
-        phase_s = time.perf_counter() - t0
         digest = placement_digest(*result)
         scheduled = int((result[1][:total] >= 0).sum())
         print(f"routes[{name}] {total} pods x {int(ns.valid.sum())} nodes: encode {encode_s:.2f} s, "
               f"warm pass {warm_s:.3f} s, timed pass {run_s:.3f} s, {total / run_s:.1f} pods/s, "
               f"scheduled {scheduled}", flush=True)
-        print(f"routes[{name}] phase pass {phase_s:.3f} s: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in timings.items()
-            if not k.startswith(("select.", "steps."))), flush=True)
+        timings = tracing.span_seconds(root)
+        print(f"routes[{name}] timed pass's spans (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in timings.items()), flush=True)
         steps = {}
-        for key, n in timings.items():
-            if key.startswith("steps.") and n:
-                route = key[len("steps."):]
-                sec = timings[f"select.{route}"]
+        for route, r in route_split(root).items():
+            n, sec = r["steps"], r["select_s"]
+            if n:
                 steps[route] = {"steps": n, "seconds": sec, "us_per_step": sec / n * 1e6}
                 print(f"routes[{name}] {route}: {n} steps, {sec:.3f} s, "
-                      f"{sec / n * 1e6:.1f} us/step (select phase incl. per-group set-up)",
-                      flush=True)
+                      f"{sec / n * 1e6:.1f} us/step (select spans incl. per-group set-up; "
+                      f"not synchronised)", flush=True)
         print(f"routes[{name}] paths {paths} domain_pop launches {launches} digest {digest}",
               flush=True)
         if digest != bench_configs.DIGESTS[name]:
@@ -549,7 +549,7 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
             failures.append(f"{name}: domain_pop launches {launches} / counted {kernel_groups}, "
                             f"expected {bench_configs.DOMAIN_POP_GROUPS[name]}")
         res = {"pods": total, "scheduled": scheduled, "encode_s": encode_s, "warm_s": warm_s,
-               "run_s": run_s, "pods_per_s": total / run_s, "phase_s": phase_s,
+               "run_s": run_s, "pods_per_s": total / run_s,
                "phases": timings, "steps": steps, "paths": paths, "launches": launches,
                "digest": digest}
         if name == "mixed":
@@ -3133,6 +3133,7 @@ def run_all(opts, torch, tmp, children) -> int:
     from open_simulator_tpu_torch.ops import fast, kernels
     from open_simulator_tpu_torch.ops.kernels import weights_array
     from open_simulator_tpu_torch.tools import pop_chain
+    from open_simulator_tpu_torch.utils import tracing
 
     card = smi("name,power.limit")
     print(card, flush=True)
@@ -3167,10 +3168,12 @@ def run_all(opts, torch, tmp, children) -> int:
 
     captured = []
     undo = capture_pops(dp, torch, captured)
-    warm_phases: dict = {}
     t0 = time.perf_counter()
-    fast.schedule_batch_fast(ns, carry, batch, w, device="cuda", timings=warm_phases)
+    with tracing.span("headline-warm"):
+        fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_phases = tracing.span_seconds(tracing.recent_timings()[-1])
     undo()
 
     for k in fast.PATH_COUNTS:
@@ -3179,19 +3182,16 @@ def run_all(opts, torch, tmp, children) -> int:
     native.calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
+    # the phase split comes from the timed pass's spans, which synchronise
+    # nothing
+    with tracing.span("headline-timed"):
+        result = fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    phases = tracing.span_seconds(tracing.recent_timings()[-1])
     paths = dict(fast.PATH_COUNTS)
     launches = dp.launches
     hash_calls = native.calls
-    # the phase split comes from a third pass: timings= syncs the card at
-    # every phase end, which the timed pass must not pay for
-    phases: dict = {}
-    t0 = time.perf_counter()
-    fast.schedule_batch_fast(ns, carry, batch, w, device="cuda", timings=phases)
-    torch.cuda.synchronize()
-    phase_s = time.perf_counter() - t0
 
     carry_out, nodes = result[0], result[1]
     scheduled = int((nodes[:n_pods] >= 0).sum())
@@ -3200,9 +3200,8 @@ def run_all(opts, torch, tmp, children) -> int:
     print(f"headline {n_pods} pods x {n_nodes} nodes: encode {encode_s:.2f} s, "
           f"warm pass {warm_s:.2f} s, timed pass {run_s:.3f} s, "
           f"{n_pods / run_s:.1f} pods/s, scheduled {scheduled}", flush=True)
-    print(f"phase pass (synced at phase ends) {phase_s:.3f} s", flush=True)
-    for name, ph in (("warm", warm_phases), ("phase", phases)):
-        print(f"{name}-pass phases (s): " + ", ".join(
+    for name, ph in (("warm", warm_phases), ("timed", phases)):
+        print(f"{name}-pass spans (s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in ph.items()), flush=True)
     print(f"paths {paths} domain_pop launches {launches}, native hash_rows calls "
           f"{hash_calls}", flush=True)
@@ -3406,7 +3405,7 @@ def run_all(opts, torch, tmp, children) -> int:
                 "card": card, "torch": torch.__version__, "build_s": build_s,
                 "encode_s": encode_s, "warm_s": warm_s, "run_s": run_s,
                 "pods_per_s": n_pods / run_s, "warm_phases": warm_phases,
-                "phase_s": phase_s, "phases": phases, "probe_cycles_per_pop": probe_cycles,
+                "phases": phases, "probe_cycles_per_pop": probe_cycles,
                 "kernel_cycles_per_pop": kernel_cycles, "sm_mhz": sm_mhz,
                 "paths": paths, "digest": digest, "routes": routes, "simulator": sim_results,
                 "capacity": cap_results, "prove": prove_results, "extenders": ext_results,

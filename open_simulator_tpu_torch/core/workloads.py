@@ -34,6 +34,7 @@ from .objects import (
 )
 from .matcher import daemonset_should_run
 from ..utils.quantity import parse_int
+from ..utils.tracing import child_span
 
 # Workload kind strings (parity: pkg/type/const.go workload kinds)
 DEPLOYMENT = "Deployment"
@@ -251,7 +252,9 @@ def _expand_replicas(
     fully synthesized + validated + parsed (the reference's MakeValidPod path,
     utils.go:139-171,378-463), the rest are cheap clones of that prototype —
     replicas are spec-identical by construction. extra_annotations are
-    defaults (template wins); force_annotations always overwrite."""
+    defaults (template wins); force_annotations always overwrite. Inside a
+    trace, the n - 1 names (drawn first, in replica order) and the clones
+    are the spans `pod-names` and `pod-clones`."""
     n = int(count if count is not None else 1)
     if n <= 0:
         return []
@@ -265,11 +268,14 @@ def _expand_replicas(
     if name_fn is not None:
         d["metadata"]["name"] = name_fn(0)
     proto = Pod.from_dict(d)
-    pods = [proto]
-    for i in range(1, n):
-        pod_name = name_fn(i) if name_fn is not None else f"{name}-{_rand_suffix()}"
-        pods.append(_clone_pod(proto, pod_name))
-    return pods
+    kind = owner.get("kind", owner_kind)
+    with child_span("pod-names", pods=n - 1, kind=kind):
+        if name_fn is not None:
+            names = [name_fn(i) for i in range(1, n)]
+        else:
+            names = [f"{name}-{_rand_suffix()}" for _ in range(1, n)]
+    with child_span("pod-clones", pods=n - 1, kind=kind):
+        return [proto] + [_clone_pod(proto, pod_name) for pod_name in names]
 
 
 def daemonset_pods(ds: dict, nodes: List[Node]) -> List[Pod]:

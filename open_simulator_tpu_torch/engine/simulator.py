@@ -609,15 +609,20 @@ class Simulator:
         failed: List[UnscheduledPod] = []
         n_nodes = len(self.cluster.nodes)
         fail_counts = np.zeros(reasons_np.shape[1], np.int64)
+        placed = placed_np[: len(pods)]
+        # two passes, each in pod order: the bind order and the failed list
+        # come out as one interleaved pass gives them
         with span("bind", pods=len(pods)):
-            for i, pod in enumerate(pods):
-                ni = int(placed_np[i])
-                if ni >= 0:
-                    self._bind_placed(pod, ni, take_np[i], vg_np[i], dev_np[i])
-                else:
+            on_node = np.flatnonzero(placed >= 0).tolist()
+            with span("bind-placed", pods=len(on_node)):
+                for i in on_node:
+                    self._bind_placed(pods[i], int(placed[i]), take_np[i], vg_np[i], dev_np[i])
+            off_node = np.flatnonzero(placed < 0).tolist()
+            with span("reasons", pods=len(off_node)):
+                for i in off_node:
                     fail_counts += reasons_np[i]
                     failed.append(
-                        UnscheduledPod(pod, _reason_string(n_nodes, reasons_np[i]))
+                        UnscheduledPod(pods[i], _reason_string(n_nodes, reasons_np[i]))
                     )
         _count_filter_failures(fail_counts)
         return failed
@@ -1154,65 +1159,73 @@ class Simulator:
                     metrics.EXPAND_CACHE.inc(event="hit" if cached is not None else "miss")
                 fresh_entry: Dict[int, List[Pod]] = {}
                 fresh_validate: List[Pod] = []
-                for idx, obj in enumerate(app.objects):
-                    kind = obj.get("kind", "")
-                    if kind not in WORKLOAD_KINDS:
-                        continue
-                    if kind != "DaemonSet" and cached is not None:
-                        wl_pods = cached[idx]
-                        self._reset_bindings(wl_pods)
-                    else:
-                        wl_pods = pods_from_workload(obj, nodes=self.cluster.nodes)
-                        self._apply_patch_hooks(kind, wl_pods)
-                        fresh_validate.extend(wl_pods)
-                        if kind != "DaemonSet":
-                            fresh_entry[idx] = wl_pods
-                    pods.extend(wl_pods)
+                with span("expand") as sp:
+                    for idx, obj in enumerate(app.objects):
+                        kind = obj.get("kind", "")
+                        if kind not in WORKLOAD_KINDS:
+                            continue
+                        if kind != "DaemonSet" and cached is not None:
+                            wl_pods = cached[idx]
+                            self._reset_bindings(wl_pods)
+                        else:
+                            wl_pods = pods_from_workload(obj, nodes=self.cluster.nodes)
+                            self._apply_patch_hooks(kind, wl_pods)
+                            fresh_validate.extend(wl_pods)
+                            if kind != "DaemonSet":
+                                fresh_entry[idx] = wl_pods
+                        pods.extend(wl_pods)
+                    sp.meta["pods"] = len(pods)
                 # cached pods were validated when first expanded
-                check_pods(fresh_validate, where=f"app {app.name}")
+                with span("validate", pods=len(fresh_validate)):
+                    check_pods(fresh_validate, where=f"app {app.name}")
                 if self._expand_cache is not None and cached is None:
                     self._expand_cache[cache_key] = fresh_entry
-                app_pods.append(self._order(pods))
+                with span("order", pods=len(pods)):
+                    app_pods.append(self._order(pods))
         return app_pods
 
     # -- public ------------------------------------------------------------
     def run(self, apps: Sequence[AppResource]) -> SimulateResult:
         with span("simulate", nodes=len(self.cluster.nodes), apps=len(apps)):
-            app_pods = self._expand_apps(apps)
+            return self._run(apps)
 
-            with span("encode-cluster"):
-                self._build_device_state(
-                    self._pending_cluster + [p for pods in app_pods for p in pods]
-                )
+    def _run(self, apps: Sequence[AppResource]) -> SimulateResult:
+        """The body of run(), inside the caller's `simulate` span."""
+        app_pods = self._expand_apps(apps)
 
-            result = SimulateResult()
-            # RunCluster: the cluster's own pending pods schedule first
-            result.unscheduled.extend(
-                self._finalize_unscheduled(
-                    self._try_preemptions(
-                        self._schedule_batch_host(self._order(self._pending_cluster))
-                    )
+        with span("encode-cluster"):
+            self._build_device_state(
+                self._pending_cluster + [p for pods in app_pods for p in pods]
+            )
+
+        result = SimulateResult()
+        # RunCluster: the cluster's own pending pods schedule first
+        result.unscheduled.extend(
+            self._finalize_unscheduled(
+                self._try_preemptions(
+                    self._schedule_batch_host(self._order(self._pending_cluster))
                 )
             )
-            # ScheduleApp: each app in configured order
-            for pods in app_pods:
-                result.unscheduled.extend(
-                    self._finalize_unscheduled(
-                        self._try_preemptions(self._schedule_batch_host(pods))
-                    )
+        )
+        # ScheduleApp: each app in configured order
+        for pods in app_pods:
+            result.unscheduled.extend(
+                self._finalize_unscheduled(
+                    self._try_preemptions(self._schedule_batch_host(pods))
                 )
+            )
 
-            with span("decode-result"):
-                by_node: Dict[str, NodeStatus] = {
-                    n.name: NodeStatus(node=n) for n in self.cluster.nodes
-                }
-                for pod, node_name in self._bound:
-                    if node_name in by_node:
-                        by_node[node_name].pods.append(pod)
-                result.node_status = list(by_node.values())
-                result.storage = self._storage_status()
-                result.preempted = list(self._preempted)
-            return result
+        with span("decode-result"):
+            by_node: Dict[str, NodeStatus] = {
+                n.name: NodeStatus(node=n) for n in self.cluster.nodes
+            }
+            for pod, node_name in self._bound:
+                if node_name in by_node:
+                    by_node[node_name].pods.append(pod)
+            result.node_status = list(by_node.values())
+            result.storage = self._storage_status()
+            result.preempted = list(self._preempted)
+        return result
 
     def run_scenarios(
         self,
@@ -1498,13 +1511,17 @@ def simulate(
     device=DEFAULT_DEVICE,
 ) -> SimulateResult:
     """One-shot simulation (parity: simulator.Simulate, core.go:67-119) on
-    `device` (CUDA by default). See Simulator for the arguments."""
-    return Simulator(
-        cluster, weights=weights, use_greed=use_greed, mesh=mesh, n_pad=n_pad,
-        profiles=profiles, plugins=plugins, patch_pods=patch_pods,
-        expand_cache=expand_cache, extenders=extenders, resident=resident,
-        device=device,
-    ).run(apps)
+    `device` (CUDA by default). See Simulator for the arguments. The
+    `simulate` span covers the constructor too, as its `construct` child."""
+    with span("simulate", nodes=len(cluster.nodes), apps=len(apps)):
+        with span("construct"):
+            sim = Simulator(
+                cluster, weights=weights, use_greed=use_greed, mesh=mesh, n_pad=n_pad,
+                profiles=profiles, plugins=plugins, patch_pods=patch_pods,
+                expand_cache=expand_cache, extenders=extenders, resident=resident,
+                device=device,
+            )
+        return sim._run(apps)
 
 
 def batch_ineligible_reason(

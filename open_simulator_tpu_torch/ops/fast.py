@@ -55,10 +55,10 @@ drivers run each lane block on its slots.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -67,6 +67,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel import slots as nx
 from ..utils import metrics as _metrics
+from ..utils.tracing import child_span
 from . import delta as _delta
 from . import domain_pop as _dp
 from . import wave as _wave
@@ -1164,7 +1165,6 @@ def schedule_batch_fast(
     extra_filters=(),
     extra_scores=(),
     device=DEFAULT_DEVICE,
-    timings: Optional[dict] = None,
 ) -> Tuple[Carry, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Schedule a pod batch group by group: the trajectory fast path where
     it amortizes, the per-pod grouped scan elsewhere.
@@ -1178,103 +1178,136 @@ def schedule_batch_fast(
     the carry arbitrarily, which voids the trajectory's premise: any plugin
     sends the whole batch through the grouped path.
 
-    `timings`, when given, accumulates wall seconds per phase (trajectory,
-    select, tail; grouped for the grouped route's groups) and, per route,
-    the select seconds `select.<route>` and the steps run `steps.<route>`,
-    synchronizing the device at each phase boundary.
+    Inside an open span (simulate()'s `schedule`) the call's phases are
+    child spans: `setup` (the batch's rows to the device, the node vectors
+    the host reads), `signature` (group_runs), then per group a `group` span
+    (meta: the `route` that committed, `pods`, `j_steps`, the `steps` its
+    route ran, `fallback` listing a sort or domain verdict that replayed)
+    holding `trajectory`, `select.<route>` (sort, domain, domain_affinity,
+    scan, micro, grouped) and `tail` (the tail and its one fetch); a
+    replayed verdict adds a second select and tail. Each group ends in that
+    fetch, so its device work lies inside its span; nothing synchronises.
 
     `ns` / `carry` laid out over a mesh (parallel.mesh.shard_state) run
     once per slot on its node block, the node-axis reductions combined
     across slots; the returned carry keeps that layout and every other
-    output is the unsharded run's, bit for bit, by the same routes."""
+    output is the unsharded run's, bit for bit, by the same routes. Slots
+    run on threads of their own, so a mesh run opens no phase spans."""
     if isinstance(ns, nx.Sharded) or isinstance(carry, nx.Sharded):
         return _schedule_batch_fast_mesh(
             ns, carry, batch, weights, max_group_chunk, force_fast, filter_on,
-            extra_filters, extra_scores, device, timings,
+            extra_filters, extra_scores, device,
         )
+    return _schedule_batch_fast(
+        ns, carry, batch, weights, max_group_chunk, force_fast, filter_on,
+        extra_filters, extra_scores, device, child_span,
+    )
+
+
+@contextlib.contextmanager
+def _no_span(name, **meta):
+    yield None
+
+
+def _schedule_batch_fast(
+    ns, carry, batch, weights, max_group_chunk, force_fast, filter_on,
+    extra_filters, extra_scores, device, phase,
+):
+    """schedule_batch_fast on one device; `phase` opens its phase spans
+    (tracing.child_span, or _no_span on a mesh slot)."""
     dev = resolve_device(device)
     if not _same_device(ns.valid.device, dev) or not _same_device(carry.free.device, dev):
         raise ValueError(
             f"state lives on {ns.valid.device}/{carry.free.device}, "
             f"but device={dev} was asked for"
         )
-    weights = torch.as_tensor(weights, dtype=torch.float32).to(dev)
-    if filter_on is not None:
-        filter_on = torch.as_tensor(filter_on, dtype=torch.bool).to(dev)
-    outs = _empty_outputs(ns, batch.p)
-    rows_all = pod_rows_from_batch(batch, dev)
-    N = ns.valid.shape[0]
-    # host reads of node vectors see every node, in global order
-    valid_np = nx.host_nodes(ns.valid)
+    with phase("setup"):
+        weights = torch.as_tensor(weights, dtype=torch.float32).to(dev)
+        if filter_on is not None:
+            filter_on = torch.as_tensor(filter_on, dtype=torch.bool).to(dev)
+        outs = _empty_outputs(ns, batch.p)
+        rows_all = pod_rows_from_batch(batch, dev)
+        # host reads of node vectors see every node, in global order
+        valid_np = nx.host_nodes(ns.valid)
 
-    # a disabled NodeResourcesFit filter voids the trajectory-length bound;
-    # so does any out-of-tree plugin
-    res_filter_on = (
-        filter_on is None or bool(filter_on[F_RESOURCES])
-    ) and not extra_filters and not extra_scores
-    free_entry = nx.host_nodes(carry.free) if res_filter_on else None
-    anti_topo_np = ns.anti_topo.cpu().numpy()
-    topo_np = nx.host_nodes(ns.topo)
-    n_domains = int(ns.topo_onehot.shape[1])
+        # a disabled NodeResourcesFit filter voids the trajectory-length bound;
+        # so does any out-of-tree plugin
+        res_filter_on = (
+            filter_on is None or bool(filter_on[F_RESOURCES])
+        ) and not extra_filters and not extra_scores
+        free_entry = nx.host_nodes(carry.free) if res_filter_on else None
+        anti_topo_np = ns.anti_topo.cpu().numpy()
+        topo_np = nx.host_nodes(ns.topo)
+        n_domains = int(ns.topo_onehot.shape[1])
 
-    clock = [time.perf_counter()]
-
-    def phase(name, route=None, steps=0):
-        if timings is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[name] = timings.get(name, 0.0) + now - clock[0]
-        if route is not None:
-            timings[f"select.{route}"] = timings.get(f"select.{route}", 0.0) + now - clock[0]
-            timings[f"steps.{route}"] = timings.get(f"steps.{route}", 0) + steps
-        clock[0] = now
-
-    for start, length in group_runs(batch):
-        if timings is not None:
-            clock[0] = time.perf_counter()
-        row = PodRow(*(a[start] for a in rows_all))
-        flags = group_flags(
-            {f: getattr(batch, f)[start] for f in (
-                "hp_pid", "has_local", "gpu_mem", "spread_topo", "spread_hard",
-                "aff_topo", "aff_required", "match_anti",
-            )},
-            anti_topo_np,
-        )
-        j_need = (
-            _traj_len(free_entry, valid_np, batch.req[start], length)
-            if free_entry is not None and (force_fast or length >= 64)
-            else None
-        )
-        # break-even: the trajectory costs ~j_need heavy steps, the grouped
-        # scan one heavy step per pod
-        use_fast = (
-            j_need is not None
-            and _bucket_j(j_need) <= J_CAP
-            and (force_fast or length >= max(3 * j_need // 2, 64))
-        )
-        if not use_fast:
-            _count_path("grouped")
-            carry = _grouped_run(
-                ns, carry, row, start, length, weights, max_group_chunk, filter_on,
-                extra_filters, extra_scores, outs,
+    with phase("signature"):
+        runs = group_runs(batch)
+    for start, length in runs:
+        # the group span's meta, set once the group has committed
+        info = {"pods": length}
+        with phase("group") as group_span:
+            row = PodRow(*(a[start] for a in rows_all))
+            flags = group_flags(
+                {f: getattr(batch, f)[start] for f in (
+                    "hp_pid", "has_local", "gpu_mem", "spread_topo", "spread_hard",
+                    "aff_topo", "aff_required", "match_anti",
+                )},
+                anti_topo_np,
             )
-            phase("grouped", "grouped", length)
-            continue
+            j_need = (
+                _traj_len(free_entry, valid_np, batch.req[start], length)
+                if free_entry is not None and (force_fast or length >= 64)
+                else None
+            )
+            # break-even: the trajectory costs ~j_need heavy steps, the grouped
+            # scan one heavy step per pod
+            use_fast = (
+                j_need is not None
+                and _bucket_j(j_need) <= J_CAP
+                and (force_fast or length >= max(3 * j_need // 2, 64))
+            )
+            if not use_fast:
+                _count_path("grouped")
+                with phase("select.grouped"):
+                    carry = _grouped_run(
+                        ns, carry, row, start, length, weights, max_group_chunk, filter_on,
+                        extra_filters, extra_scores, outs,
+                    )
+                info.update(route="grouped", steps=length)
+            else:
+                carry = _fast_group(
+                    ns, carry, batch, row, flags, start, length, weights, j_need,
+                    max_group_chunk, filter_on, outs, valid_np, anti_topo_np, topo_np,
+                    n_domains, dev, phase, info,
+                )
+            if group_span is not None:
+                group_span.meta.update(info)
 
-        j_steps = _bucket_j(j_need)
+    return (carry,) + outs
+
+
+def _fast_group(
+    ns, carry, batch, row, flags, start, length, weights, j_need, max_group_chunk,
+    filter_on, outs, valid_np, anti_topo_np, topo_np, n_domains, dev, phase, info,
+):
+    """One group on the trajectory: the sort, domain or light-scan select
+    and the group's tail. Writes the group's slice of `outs`, records its
+    route, steps and replayed verdicts in `info`, returns the exit carry."""
+    N = ns.valid.shape[0]
+    j_steps = _bucket_j(j_need)
+    info["j_steps"] = j_steps
+    with phase("trajectory"):
         traj, static_ok, static_ff, static_scores, na_ok = build_trajectory(
             ns, carry, row, weights, j_steps, filter_on, flags
         )
-        phase("trajectory")
-        sl = slice(start, start + length)
+    sl = slice(start, start + length)
 
-        def finish(nodes_d, jidx_d, x_d, mono_d=None):
-            """The group's whole tail (takes, failure-suffix reason row,
-            exit carry), with every host-needed value and the sort/domain
-            mono verdict fetched in ONE transfer; on a False verdict the
-            caller discards it all and replays with a scan."""
+    def finish(nodes_d, jidx_d, x_d, mono_d=None):
+        """The group's whole tail (takes, failure-suffix reason row,
+        exit carry), with every host-needed value and the sort/domain
+        mono verdict fetched in ONE transfer; on a False verdict the
+        caller discards it all and replays with a scan."""
+        with phase("tail"):
             take_d, vg_d, dev_d = gather_takes(traj, nodes_d, jidx_d)
             reason_d = light_reasons(
                 ns, carry, row, static_ok, static_ff, static_scores, na_ok, weights,
@@ -1283,10 +1316,8 @@ def schedule_batch_fast(
             carry_d = exit_carry(ns, carry, row, traj, x_d)
             mono = torch.ones((), dtype=torch.bool, device=dev) if mono_d is None else mono_d
             mono_np, *got = fetch(mono, nodes_d, take_d, vg_d, dev_d, reason_d)
-            return bool(mono_np), got, carry_d
-
-        def commit(got, carry_d):
-            nonlocal carry
+            if not bool(mono_np):
+                return None
             nodes_np, take_np, vg_np, dev_np, reason_np = got
             outs[0][sl] = nodes_np
             outs[2][sl] = take_np.astype(np.int32)
@@ -1295,28 +1326,33 @@ def schedule_batch_fast(
             if (nodes_np < 0).any():
                 # a failed step commits nothing: one reason row covers the suffix
                 outs[1][sl][nodes_np < 0] = reason_np
-            carry = carry_d
+            return carry_d
 
-        committed = False
-        out_size = _bucket_light(length)
-        if _sortable(flags) and out_size <= nx.node_count(N) * j_steps:
+    def committed(route, steps, carry_d):
+        info.update(route=route, steps=steps)
+        return carry_d
+
+    out_size = _bucket_light(length)
+    if _sortable(flags) and out_size <= nx.node_count(N) * j_steps:
+        with phase("select.sort"):
             mono, nodes_d, jidx_d, x = sort_select(
                 ns, traj, row, static_ok, static_scores, weights, length,
                 out_size, filter_on,
             )
-            phase("select", "sort")
-            mono_ok, got, carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
-            if mono_ok:
-                _count_path("sort")
-                commit(got, carry_d)
-                committed = True
-            else:
-                # a rising score sequence voids the merge: replay with a scan
-                _count_path("sort_fallback")
+        carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
+        if carry_d is not None:
+            _count_path("sort")
+            return committed("sort", 0, carry_d)
+        # a rising score sequence voids the merge: replay with a scan
+        _count_path("sort_fallback")
+        info.setdefault("fallback", []).append("sort")
 
-        if not committed and flags.domain_aff:
-            # the class partition is planned on the host from the pod's
-            # spread eligibility (one bool[N] transfer per group)
+    if flags.domain_aff:
+        # the class partition is planned on the host from the pod's
+        # spread eligibility (one bool[N] transfer per group)
+        affinity = _any_affinity(flags)
+        route = "domain_affinity" if affinity else "domain"
+        with phase(f"select.{route}"):
             elig_np = nx.host_nodes(na_ok) & valid_np
             plan = _domain_plan(
                 batch.spread_topo[start], batch.aff_topo[start], anti_topo_np,
@@ -1332,50 +1368,43 @@ def schedule_batch_fast(
                     plan, g, l_cap, length, filter_on, flags,
                 )
                 _count_path("domain_kernel", _dp.thread_launches() - launched)
-                affinity = _any_affinity(flags)
-                phase("select", "domain_affinity" if affinity else "domain",
-                      min(g, length) if affinity else 0)
-                mono_ok, got, carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
-                if mono_ok:
-                    _count_path("domain")
-                    commit(got, carry_d)
-                    committed = True
-                else:
-                    # a rising lane sequence voids the within-class merge
-                    _count_path("domain_fallback")
+        if plan is not None:
+            carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
+            if carry_d is not None:
+                _count_path("domain")
+                return committed(route, min(g, length) if affinity else 0, carry_d)
+            # a rising lane sequence voids the within-class merge
+            _count_path("domain_fallback")
+            info.setdefault("fallback", []).append(route)
 
-        if not committed:
-            route = "micro" if flags.micro_spread else "scan"
-            _count_path(route)
-            x = torch.zeros(N, dtype=torch.int32, device=dev)
-            chunks, done, steps = [], 0, 0
-            while done < length:
-                n = min(length - done, max_group_chunk)
-                g = _bucket_light(n)
-                x, nodes_d, jidx_d = light_scan(
-                    ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
-                    x, done, g, length, filter_on, flags,
-                )
-                steps += _active_steps(done, g, length)
-                chunks.append((nodes_d[:n], jidx_d[:n]))
-                done += n
-            phase("select", route, steps)
-            _, got, carry_d = finish(
-                torch.cat([c[0] for c in chunks]), torch.cat([c[1] for c in chunks]), x,
+    route = "micro" if flags.micro_spread else "scan"
+    _count_path(route)
+    with phase(f"select.{route}"):
+        x = torch.zeros(N, dtype=torch.int32, device=dev)
+        chunks, done, steps = [], 0, 0
+        while done < length:
+            n = min(length - done, max_group_chunk)
+            g = _bucket_light(n)
+            x, nodes_d, jidx_d = light_scan(
+                ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
+                x, done, g, length, filter_on, flags,
             )
-            commit(got, carry_d)
-        phase("tail")
-
-    return (carry,) + outs
+            steps += _active_steps(done, g, length)
+            chunks.append((nodes_d[:n], jidx_d[:n]))
+            done += n
+    carry_d = finish(
+        torch.cat([c[0] for c in chunks]), torch.cat([c[1] for c in chunks]), x,
+    )
+    return committed(route, steps, carry_d)
 
 
 def _schedule_batch_fast_mesh(
     ns, carry, batch, weights, max_group_chunk, force_fast, filter_on,
-    extra_filters, extra_scores, device, timings,
+    extra_filters, extra_scores, device,
 ):
     """schedule_batch_fast over node-sharded state: every slot runs the
-    unsharded function on its block (the first slot's outputs and timings
-    are returned; every slot holds the same ones)."""
+    unsharded function on its block, without phase spans (the first slot's
+    outputs are returned; every slot holds the same ones)."""
     if not (isinstance(ns, nx.Sharded) and isinstance(carry, nx.Sharded)) or (
         ns.layout != carry.layout
     ):
@@ -1391,10 +1420,9 @@ def _schedule_batch_fast_mesh(
         filter_on = torch.as_tensor(filter_on, dtype=torch.bool)
 
     def run(ns_b, carry_b, w_b, fo_b):
-        return schedule_batch_fast(
+        return _schedule_batch_fast(
             ns_b, carry_b, batch, w_b, max_group_chunk, force_fast, fo_b,
-            extra_filters, extra_scores, ns_b.valid.device,
-            timings if nx.is_root() else None,
+            extra_filters, extra_scores, ns_b.valid.device, _no_span,
         )
 
     res = nx.spmd(run, ns, carry, weights, filter_on)

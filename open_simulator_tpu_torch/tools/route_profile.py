@@ -1,21 +1,19 @@
-"""Where each scan body's time goes on the card: host dispatch or device work.
+"""Where each route's time goes on the card, read from the schedule
+engine's spans.
 
     python3 -m open_simulator_tpu_torch.tools.route_profile [--out results.json]
 
 For the headline (10,000 nodes, 100,000 pods) and each bench_configs workload:
-one warm pass of `schedule_batch_fast`; one pass with `timings=` (steps and
-select seconds per route, the device synced at phase ends); and one pass
-under torch.profiler with a record_function range around each call of a
-scan body (`grouped.schedule_group`, `fast.light_scan` named scan or micro by
-the group's flags, `fast._affinity_pop`). Per body it prints the steps, the
-kernels launched per step, the device (kernel) time per step, the host time
-per step under the profiler, and the unprofiled wall per step; the device
-busy share of a body is its device time over its unprofiled wall. Per pass
-it prints the device busy share of the whole profiled pass (kernel time
-over the pass's wall under the profiler, an upper bound on the idle share's
-complement since the profiler slows the host). The domain_pop kernel is
-launched through ctypes, outside PyTorch's dispatcher, so the profiler does
-not tie it to a range; `chip_smoke.py` times it with CUDA events.
+one warm pass of `schedule_batch_fast`; one pass inside a root span, whose
+`group` spans give the groups and steps per route (their meta) and whose
+`select.<route>` spans give the select seconds per route; and one pass
+under torch.profiler (CUDA activity), inside a root span as well. A fill
+launched right after reading the host clock ties the capture's clock to the
+spans', so each kernel is charged to the `group` span, and to the
+`select.<route>` span, whose window holds its start: per route the kernels
+and device time of its groups (every group ends in one fetch, so its device
+work lies inside its span) and of its select phases. The select phase's
+device busy share is that device time over its profiled select seconds.
 """
 
 from __future__ import annotations
@@ -24,61 +22,116 @@ import argparse
 import functools
 import json
 import time
+from collections import defaultdict
 
 import torch
 from torch.autograd import DeviceType
 
 from .. import bench_configs, headline
-from ..ops import fast, grouped
+from ..ops import fast
 from ..ops.kernels import weights_array
+from ..utils import tracing
 
 
-def _ranged(fn, name_of):
-    @functools.wraps(fn)
-    def wrapper(*args, **kw):
-        with torch.profiler.record_function(f"body.{name_of(args, kw)}"):
-            return fn(*args, **kw)
-    return wrapper
+def route_split(root: dict) -> dict:
+    """Per route, from one schedule_batch_fast call's span tree: {groups,
+    steps, select_s}. Steps and groups come from the `group` spans' meta
+    (route that committed), select seconds from the `select.<route>` spans,
+    a replayed verdict's select included under its own route."""
+    out: dict = {}
+
+    def row(route):
+        return out.setdefault(route, {"groups": 0, "steps": 0, "select_s": 0.0})
+
+    def walk(node):
+        for c in node.get("children", ()):
+            if c["name"] == "group":
+                r = row(c["meta"]["route"])
+                r["groups"] += 1
+                r["steps"] += c["meta"]["steps"]
+            elif c["name"].startswith("select."):
+                row(c["name"][len("select."):])["select_s"] += c["duration_s"]
+            walk(c)
+
+    walk(root)
+    return out
 
 
-def _scan_name(args, kw):
-    flags = args[13] if len(args) > 13 else kw.get("flags", fast.ALL_DYNAMIC)
-    return "micro" if flags.micro_spread else "scan"
-
-
-def _kernels_below(evt) -> tuple:
-    """(kernels launched, their summed device time in us) under a CPU event.
-    A range's own device_time_total spans its first to its last kernel, gaps
-    included, so busy time is summed from the kernels themselves."""
-    n, us = len(evt.kernels), sum(k.duration for k in evt.kernels)
-    for c in evt.cpu_children:
-        cn, cus = _kernels_below(c)
-        n, us = n + cn, us + cus
-    return n, us
-
-
-def profile_pass(ns, carry, batch, w):
-    """(per-body {calls, kernels, device_s, host_s}, pass wall s, pass
-    kernel s) of one profiled pass."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+def spans_pass(ns, carry, batch, w) -> tuple:
+    """(route_split of one pass, its wall s, its root span tree)."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    with tracing.span("route-profile"):
         fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
+    wall = time.perf_counter() - t0
+    root = tracing.recent_timings()[-1]
+    return route_split(root), wall, root
+
+
+def _windows(root: dict, offset_ns: int) -> tuple:
+    """([(route, lo, hi)] of the group spans, [(route, lo, hi)] of the
+    select spans), on the device clock in ns."""
+    groups, selects = [], []
+
+    def walk(node):
+        for c in node.get("children", ()):
+            lo = int(round(c["start"] * 1e9)) + offset_ns
+            hi = int(round((c["start"] + c["duration_s"]) * 1e9)) + offset_ns
+            if c["name"] == "group":
+                groups.append((c["meta"]["route"], lo, hi))
+            elif c["name"].startswith("select."):
+                selects.append((c["name"][len("select."):], lo, hi))
+            walk(c)
+
+    walk(root)
+    return groups, selects
+
+
+def _charge(kernels, windows) -> dict:
+    """Per route: (kernels, device s) of the kernels whose start lies in one
+    of its windows."""
+    by = defaultdict(lambda: [0, 0.0])
+    for _, start, dur in kernels:
+        for route, lo, hi in windows:
+            if lo <= start < hi:
+                by[route][0] += 1
+                by[route][1] += dur * 1e-9
+                break
+    return dict(by)
+
+
+def profile_pass(ns, carry, batch, w) -> tuple:
+    """(per route {group_kernels, group_device_s, select_kernels,
+    select_device_s, select_s}, pass wall s, pass kernel s) of one pass
+    under the profiler."""
+    cuda = DeviceType.CUDA
+    marker = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with tracing.span("route-profile"):
+            host0 = time.time_ns()
+            marker.fill_(1.0)
+            fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    bodies, kernel_us = {}, 0.0
-    # a range also appears as a device-side annotation event: count the CPU one
-    for evt in (e for e in prof.events() if e.device_type == DeviceType.CPU):
-        if evt.name.startswith("body."):
-            b = bodies.setdefault(evt.name[5:], {"calls": 0, "kernels": 0, "device_s": 0.0, "host_s": 0.0})
-            n, us = _kernels_below(evt)
-            b["calls"] += 1
-            b["kernels"] += n
-            b["device_s"] += us * 1e-6
-            b["host_s"] += evt.cpu_time_total * 1e-6
-        kernel_us += sum(k.duration for k in evt.kernels)
-    return bodies, wall, kernel_us * 1e-6
+    events = sorted(((e.name(), int(e.start_ns()), int(e.duration_ns()))
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda), key=lambda e: e[1])
+    root = tracing.recent_timings()[-1]
+    offset = events[0][1] - host0 if events else 0
+    kernels = [e for e in events[1:] if not e[0].startswith(("Memcpy", "Memset"))]
+    groups, selects = _windows(root, offset)
+    in_group, in_select = _charge(kernels, groups), _charge(kernels, selects)
+    split = route_split(root)
+    out = {}
+    for route in sorted(set(split) | set(in_group) | set(in_select)):
+        gk, gs = in_group.get(route, (0, 0.0))
+        sk, ss = in_select.get(route, (0, 0.0))
+        out[route] = {"group_kernels": gk, "group_device_s": gs, "select_kernels": sk,
+                      "select_device_s": ss,
+                      "select_s": split.get(route, {}).get("select_s", 0.0)}
+    return out, wall, sum(e[2] for e in kernels) * 1e-9
 
 
 def main() -> int:
@@ -87,9 +140,6 @@ def main() -> int:
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("route_profile: torch.cuda.is_available() is False")
-    grouped.schedule_group = _ranged(grouped.schedule_group, lambda a, k: "grouped")
-    fast.light_scan = _ranged(fast.light_scan, _scan_name)
-    fast._affinity_pop = _ranged(fast._affinity_pop, lambda a, k: "affinity_pop")
     w = weights_array(device="cuda")
     workloads = [("headline", lambda: headline.build_state(10_000, 100_000, device="cuda"))] + [
         (name, functools.partial(bench_configs.build_state, name, device="cuda"))
@@ -99,42 +149,30 @@ def main() -> int:
     for name, build in workloads:
         ns, carry, batch = build()
         fast.schedule_batch_fast(ns, carry, batch, w, device="cuda")
-        timings: dict = {}
-        t0 = time.perf_counter()
-        fast.schedule_batch_fast(ns, carry, batch, w, device="cuda", timings=timings)
-        wall = time.perf_counter() - t0
-        bodies, prof_wall, prof_kernel_s = profile_pass(ns, carry, batch, w)
-        route_of = {"grouped": "grouped", "scan": "scan", "micro": "micro",
-                    "affinity_pop": "domain_affinity"}
-        print(f"[{name}] pass {wall:.3f} s (synced at phase ends); profiled pass {prof_wall:.3f} s "
-              f"with {prof_kernel_s:.3f} s of kernels: device busy {prof_kernel_s / prof_wall:.1%}",
+        split, wall, _ = spans_pass(ns, carry, batch, w)
+        prof, prof_wall, prof_kernel_s = profile_pass(ns, carry, batch, w)
+        print(f"[{name}] pass {wall:.3f} s; profiled pass {prof_wall:.3f} s with "
+              f"{prof_kernel_s:.3f} s of kernels: device busy {prof_kernel_s / prof_wall:.1%}",
               flush=True)
-        for body, b in sorted(bodies.items()):
-            steps = timings.get(f"steps.{route_of.get(body, '')}", 0)
-            row = dict(b, steps=steps)
+        for route in sorted(set(split) | set(prof)):
+            s, p = split.get(route, {}), prof.get(route, {})
+            row = dict(s, **p)
+            steps, sel = s.get("steps", 0), s.get("select_s", 0.0)
+            print(f"[{name}] {route}: {s.get('groups', 0)} groups, {steps} steps, select "
+                  f"{sel:.3f} s" + (f" ({sel / steps * 1e6:.1f} us/step)" if steps else "")
+                  + f"; profiled: {p.get('group_kernels', 0)} kernels "
+                  f"{p.get('group_device_s', 0.0) * 1e3:.3f} ms in its groups, "
+                  f"{p.get('select_kernels', 0)} kernels "
+                  f"{p.get('select_device_s', 0.0) * 1e3:.3f} ms in its selects", flush=True)
             if steps:
-                sel = timings[f"select.{route_of[body]}"]
-                row.update(
-                    kernels_per_step=b["kernels"] / steps,
-                    device_us_per_step=b["device_s"] / steps * 1e6,
-                    host_us_per_step_profiled=b["host_s"] / steps * 1e6,
-                    wall_us_per_step=sel / steps * 1e6,
-                    device_busy=b["device_s"] / sel,
-                )
-                print(f"[{name}] {body}: {b['calls']} calls, {steps} steps, "
-                      f"{row['kernels_per_step']:.1f} kernels/step, "
-                      f"device {row['device_us_per_step']:.1f} us/step, host (profiled) "
-                      f"{row['host_us_per_step_profiled']:.1f} us/step, wall "
-                      f"{row['wall_us_per_step']:.1f} us/step, device busy {row['device_busy']:.1%}",
-                      flush=True)
-            else:
-                print(f"[{name}] {body}: {b['calls']} calls, {b['kernels']} kernels, "
-                      f"device {b['device_s'] * 1e3:.3f} ms, host (profiled) "
-                      f"{b['host_s'] * 1e3:.3f} ms", flush=True)
-            out.setdefault(name, {})[body] = row
+                row.update(kernels_per_step=p.get("select_kernels", 0) / steps,
+                           device_us_per_step=p.get("select_device_s", 0.0) / steps * 1e6,
+                           wall_us_per_step=sel / steps * 1e6)
+            if p.get("select_s"):
+                row["device_busy"] = p["select_device_s"] / p["select_s"]
+            out.setdefault(name, {})[route] = row
         out.setdefault(name, {})["_pass"] = {
             "wall_s": wall, "profiled_wall_s": prof_wall, "kernel_s": prof_kernel_s,
-            "timings": timings,
         }
         del ns, carry, batch
     if opts.out:

@@ -18,9 +18,15 @@ the reference's LogIfLong. With OSIM_TRACE_FILE set, every finished root
 tree is also exported as Chrome trace events (Perfetto, chrome://tracing);
 see `_maybe_export_trace`.
 
-Spans are host wall time. A span around work queued on the card measures
-the enqueue unless the work ends in a transfer to the host, as every
-simulator phase does (placements come back as numpy arrays).
+Spans are host wall time on one clock: a span records its start and end
+with `time.perf_counter_ns()`, and a root reads the epoch offset once when
+it opens, which every span of its tree shares. So `start` (epoch seconds)
+and `duration_s` place a child inside its parent exactly, and on the epoch
+clock that torch.profiler's device events and `time.time_ns()` use. A span
+around work queued on the card measures the enqueue unless the work ends
+in a transfer to the host, as every simulator phase does (placements come
+back as numpy arrays). `child_span` opens a phase only inside a trace, so
+code that also runs outside one opens no stray root.
 """
 
 from __future__ import annotations
@@ -86,14 +92,16 @@ class TraceContext:
 
 
 class Span:
-    __slots__ = ("name", "start", "end", "children", "meta", "wall_start",
+    __slots__ = ("name", "start_ns", "end_ns", "epoch_ns", "children", "meta",
                  "trace_id", "span_id", "parent_id", "links")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, epoch_ns: Optional[int] = None) -> None:
+        """`epoch_ns`: the tree's offset from perf_counter_ns to the epoch,
+        which a child takes from its parent; a root reads it here."""
         self.name = name
-        self.start = time.perf_counter()
-        self.wall_start = time.time()
-        self.end: Optional[float] = None
+        self.start_ns = time.perf_counter_ns()
+        self.epoch_ns = time.time_ns() - self.start_ns if epoch_ns is None else epoch_ns
+        self.end_ns: Optional[int] = None
         self.children: List["Span"] = []
         self.meta: dict = {}
         self.trace_id = ""
@@ -101,9 +109,21 @@ class Span:
         self.parent_id: Optional[str] = None
         self.links: List[dict] = []
 
+    def _end_ns(self) -> int:
+        return self.end_ns if self.end_ns is not None else time.perf_counter_ns()
+
     @property
     def duration(self) -> float:
-        return (self.end or time.perf_counter()) - self.start
+        return (self._end_ns() - self.start_ns) / 1e9
+
+    def epoch(self, per_s: int = 1_000_000_000) -> tuple:
+        """(start, duration) on the epoch clock, in 1/per_s of a second.
+        Each end is the correctly rounded quotient of an integer, and the
+        duration their difference, which is exact (both ends lie within a
+        factor of two): so start + duration is the end's rounding, and a
+        child's interval lies inside its parent's exactly."""
+        start = (self.start_ns + self.epoch_ns) / per_s
+        return start, (self._end_ns() + self.epoch_ns) / per_s - start
 
     def context(self) -> TraceContext:
         return TraceContext(self.trace_id, self.span_id)
@@ -114,9 +134,9 @@ class Span:
         self.links.append({"trace_id": ctx.trace_id, "span_id": ctx.span_id})
 
     def to_dict(self) -> dict:
-        d = {"name": self.name, "start": round(self.wall_start, 6),
-             "duration_s": self.duration, "trace_id": self.trace_id,
-             "span_id": self.span_id}
+        start, duration = self.epoch()
+        d = {"name": self.name, "start": start, "duration_s": duration,
+             "trace_id": self.trace_id, "span_id": self.span_id}
         if self.parent_id:
             d["parent_id"] = self.parent_id
         if self.links:
@@ -151,9 +171,9 @@ _history_lock = threading.Lock()
 def span(name: str, **meta):
     """Time a phase. Nested spans build a tree; a finished root is kept for
     recent_timings() and logged (at WARNING when slow)."""
-    s = Span(name)
-    s.meta.update(meta)
     parent = _tracer.stack[-1] if _tracer.stack else None
+    s = Span(name, None if parent is None else parent.epoch_ns)
+    s.meta.update(meta)
     if parent is not None:
         parent.children.append(s)
         s.trace_id = parent.trace_id
@@ -167,9 +187,9 @@ def span(name: str, **meta):
     try:
         yield s
     finally:
-        s.end = time.perf_counter()
+        s.end_ns = time.perf_counter_ns()
         _tracer.stack.pop()
-        metrics.observe_span(s.name, s.end - s.start)
+        metrics.observe_span(s.name, s.duration)
         if parent is None:
             root = s.to_dict()
             with _history_lock:
@@ -181,6 +201,18 @@ def span(name: str, **meta):
                 log.warning("slow trace (> %.1fs):\n%s", SLOW_TRACE_S, s.render())
             else:
                 log.debug("trace:\n%s", s.render())
+
+
+@contextmanager
+def child_span(name: str, **meta):
+    """A span under the innermost open span of this thread; outside any
+    span, nothing (yields None). For the phases of code that also runs
+    outside a trace, where a span of its own would be a stray root."""
+    if not _tracer.stack:
+        yield None
+        return
+    with span(name, **meta) as s:
+        yield s
 
 
 def current_span() -> Optional[Span]:
@@ -280,9 +312,9 @@ def _span_events(s: Span, pid: int, tid: int, out: List[dict]) -> None:
         args["parent_id"] = s.parent_id
     if s.links:
         args["links"] = [dict(ln) for ln in s.links]
+    ts, dur = s.epoch(1_000_000)
     out.append({
-        "name": s.name, "cat": "osim", "ph": "X",
-        "ts": s.wall_start * 1e6, "dur": max(s.duration, 0.0) * 1e6,
+        "name": s.name, "cat": "osim", "ph": "X", "ts": ts, "dur": dur,
         "pid": pid, "tid": tid, "args": args,
     })
     for c in s.children:

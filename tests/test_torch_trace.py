@@ -8,7 +8,13 @@ outside a trace, activation on another thread, the pack span's parent and
 links, the loop thread, an untraced submit, the server continuing an
 incoming trace and echoing its id) and its extender cases, which now see a
 `traceparent` header on both transports. Tolerance: headers, parent ids and
-link sets equal exactly; each case runs through both packages.
+link sets equal exactly; each case runs through both packages. Last, the
+port's own phase spans of one simulate() and one Simulator(...).run() on
+one clock (construct, expand / pod-names / pod-clones / validate / order,
+bind-placed / reasons, setup, signature and a group per route with its
+phases),
+each child inside its parent exactly, with the names, the name generator
+and the bind order held equal to the JAX package's.
 """
 
 import json
@@ -443,6 +449,230 @@ def test_trace_event_cap_bad_value_falls_back(monkeypatch, tmp_path):
     finally:
         ttracing.reset_trace_events()
     assert [e["name"] for e in payload["traceEvents"]] == ["cap-fallback"]
+
+
+# ---------------------------------------------------------------------------
+# The port's phase spans: one clock, construct, expansion, bind, routes
+# ---------------------------------------------------------------------------
+
+def _zone_nodes(p, n):
+    return [p.Node.from_dict({
+        "metadata": {"name": f"n{i}", "labels": {"kubernetes.io/hostname": f"n{i}",
+                                                 "topology.kubernetes.io/zone": f"z{i % 3}"}},
+        "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": "110"}},
+    }) for i in range(n)]
+
+
+def _workload(kind, name, n, cpu="100m", spread=False):
+    spec = {"containers": [{"name": "c", "image": "i", "resources": {"requests": {"cpu": cpu}}}]}
+    if spread:
+        spec["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "DoNotSchedule", "labelSelector": {"matchLabels": {"app": name}}}]
+    template = {"metadata": {"labels": {"app": name}}, "spec": spec}
+    count = "completions" if kind == "Job" else "replicas"
+    return {"kind": kind, "metadata": {"name": name, "namespace": "x"},
+            "spec": {count: n, "template": template}}
+
+
+def _phase_apps(p):
+    """Two apps: a Deployment of 70 (the sort route), a spread Deployment
+    of 66 (the domain route), a pod no node fits (the grouped route,
+    unschedulable); then a StatefulSet and a Job."""
+    return [
+        p.sim.AppResource(name="a", objects=[
+            _workload("Deployment", "web", 70), _workload("Deployment", "zonal", 66, spread=True),
+            _workload("Deployment", "huge", 1, cpu="64")]),
+        p.sim.AppResource(name="b", objects=[
+            _workload("StatefulSet", "db", 3), _workload("Job", "batch", 4, cpu="200m")]),
+    ]
+
+
+def _walk(node, parent=None):
+    yield parent, node
+    for c in node.get("children", ()):
+        yield from _walk(c, node)
+
+
+def _children(node, name=None):
+    return [c for c in node.get("children", ()) if name is None or c["name"] == name]
+
+
+def _traced_call(entry, mesh=None):
+    """(the roots this call recorded, the PATH_COUNTS delta, the result) of
+    one port call on the phase apps."""
+    from open_simulator_tpu_torch.ops import fast as tfast
+
+    ttracing._history.clear()
+    before = dict(tfast.PATH_COUNTS)
+    cluster = T.sim.ClusterResource(nodes=_zone_nodes(T, 6))
+    kw = dict(T.kw, mesh=mesh) if mesh is not None else T.kw
+    if entry == "simulate":
+        res = T.sim.simulate(cluster, _phase_apps(T), **kw)
+    else:
+        res = T.sim.Simulator(cluster, **kw).run(_phase_apps(T))
+    delta = {k: v - before[k] for k, v in tfast.PATH_COUNTS.items() if v != before[k]}
+    return ttracing.recent_timings(), delta, res
+
+
+@pytest.fixture(scope="module", params=["simulate", "run"])
+def traced(request):
+    """One port call by each entry: simulate(), and Simulator(...).run()."""
+    roots, delta, res = _traced_call(request.param)
+    return request.param, roots, delta, res
+
+
+def test_one_simulate_root_and_construct_first(traced):
+    entry, roots, _, _ = traced
+    assert [r["name"] for r in roots] == ["simulate"]
+    names = [c["name"] for c in _children(roots[0])]
+    want = ["expand-workloads", "encode-cluster"] + ["encode", "schedule", "bind"] * 2 + [
+        "decode-result"]
+    assert names == (["construct"] + want if entry == "simulate" else want)
+    assert roots[0]["meta"] == {"nodes": 6, "apps": 2}
+
+
+def test_expand_validate_order_per_app(traced):
+    _, roots, _, _ = traced
+    (ew,) = _children(roots[0], "expand-workloads")
+    assert [c["name"] for c in _children(ew)] == ["expand", "validate", "order"] * 2
+    a_expand, b_expand = _children(ew, "expand")
+    assert [c["meta"]["pods"] for c in _children(ew)] == [137, 137, 137, 7, 7, 7]
+    # a replica kind gives its names, then its clones; the prototype is the
+    # first pod, so n - 1 of each
+    assert [(c["name"], c["meta"]) for c in _children(a_expand)] == [
+        ("pod-names", {"pods": 69, "kind": "Deployment"}),
+        ("pod-clones", {"pods": 69, "kind": "Deployment"}),
+        ("pod-names", {"pods": 65, "kind": "Deployment"}),
+        ("pod-clones", {"pods": 65, "kind": "Deployment"}),
+        ("pod-names", {"pods": 0, "kind": "Deployment"}),
+        ("pod-clones", {"pods": 0, "kind": "Deployment"}),
+    ]
+    assert [c["meta"]["kind"] for c in _children(b_expand)] == ["StatefulSet"] * 2 + ["Job"] * 2
+
+
+def test_bind_splits_placed_and_reasons(traced):
+    _, roots, _, res = traced
+    binds = _children(roots[0], "bind")
+    assert [[c["name"] for c in _children(b)] for b in binds] == [["bind-placed", "reasons"]] * 2
+    a_placed, a_reasons = _children(binds[0])
+    assert (a_placed["meta"], a_reasons["meta"]) == ({"pods": 136}, {"pods": 1})
+    assert [u.pod.meta.name.split("-")[0] for u in res.unscheduled] == ["huge"]
+
+
+def test_group_spans_match_path_counts(traced):
+    _, roots, delta, _ = traced
+    groups, fallbacks = {}, {}
+    for sched in _children(roots[0], "schedule"):
+        kids = _children(sched)
+        assert [c["name"] for c in kids[:2]] == ["setup", "signature"]
+        assert {c["name"] for c in kids[2:]} == {"group"}
+        for g in kids[2:]:
+            route = g["meta"]["route"]
+            folded = "domain" if route == "domain_affinity" else route
+            groups[folded] = groups.get(folded, 0) + 1
+            for f in g["meta"].get("fallback", ()):
+                key = ("domain" if f == "domain_affinity" else f) + "_fallback"
+                fallbacks[key] = fallbacks.get(key, 0) + 1
+            names = [c["name"] for c in _children(g)]
+            if route == "grouped":
+                assert names == ["select.grouped"] and g["meta"]["steps"] == g["meta"]["pods"]
+            else:
+                assert names[0] == "trajectory" and names[-2:] == [f"select.{route}", "tail"]
+                j = g["meta"]["j_steps"]
+                assert j >= 8 and j & (j - 1) == 0
+    counted = {k: v for k, v in delta.items()
+               if k in ("sort", "domain", "scan", "micro", "grouped")}
+    assert groups == counted
+    assert fallbacks == {k: v for k, v in delta.items() if k.endswith("_fallback")}
+    assert {"sort", "domain", "grouped"} <= set(groups)
+
+
+def test_children_lie_inside_parents_exactly(traced):
+    """One clock: each child's [start, start + duration_s] inside its
+    parent's, and siblings one after another, in exact float arithmetic."""
+    _, roots, _, _ = traced
+    edges = 0
+    for parent, node in _walk(roots[0]):
+        kids = _children(node)
+        for a, b in zip(kids, kids[1:]):
+            assert a["start"] + a["duration_s"] <= b["start"]
+        if parent is None:
+            continue
+        edges += 1
+        assert node["start"] >= parent["start"], (parent["name"], node["name"])
+        assert (node["start"] + node["duration_s"]
+                <= parent["start"] + parent["duration_s"]), (parent["name"], node["name"])
+    assert edges > 40
+
+
+def test_trace_file_children_inside_parents_exactly(monkeypatch, tmp_path):
+    """The OSIM_TRACE_FILE export of one simulate(): every event inside its
+    parent's event, in epoch microseconds, exactly."""
+    path = tmp_path / "trace.json"
+    monkeypatch.setenv("OSIM_TRACE_FILE", str(path))
+    ttracing.reset_trace_events()
+    try:
+        _traced_call("simulate")
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        ttracing.reset_trace_events()
+    by_span = {e["args"]["span_id"]: e for e in events}
+    inner = [e for e in events if "parent_id" in e["args"]]
+    assert len(inner) == len(events) - 1 > 40
+    for e in inner:
+        p = by_span[e["args"]["parent_id"]]
+        assert p["ts"] <= e["ts"] and e["ts"] + e["dur"] <= p["ts"] + p["dur"], e["name"]
+
+
+def test_route_split_reads_groups_and_selects(traced):
+    from open_simulator_tpu_torch.tools.route_profile import route_split
+
+    _, roots, delta, _ = traced
+    split = route_split(roots[0])
+    assert {r: v["groups"] for r, v in split.items() if v["groups"]} == {
+        k: v for k, v in delta.items() if k in ("sort", "domain", "grouped")}
+    # the grouped scan runs a step per pod: huge 1, db 3, batch 4
+    assert split["grouped"]["steps"] == 8 and split["sort"]["steps"] == 0
+    assert all(v["select_s"] > 0 for v in split.values())
+
+
+def test_names_rng_state_and_bind_order_match_jax():
+    """Names drawn before the clones, and the bind split into two passes,
+    leave the pod names, the name generator's state after the call and the
+    bind order as the JAX package's engine gives them."""
+
+    def scenario(p):
+        p.wl.reset_name_rng()
+        sim = p.sim.Simulator(p.sim.ClusterResource(nodes=_zone_nodes(p, 6)), **p.kw)
+        res = sim.run(_phase_apps(p))
+        return ([(pod.meta.name, node) for pod, node in sim._bound],
+                [(u.pod.meta.name, u.reason) for u in res.unscheduled], p.wl._rng.getstate())
+
+    from open_simulator_tpu.core import workloads as jwl
+    from open_simulator_tpu_torch.core import workloads as twl
+
+    J.wl, T.wl = jwl, twl
+    bound, unscheduled, _ = both(scenario)
+    assert len(bound) == 143 and len(unscheduled) == 1
+
+
+@pytest.mark.parametrize("where", ["pods_from_workload", "mesh"])
+def test_phase_spans_open_no_stray_roots(where):
+    """Outside a trace the expansion opens no span; under a mesh the slot
+    threads open none, and `schedule` times the whole."""
+    from open_simulator_tpu_torch.core.workloads import pods_from_workload
+    from open_simulator_tpu_torch.parallel import mesh as tmesh
+
+    if where == "pods_from_workload":
+        ttracing._history.clear()
+        assert len(pods_from_workload(_workload("Deployment", "d", 5))) == 5
+        assert ttracing.recent_timings() == []
+        return
+    roots, _, _ = _traced_call("simulate", mesh=tmesh.product_mesh(2, device="cpu"))
+    assert [r["name"] for r in roots] == ["simulate"]
+    scheds = _children(roots[0], "schedule")
+    assert len(scheds) == 2 and all(not _children(s) for s in scheds)
 
 
 @pytest.fixture(autouse=True, scope="module")
