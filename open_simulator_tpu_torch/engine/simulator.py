@@ -93,7 +93,7 @@ from ..parallel import mesh as pmesh
 from ..parallel import slots as nx
 from ..plugins import split_registry
 from ..utils import metrics
-from ..utils.tracing import log, progress, span
+from ..utils.tracing import gc_passes, log, progress, span
 from .preemption import PodDisruptionBudget, try_preempt
 
 # The preemption probe's device calls and the lanes they carried, since
@@ -1176,8 +1176,13 @@ class Simulator:
                         pods.extend(wl_pods)
                     sp.meta["pods"] = len(pods)
                 # cached pods were validated when first expanded
-                with span("validate", pods=len(fresh_validate)):
+                # gc_passes: the collector's passes inside check_pods, where
+                # those deferred by the clone loop's pause
+                # (core/workloads._collector_paused) may land
+                with span("validate", pods=len(fresh_validate)) as sp:
+                    passes = gc_passes()
                     check_pods(fresh_validate, where=f"app {app.name}")
+                    sp.meta["gc_passes"] = gc_passes() - passes
                 if self._expand_cache is not None and cached is None:
                     self._expand_cache[cache_key] = fresh_entry
                 with span("order", pods=len(pods)):

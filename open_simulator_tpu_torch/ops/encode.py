@@ -133,7 +133,7 @@ def _pod_row_sig(pod: Pod) -> Tuple:
     """Encoding signature: pods with equal signatures produce identical
     PodBatch rows (the name itself is never encoded). Mutable per-clone dicts
     (labels, annotations-derived features, requests) are keyed by content;
-    spec-derived immutable structures that _clone_pod shares between replicas
+    spec-derived immutable structures that _clone_pods shares between replicas
     (affinity, tolerations, spread constraints, host ports, nodeSelector) are
     keyed by identity — distinct parses never share ids, so identity keying is
     conservative (never merges pods that differ)."""
@@ -293,7 +293,7 @@ class Encoder:
         a pod batch, so caps and ids are stable before arrays are built.
 
         Deduped by row signature: workload replicas are prototype clones
-        (core/workloads._clone_pod) whose registrations are identical, so one
+        (core/workloads._clone_pods) whose registrations are identical, so one
         representative per signature registers for the whole group."""
         seen: Set[Tuple] = set()
         for pod in pods:

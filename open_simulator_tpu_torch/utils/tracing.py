@@ -31,6 +31,7 @@ code that also runs outside one opens no stray root.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -213,6 +214,13 @@ def child_span(name: str, **meta):
         return
     with span(name, **meta) as s:
         yield s
+
+
+def gc_passes() -> int:
+    """The cyclic collector's passes so far, summed over its generations:
+    read before and after a span, the difference is the passes inside it
+    (the `gc_passes` meta of `pod-clones` and `validate`)."""
+    return sum(g["collections"] for g in gc.get_stats())
 
 
 def current_span() -> Optional[Span]:

@@ -539,15 +539,20 @@ def test_expand_validate_order_per_app(traced):
     a_expand, b_expand = _children(ew, "expand")
     assert [c["meta"]["pods"] for c in _children(ew)] == [137, 137, 137, 7, 7, 7]
     # a replica kind gives its names, then its clones; the prototype is the
-    # first pod, so n - 1 of each
+    # first pod, so n - 1 of each. The collector is held off while the
+    # clones are built, so none of its passes lands in pod-clones
     assert [(c["name"], c["meta"]) for c in _children(a_expand)] == [
         ("pod-names", {"pods": 69, "kind": "Deployment"}),
-        ("pod-clones", {"pods": 69, "kind": "Deployment"}),
+        ("pod-clones", {"pods": 69, "kind": "Deployment", "gc_passes": 0}),
         ("pod-names", {"pods": 65, "kind": "Deployment"}),
-        ("pod-clones", {"pods": 65, "kind": "Deployment"}),
+        ("pod-clones", {"pods": 65, "kind": "Deployment", "gc_passes": 0}),
         ("pod-names", {"pods": 0, "kind": "Deployment"}),
-        ("pod-clones", {"pods": 0, "kind": "Deployment"}),
+        ("pod-clones", {"pods": 0, "kind": "Deployment", "gc_passes": 0}),
     ]
+    assert [c["meta"]["gc_passes"] for c in _children(b_expand, "pod-clones")] == [0, 0]
+    # the passes that the pause defers land in validate, which counts them
+    for v in _children(ew, "validate"):
+        assert type(v["meta"]["gc_passes"]) is int and v["meta"]["gc_passes"] >= 0
     assert [c["meta"]["kind"] for c in _children(b_expand)] == ["StatefulSet"] * 2 + ["Job"] * 2
 
 
