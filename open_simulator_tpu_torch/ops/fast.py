@@ -232,6 +232,13 @@ def group_flags(row_np: dict, anti_topo_np: np.ndarray) -> GroupFlags:
     )
 
 
+def _dynamics(flags: GroupFlags) -> list:
+    """The carry state a group's scan steps evolve beyond its resources,
+    sorted: the `dyn` meta of its `select.scan` / `select.micro` span."""
+    return sorted(k for k, on in (("gpu", flags.dyn_gpu), ("storage", flags.dyn_storage),
+                                  ("ports", flags.dyn_ports)) if on)
+
+
 def _any_affinity(flags: GroupFlags) -> bool:
     return flags.any_req_aff or flags.any_pref_aff or flags.any_anti_sym
 
@@ -1185,8 +1192,10 @@ def schedule_batch_fast(
     route ran, `fallback` listing a sort or domain verdict that replayed)
     holding `trajectory`, `select.<route>` (sort, domain, domain_affinity,
     scan, micro, grouped) and `tail` (the tail and its one fetch); a
-    replayed verdict adds a second select and tail. Each group ends in that
-    fetch, so its device work lies inside its span; nothing synchronises.
+    replayed verdict adds a second select and tail; a light scan's select
+    has meta `dyn` (the GPU, storage and port state it evolves, as
+    _dynamics names them). Each group ends in that fetch, so its device
+    work lies inside its span; nothing synchronises.
 
     `ns` / `carry` laid out over a mesh (parallel.mesh.shard_state) run
     once per slot on its node block, the node-axis reductions combined
@@ -1379,7 +1388,7 @@ def _fast_group(
 
     route = "micro" if flags.micro_spread else "scan"
     _count_path(route)
-    with phase(f"select.{route}"):
+    with phase(f"select.{route}", dyn=_dynamics(flags)):
         x = torch.zeros(N, dtype=torch.int32, device=dev)
         chunks, done, steps = [], 0, 0
         while done < length:

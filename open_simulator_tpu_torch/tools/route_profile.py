@@ -35,9 +35,11 @@ from ..utils import tracing
 
 def route_split(root: dict) -> dict:
     """Per route, from one schedule_batch_fast call's span tree: {groups,
-    steps, select_s}. Steps and groups come from the `group` spans' meta
-    (route that committed), select seconds from the `select.<route>` spans,
-    a replayed verdict's select included under its own route."""
+    steps, select_s}, and for the light scans `dyn` ({"gpu": 12}: selects
+    per combination of GPU, storage and port dynamics, "none" for none).
+    Steps and groups come from the `group` spans' meta (route that
+    committed), select seconds from the `select.<route>` spans, a replayed
+    verdict's select included under its own route."""
     out: dict = {}
 
     def row(route):
@@ -50,7 +52,13 @@ def route_split(root: dict) -> dict:
                 r["groups"] += 1
                 r["steps"] += c["meta"]["steps"]
             elif c["name"].startswith("select."):
-                row(c["name"][len("select."):])["select_s"] += c["duration_s"]
+                r = row(c["name"][len("select."):])
+                r["select_s"] += c["duration_s"]
+                if "dyn" in c.get("meta", {}):
+                    # a light scan's carry dynamics: selects per combination
+                    key = "+".join(c["meta"]["dyn"]) or "none"
+                    dyn = r.setdefault("dyn", {})
+                    dyn[key] = dyn.get(key, 0) + 1
             walk(c)
 
     walk(root)
@@ -163,7 +171,8 @@ def main() -> int:
                   + f"; profiled: {p.get('group_kernels', 0)} kernels "
                   f"{p.get('group_device_s', 0.0) * 1e3:.3f} ms in its groups, "
                   f"{p.get('select_kernels', 0)} kernels "
-                  f"{p.get('select_device_s', 0.0) * 1e3:.3f} ms in its selects", flush=True)
+                  f"{p.get('select_device_s', 0.0) * 1e3:.3f} ms in its selects"
+                  + (f"; dyn {s['dyn']}" if "dyn" in s else ""), flush=True)
             if steps:
                 row.update(kernels_per_step=p.get("select_kernels", 0) / steps,
                            device_us_per_step=p.get("select_device_s", 0.0) / steps * 1e6,

@@ -14,7 +14,8 @@ one clock (construct, expand / pod-names / pod-clones / validate / order,
 bind-placed / reasons, setup, signature and a group per route with its
 phases),
 each child inside its parent exactly, with the names, the name generator
-and the bind order held equal to the JAX package's.
+and the bind order held equal to the JAX package's; and on a GPU-share
+app the light scan's dynamics on its `select.scan` span.
 """
 
 import json
@@ -678,6 +679,102 @@ def test_phase_spans_open_no_stray_roots(where):
     assert [r["name"] for r in roots] == ["simulate"]
     scheds = _children(roots[0], "schedule")
     assert len(scheds) == 2 and all(not _children(s) for s in scheds)
+
+
+GPU = {"alibabacloud.com/gpu-count": "2", "alibabacloud.com/gpu-mem": "32Gi"}
+SHARE = {"alibabacloud.com/gpu-mem": "4Gi", "alibabacloud.com/gpu-count": "1"}
+
+
+def _gpu_nodes(n):
+    """Nodes of two 16 GiB GPUs: four 4 GiB shares a GPU, 8 a node."""
+    alloc = {"cpu": "16", "memory": "64Gi", "pods": "110", **GPU}
+    return [{"metadata": {"name": f"g{i}", "labels": {"kubernetes.io/hostname": f"g{i}"}},
+             "status": {"allocatable": dict(alloc), "capacity": dict(alloc)}} for i in range(n)]
+
+
+def _share_workload(name, n):
+    d = _workload("Deployment", name, n, cpu="1")
+    d["spec"]["template"]["metadata"]["annotations"] = dict(SHARE)
+    return d
+
+
+@pytest.fixture(scope="module")
+def gpu_share_call():
+    """One simulate() of a GPU-share Deployment of 80 pods (the light scan)
+    and a plain one of 5 (the grouped scan) on 6 nodes of 8 shares: 48 of
+    the 80 place."""
+    ttracing._history.clear()
+    cluster = T.sim.ClusterResource(nodes=[T.Node.from_dict(d) for d in _gpu_nodes(6)])
+    app = T.sim.AppResource(name="s", objects=[
+        _share_workload("share", 80), _workload("Deployment", "plain", 5)])
+    res = T.sim.simulate(cluster, [app], **T.kw)
+    (root,) = ttracing.recent_timings()
+    return root, res
+
+
+def test_scan_select_names_its_gpu_dynamics(gpu_share_call):
+    root, _ = gpu_share_call
+    (sched,) = _children(root, "schedule")
+    scans = [(g, c) for g in _children(sched, "group") for c in _children(g, "select.scan")]
+    (group, select), = scans
+    assert group["meta"]["route"] == "scan" and group["meta"]["pods"] == 80
+    assert group["meta"]["steps"] == 80 and select["meta"] == {"dyn": ["gpu"]}
+    # the grouped select carries no scan counters
+    assert all("meta" not in c for g in _children(sched, "group")
+               for c in _children(g, "select.grouped"))
+
+
+def test_bind_placed_holds_the_pods_given_a_gpu_index(gpu_share_call):
+    root, res = gpu_share_call
+    (bind,) = _children(root, "bind")
+    placed, reasons = _children(bind)
+    on_gpu = [p for st in res.node_status for p in st.pods
+              if "alibabacloud.com/gpu-index" in p.meta.annotations]
+    assert len(on_gpu) == 48 and all(p.meta.name.startswith("share") for p in on_gpu)
+    assert placed["meta"] == {"pods": 53}
+    assert reasons["meta"] == {"pods": 32}
+
+
+def test_route_split_shows_each_scan_groups_dynamics(gpu_share_call):
+    from open_simulator_tpu_torch.tools.route_profile import route_split
+
+    root, _ = gpu_share_call
+    split = route_split(root)
+    assert split["scan"]["groups"] == 1 and split["scan"]["dyn"] == {"gpu": 1}
+    assert "dyn" not in split["grouped"]
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_chunked_scan_is_one_select(chunk):
+    """A group longer than max_group_chunk runs the light scan in chunks,
+    all under one select span; its group counts the steps of all of them."""
+    from open_simulator_tpu_torch.core import objects as tobj
+    from open_simulator_tpu_torch.ops import encode as tenc
+    from open_simulator_tpu_torch.ops import fast as tfast
+    from open_simulator_tpu_torch.ops import state as tstate
+    from open_simulator_tpu_torch.ops.kernels import weights_array
+    from open_simulator_tpu_torch.ops.tile import tile_pod_batch
+
+    pod = tobj.Pod.from_dict({**_share_workload("share", 1)["spec"]["template"],
+                              "metadata": {"name": "share", "namespace": "x",
+                                           "labels": {"app": "share"},
+                                           "annotations": dict(SHARE)}})
+    enc = tenc.Encoder()
+    enc.register_pods([pod])
+    table = tenc.encode_nodes(enc, [tobj.Node.from_dict(d) for d in _gpu_nodes(6)])
+    ns = tstate.node_static_from_table(enc, table, device="cpu")
+    carry = tstate.carry_from_table(table, tenc.initial_selector_counts(enc, table, []),
+                                    device="cpu")
+    batch = tile_pod_batch(tenc.encode_pods(enc, [pod]), [100])
+    ttracing._history.clear()
+    with ttracing.span("chunks"):
+        out = tfast.schedule_batch_fast(ns, carry, batch, weights_array(device="cpu"),
+                                        max_group_chunk=chunk, device="cpu")
+    (root,) = ttracing.recent_timings()
+    (group,) = _children(root, "group")
+    (select,) = _children(group, "select.scan")
+    assert select["meta"] == {"dyn": ["gpu"]} and group["meta"]["steps"] == 100
+    assert int((out[1][:100] >= 0).sum()) == 48
 
 
 @pytest.fixture(autouse=True, scope="module")
