@@ -21,7 +21,9 @@
    with _row_signature's seconds both ways.
 3. Drives every other route: each `bench_configs` workload (spread_affinity,
    gpushare, mixed) through the same passes, holding its digest, its route
-   counts and its domain_pop launches against the JAX package's run, and
+   counts and its domain_pop launches against the JAX package's run, its
+   light_scan launches against bench_configs.SCAN_KERNEL_GROUPS and its
+   select.scan spans' `kernel` meta, and
    printing wall, pods/s, the phase split and the microseconds per step of
    each route's select spans (grouped, scan, micro, domain_affinity). On `mixed` the
    port's sequential oracle `kernels.schedule_batch` runs on the card too
@@ -134,14 +136,20 @@
    inputs: a pop's few dozen tiny ops run ~4x faster on the host CPU than
    launched one by one on the card), and prints their times; holds the pop
    loop's split divide against __fdiv_rn on the spread's operands (67 M
-   pairs).
+   pairs). Then holds the light_scan kernel (csrc/light_scan.cu) bit-equal
+   to its plain step loop on the seeded node-local chunks of
+   tools/scan_cases.py and times it, the plain loop and its chain probe on
+   pai_gpu.share's widest group (scan_kernel_phase).
 14. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
 15. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
    preempt call, the apply runs, the capacity, prove, tooling, extender,
-   durable, resident, serve and mesh phases) and, last, the result line.
+   durable, resident, serve and mesh phases; light_scan's over the same
+   passes, where the headline's and each workload's are held against
+   bench_configs.SCAN_KERNEL_GROUPS, and never the kernel test's) and, last,
+   the result line.
 
 Any failure exits non-zero without the result line.
 """
@@ -169,6 +177,30 @@ def smi(query: str, fmt: str = "csv,noheader") -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+# light_scan launches of the main path's counted passes (item 15): banked
+# in the same windows as the domain_pop launches each phase adds up, child
+# phases' included, and never the kernel test's or its timing's
+SCAN_LAUNCHES = [0]
+
+
+def zero_launches(dp):
+    """Set both hand kernels' launch counters to 0 before a pass."""
+    from open_simulator_tpu_torch.ops import light_scan as ls
+
+    dp.launches = 0
+    ls.launches = 0
+
+
+def bank_scan() -> int:
+    """Add the light_scan launches since zero_launches() to SCAN_LAUNCHES
+    and return them (a second call banks nothing)."""
+    from open_simulator_tpu_torch.ops import light_scan as ls
+
+    n, ls.launches = ls.launches, 0
+    SCAN_LAUNCHES[0] += n
+    return n
 
 
 def pop_inputs(seed, dc, lanes, c, d, g, hard, n=12288, cap=None):
@@ -312,6 +344,51 @@ def check_pop(name, args, dp, torch, reps, plain_on="cuda"):
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
           + (" (on the host CPU)" if plain_on == "cpu" else ""), flush=True)
     return ms, plain_ms, float(err), placed
+
+
+def scan_kernel_phase(torch, reps=20):
+    """The light_scan kernel against its plain loop on the card: every
+    seeded chunk of tools/scan_cases.py bit-equal (nodes, lanes, exit x),
+    then the `pai` chunk (pai_gpu.share's widest group, 240 steps over
+    1,800 nodes) timed: the kernel by CUDA events over `reps` launches, the
+    plain loop once on the card, and the chain probe's floor at the same
+    nodes and steps. Returns (the kernel's row, failures)."""
+    from open_simulator_tpu_torch.tools import scan_cases as sc
+
+    failures = []
+    for name in sc.CASES:
+        r = sc.compare(name)
+        print(f"light_scan[{name}] {'bit-equal to' if r['equal'] else 'DIFFERS from'} plain: "
+              f"{r['nodes']} nodes, J {r['j_steps']}, placed {r['placed']}, failed "
+              f"{r['failed']}, max x {r['max_x']}", flush=True)
+        if not r["equal"]:
+            failures.append(f"light_scan[{name}]: kernel and plain loop disagree")
+    args = sc.build("pai", "cuda")
+    n, steps = int(args["ns"].valid.shape[0]), args["group_size"]
+    ms = event_ms(lambda: sc.kernel(args), torch, reps)
+    t0 = time.perf_counter()
+    sc.plain(args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    probe_ms = sc.chain_probe_ms(n, steps)
+    print(f"light_scan[pai] {steps} steps over {int(args['ns'].valid.sum())} nodes ({n} rows): "
+          f"kernel {ms:.3f} ms ({ms * 1e3 / steps:.2f} us/step), plain {plain_ms:.1f} ms, "
+          f"chain floor {probe_ms:.3f} ms ({probe_ms * 1e3 / steps:.2f} us/step)", flush=True)
+    row = {
+        "name": "light_scan",
+        "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/light_scan.cu",
+        "replaces": None,
+        "launches": SCAN_LAUNCHES[0],
+        "max_abs_err": 0 if not failures else None,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": None,
+        "bound_by": "latency",
+        "library_ms": None,
+        "latency_bound_ms": probe_ms,
+    }
+    return row, failures
 
 
 def capture_pops(dp, torch, keep):
@@ -512,7 +589,7 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
 
         for k in fast.PATH_COUNTS:
             fast.PATH_COUNTS[k] = 0
-        dp.launches = 0
+        zero_launches(dp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with tracing.span("routes-pass"):
@@ -520,8 +597,9 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         root = tracing.recent_timings()[-1]
-        paths = {k: v for k, v in fast.PATH_COUNTS.items() if v and k != "domain_kernel"}
+        paths = {k: v for k, v in fast.PATH_COUNTS.items() if v and k not in fast.KERNEL_COUNTS}
         kernel_groups, launches = fast.PATH_COUNTS["domain_kernel"], dp.launches
+        scan_groups, scan_launches = fast.PATH_COUNTS["scan_kernel"], bank_scan()
 
         digest = placement_digest(*result)
         scheduled = int((result[1][:total] >= 0).sum())
@@ -531,16 +609,17 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
         timings = tracing.span_seconds(root)
         print(f"routes[{name}] timed pass's spans (s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in timings.items()), flush=True)
-        steps = {}
-        for route, r in route_split(root).items():
+        steps, split = {}, route_split(root)
+        for route, r in split.items():
             n, sec = r["steps"], r["select_s"]
             if n:
                 steps[route] = {"steps": n, "seconds": sec, "us_per_step": sec / n * 1e6}
                 print(f"routes[{name}] {route}: {n} steps, {sec:.3f} s, "
                       f"{sec / n * 1e6:.1f} us/step (select spans incl. per-group set-up; "
                       f"not synchronised)", flush=True)
-        print(f"routes[{name}] paths {paths} domain_pop launches {launches} digest {digest}",
-              flush=True)
+        scan_spans = split.get("scan", {}).get("kernel", 0)
+        print(f"routes[{name}] paths {paths} domain_pop launches {launches} light_scan launches "
+              f"{scan_launches} digest {digest}", flush=True)
         if digest != bench_configs.DIGESTS[name]:
             failures.append(f"{name}: digest {digest} != {bench_configs.DIGESTS[name]}")
         if paths != bench_configs.PATHS[name]:
@@ -548,10 +627,14 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
         if not launches == kernel_groups == bench_configs.DOMAIN_POP_GROUPS[name]:
             failures.append(f"{name}: domain_pop launches {launches} / counted {kernel_groups}, "
                             f"expected {bench_configs.DOMAIN_POP_GROUPS[name]}")
+        if not scan_launches == scan_groups == scan_spans == bench_configs.SCAN_KERNEL_GROUPS[name]:
+            failures.append(f"{name}: light_scan launches {scan_launches} / counted {scan_groups} "
+                            f"/ select.scan kernel meta {scan_spans}, expected "
+                            f"{bench_configs.SCAN_KERNEL_GROUPS[name]}")
         res = {"pods": total, "scheduled": scheduled, "encode_s": encode_s, "warm_s": warm_s,
                "run_s": run_s, "pods_per_s": total / run_s,
                "phases": timings, "steps": steps, "paths": paths, "launches": launches,
-               "digest": digest}
+               "scan_launches": scan_launches, "digest": digest}
         if name == "mixed":
             done, oracle_s, bad = run_oracle(kernels, ns, carry, batch, w, result, torch)
             print(f"routes[mixed] oracle schedule_batch on the card: {done} of {total} pods "
@@ -581,7 +664,7 @@ def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
     cluster, apps = build()
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
-    dp.launches = 0
+    zero_launches(dp)
     calls0, lanes0 = PROBE_LANES["calls"], PROBE_LANES["lanes"]
     undo = capture_pops(dp, torch, keep) if keep is not None else None
     torch.cuda.synchronize()
@@ -649,14 +732,16 @@ def simulator_phase(torch, dp, fast):
             }
             if label in ("timed", "warm"):
                 launches += n_pop
+                bank_scan()
     for path, (report_d, placement_d, unscheduled) in sc.APPLY_DIGESTS.items():
         reset_name_rng()
-        dp.launches = 0
+        zero_launches(dp)
         out = io.StringIO()
         t0 = time.perf_counter()
         outcome = run_apply(SimonConfig.load(path), auto_plan=False, out=out, device="cuda")
         wall = time.perf_counter() - t0
         launches += dp.launches
+        bank_scan()
         got = (sc.report_digest(out.getvalue()), sc.report_digest(outcome.report),
                placement_digest(outcome.result), len(outcome.result.unscheduled))
         print(f"apply[{path}] {wall:.3f} s, {out.getvalue().splitlines()[-1]}, report "
@@ -787,7 +872,7 @@ def plan_once(torch, dp, fast, spec, mode, label):
     template = Node.from_dict(sc.template_spec())
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
-    dp.launches = 0
+    zero_launches(dp)
     before, roots0 = _wave_counters(metrics), tracing.recent_timings()
     clock = RoundClock(fast, wave, torch)
     torch.cuda.synchronize()
@@ -986,6 +1071,7 @@ def capacity_phase(torch, dp, fast):
     ):
         key, wall, n_pop, stats = plan_once(torch, dp, fast, spec, mode, label)
         launches += n_pop
+        bank_scan()
         results[want] = stats
         if key != sc.CAPACITY_DIGESTS[want]:
             failures.append(f"{want}: {key} != {sc.CAPACITY_DIGESTS[want]}")
@@ -1022,12 +1108,13 @@ def capacity_phase(torch, dp, fast):
         failures.append(f"multi_scenario: lanes {bad} differ")
 
     reset_name_rng()
-    dp.launches = 0
+    zero_launches(dp)
     out = io.StringIO()
     t0 = time.perf_counter()
     outcome = run_apply(SimonConfig.load("example/simon-config.yaml"), out=out, device="cuda")
     wall = time.perf_counter() - t0
     launches += dp.launches
+    bank_scan()
     text = out.getvalue()
     got = (sc.report_digest(text), placement_digest(outcome.result),
            outcome.plan.nodes_added if outcome.plan else -1,
@@ -1053,7 +1140,7 @@ def prove_phase(torch, dp):
     from open_simulator_tpu_torch.utils import metrics
 
     results, failures = {}, []
-    dp.launches = 0
+    zero_launches(dp)
     for engine in ("serial", "wave"):
         rounds0 = metrics.COMMIT_ROUNDS.child_state()
         falls0 = metrics.WAVE_FALLBACKS.value(reason="universes_max_rounds")
@@ -1111,6 +1198,7 @@ def prove_phase(torch, dp):
                                      "wall_s": wall}
         if not caught:
             failures.append(f"prove mutation {mode} was not caught")
+    bank_scan()
     return results, failures, dp.launches
 
 
@@ -1138,7 +1226,7 @@ def extender_phase(torch, dp):
     from open_simulator_tpu_torch.utils import httppool, metrics
 
     results, failures = {}, []
-    dp.launches = 0
+    zero_launches(dp)
     stub = stubs.StubExtender(sc.EXTENDER_BEHAVIOR)
     cstub = stubs.StubExtender(sc.EXTENDER_CAPACITY_BEHAVIOR)
     api = stubs.StubApiServer(stubs.KUBE_APIS)
@@ -1208,6 +1296,7 @@ def extender_phase(torch, dp):
         for srv in (stub, cstub, api):
             srv.close()
         httppool.reset_pools()
+    bank_scan()
     return results, failures, dp.launches
 
 
@@ -1475,7 +1564,7 @@ def durable_phase(torch, dp, fast):
             plan_path = os.path.join(tmp, f"{name}-plan.yaml")
             with open(plan_path, "w") as fh:
                 fh.write(kill_plan)
-            dp.launches = 0
+            zero_launches(dp)
             with _Env(**knobs):
                 t0 = time.perf_counter()
                 rc_clean, _ = _cli_quiet(argv + ["--run-dir", clean, "--device", "cuda"])
@@ -1493,6 +1582,7 @@ def durable_phase(torch, dp, fast):
                 rc_resume, _ = _cli_quiet(["runs", "resume", killed, "--device", "cuda"])
                 resume_s = time.perf_counter() - t0
             launches += dp.launches
+            bank_scan()
             digests = []
             for d in (clean, killed):
                 try:
@@ -1665,13 +1755,14 @@ def resident_phase(torch, dp, fast):
         reset_name_rng()
         cluster = ClusterResource(nodes=list(n), pods=list(p))
         app_objs = [AppResource(name=a, objects=copy.deepcopy(o)) for a, o in apps]
-        dp.launches = 0
+        zero_launches(dp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = simulate(cluster, app_objs, device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches += dp.launches
+        bank_scan()
         got = sc.result_digest(result)
         print(f"resident[simulate {label}] {wall:.3f} s, placed/unscheduled/preempted "
               f"{sc.result_counts(result)}, digest {got}, domain_pop launches {dp.launches}",
@@ -1879,7 +1970,7 @@ def serve_phase(torch, dp, fast):
     shed0 = {r: metrics.REQUESTS_SHED.value(reason=r) for r in ("queue_full", "deadline", "draining")}
     dropped0, fallbacks0 = metrics.REQUESTS_DROPPED.value(), metrics.LOOP_FALLBACKS.value()
     stale0 = metrics.SNAPSHOT_STALE.value()
-    dp.launches = 0
+    zero_launches(dp)
     launch_mark = [0]
 
     def leg(name, t0, extra=""):
@@ -2309,6 +2400,7 @@ def serve_phase(torch, dp, fast):
         else:
             os.environ[k] = v
     shutil.rmtree(tmp, ignore_errors=True)
+    bank_scan()
     return results, failures, dp.launches, (serve_pops[0] if serve_pops else None)
 
 
@@ -2633,7 +2725,7 @@ def tooling_phase(torch, dp, device="cuda"):
     cuda = device == "cuda"
     dev_args = [] if cuda else ["--device", device]
     results, failures = {}, []
-    dp.launches = 0
+    zero_launches(dp)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-tooling-")
     cache = os.path.join(tmp, "cache")
     os.environ["OSIM_COMPILE_CACHE"] = cache
@@ -2814,6 +2906,7 @@ def tooling_phase(torch, dp, device="cuda"):
     finally:
         os.environ.pop("OSIM_COMPILE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
+    bank_scan()
     return results, failures, dp.launches
 
 
@@ -3048,7 +3141,8 @@ def start_phase_child(phase, tmp, *args):
 
 def join_phase_child(child, timeout_s):
     """Wait for a phase child, print its output here and return its
-    (results, failures, domain_pop launches)."""
+    (results, failures, domain_pop launches); its light_scan launches go
+    to SCAN_LAUNCHES."""
     proc, out, log = child
     try:
         proc.wait(timeout=timeout_s)
@@ -3062,6 +3156,7 @@ def join_phase_child(child, timeout_s):
         return {}, [f"the phase's child process exited {proc.returncode}"], 0
     with open(out) as fh:
         got = json.load(fh)
+    SCAN_LAUNCHES[0] += got["scan_launches"]
     return got["results"], got["failures"], got["launches"]
 
 
@@ -3100,8 +3195,8 @@ def main() -> int:
             results, failures, launches = mesh_phase(torch, dp, fast, ref,
                                                      MESH_LEGS[opts.phase], opts.pop)
         with open(opts.out, "w") as f:
-            json.dump({"results": results, "failures": failures, "launches": launches}, f,
-                      default=str)
+            json.dump({"results": results, "failures": failures, "launches": launches,
+                       "scan_launches": SCAN_LAUNCHES[0]}, f, default=str)
         return 0
     import shutil
     import tempfile
@@ -3131,8 +3226,9 @@ def run_all(opts, torch, tmp, children) -> int:
     )
     from open_simulator_tpu_torch.ops import domain_pop as dp
     from open_simulator_tpu_torch.ops import fast, kernels
+    from open_simulator_tpu_torch.ops import light_scan as ls
     from open_simulator_tpu_torch.ops.kernels import weights_array
-    from open_simulator_tpu_torch.tools import pop_chain
+    from open_simulator_tpu_torch.tools import pop_chain, scan_cases
     from open_simulator_tpu_torch.utils import tracing
 
     card = smi("name,power.limit")
@@ -3140,9 +3236,12 @@ def run_all(opts, torch, tmp, children) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    dp.build_libraries(dp.SOURCE, pop_chain.SOURCE)  # one nvcc per source, together
+    # one nvcc per source, together
+    dp.build_libraries(dp.SOURCE, ls.SOURCE, pop_chain.SOURCE, scan_cases.CHAIN_SOURCE)
     dp._library()
+    ls._library()
     pop_chain._library()
+    scan_cases._chain_library()
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for line in dp.build_log.splitlines():
@@ -3178,7 +3277,7 @@ def run_all(opts, torch, tmp, children) -> int:
 
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
-    dp.launches = 0
+    zero_launches(dp)
     native.calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3191,6 +3290,7 @@ def run_all(opts, torch, tmp, children) -> int:
     phases = tracing.span_seconds(tracing.recent_timings()[-1])
     paths = dict(fast.PATH_COUNTS)
     launches = dp.launches
+    scan_launches = bank_scan()
     hash_calls = native.calls
 
     carry_out, nodes = result[0], result[1]
@@ -3203,8 +3303,8 @@ def run_all(opts, torch, tmp, children) -> int:
     for name, ph in (("warm", warm_phases), ("timed", phases)):
         print(f"{name}-pass spans (s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in ph.items()), flush=True)
-    print(f"paths {paths} domain_pop launches {launches}, native hash_rows calls "
-          f"{hash_calls}", flush=True)
+    print(f"paths {paths} domain_pop launches {launches}, light_scan launches {scan_launches}, "
+          f"native hash_rows calls {hash_calls}", flush=True)
     print(f"digest {digest}", flush=True)
     failures = []
     if scheduled != n_pods:
@@ -3213,6 +3313,9 @@ def run_all(opts, torch, tmp, children) -> int:
         failures.append(f"expected sort and domain groups, got {paths}")
     if not paths["domain_kernel"] == paths["domain"] == launches:
         failures.append(f"domain groups {paths['domain']} but kernel launches {launches}")
+    if not paths["scan_kernel"] == scan_launches == 0:
+        failures.append(f"light_scan launches {scan_launches} / counted {paths['scan_kernel']}, "
+                        "expected none (no node-local scan group)")
     if digest != HEADLINE_DIGEST_100K_10K:
         failures.append(f"digest {digest} != reference {HEADLINE_DIGEST_100K_10K}")
     if not finite:
@@ -3385,6 +3488,10 @@ def run_all(opts, torch, tmp, children) -> int:
     print(f"domain_pop main path: {kernel_cycles:.1f} cycles/pop (kernel) vs "
           f"{probe_cycles:.1f} cycles/pop (probe); latency bound {g_main} pops x "
           f"{probe_cycles:.1f} cycles at {sm_mhz:.0f} MHz = {latency_ms:.3f} ms", flush=True)
+    scan_row, failures = scan_kernel_phase(torch)
+    if failures:
+        print("chip_smoke: light_scan FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
     kernel_rows = [{
         "name": "domain_pop",
         "route": "cuda",
@@ -3398,7 +3505,7 @@ def run_all(opts, torch, tmp, children) -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "latency_bound_ms": latency_ms,
-    }]
+    }, scan_row]
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({

@@ -36,7 +36,7 @@ stream it issues:
   them, before the capture copies them.
 * **custom kernels**: the hand kernel is a ctypes call the dispatcher never
   sees, so the census reads its launch counter around the call and lists
-  it as `custom:domain_pop`.
+  it as `custom:domain_pop` (or `custom:light_scan`).
 
 `TargetReport` keeps the reference's fields, with `n_eqns` renamed `n_ops`
 (aten ops seen). The per-op work is one dictionary count keyed by the op
@@ -136,6 +136,7 @@ LISTED_WIDE: Dict[str, Dict[str, str]] = {
 #: counter of the calling thread)
 CUSTOM_KERNELS: Dict[str, Tuple[str, str]] = {
     "custom:domain_pop": ("open_simulator_tpu_torch.ops.domain_pop", "thread_launches"),
+    "custom:light_scan": ("open_simulator_tpu_torch.ops.light_scan", "thread_launches"),
 }
 
 #: aten ops taking int64 indices -> positions of their index arguments

@@ -28,7 +28,9 @@ pods, so the same encoded batch can go through either package.
 weights, default chunking); `PATHS` the route counts that run gives, and
 `DOMAIN_POP_GROUPS` how many groups enter the domain path spread-only (the
 one that falls back included), i.e. launch the domain_pop kernel once each
-on the card.
+on the card; `SCAN_KERNEL_GROUPS` how many take the light scan with no
+coupled term, i.e. launch the light_scan kernel once each on the card (one
+chunk each at the default chunking).
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ PATHS = {
 }
 
 DOMAIN_POP_GROUPS = {"spread_affinity": 1, "gpushare": 0, "mixed": 6}
+
+SCAN_KERNEL_GROUPS = {"spread_affinity": 0, "gpushare": 2, "mixed": 0}
 
 
 def _bench_node(name, cpu, mem, labels=None, capacity_extra=None):

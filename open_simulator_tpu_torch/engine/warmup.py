@@ -5,7 +5,8 @@ jit entry compiled and banked in the persistent compilation cache. The
 port compiles nothing at run time but its hand kernels, so warm means
 every one-time cost paid in this phase:
 
-  - the nvcc builds of the hand kernels (ops/domain_pop.py), into the
+  - the nvcc builds of the hand kernels (ops/domain_pop.py and
+    ops/light_scan.py, in one build_libraries call), into the
     compile cache (utils/platform.py: OSIM_COMPILE_CACHE, else build/);
   - the g++ build of the native host runtime (native/), into the same
     directory, on every device: quantity parsing and group_runs' row hash
@@ -180,7 +181,7 @@ def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupRepor
     timed), and with `include_sweep` the canonical capacity sweep."""
     from .. import native
     from ..analysis.entry_audit import REQUIRED_COVERAGE, _run_sweeps
-    from ..ops import domain_pop
+    from ..ops import domain_pop, light_scan
     from ..ops.fast import reset_scenario_programs, scenario_programs
     from ..utils.platform import CompileCounter, enable_compilation_cache, install_compile_listener
 
@@ -192,7 +193,7 @@ def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupRepor
     native_builds0 = native.builds
     with CompileCounter() as counter:
         if dev.type == "cuda":
-            domain_pop.build_libraries(domain_pop.SOURCE)
+            domain_pop.build_libraries(domain_pop.SOURCE, light_scan.SOURCE)
         loaded = native.available()
         build_s = time.perf_counter() - t_start
         entries = [

@@ -21,7 +21,9 @@ for one group:
      - the LIGHT SCANS (`light_scan`): one step per pod over the carry x,
        the node-local state read from the trajectory and every coupled
        count rebuilt as base + match * x; the MICRO body when topology
-       spread is the only coupled term. They take the groups neither path
+       spread is the only coupled term; for a group with no coupled term
+       on the card, one launch of the light_scan CUDA kernel
+       (`ops.light_scan`) a chunk. They take the groups neither path
        takes and replay the sort/domain results voided by a rising score
        sequence (`mono` False).
   3. The group tail (`gather_takes`, `cur_at` -> `light_reasons`,
@@ -70,6 +72,7 @@ from ..utils import metrics as _metrics
 from ..utils.tracing import child_span
 from . import delta as _delta
 from . import domain_pop as _dp
+from . import light_scan as _ls
 from . import wave as _wave
 from .domain_pop import _hard_spread_ok, _spread_norm
 from .encode import PodBatch, round_up
@@ -131,12 +134,15 @@ J_CAP = 512
 DM_CAP = 64
 
 # Groups scheduled per strategy since import: the reference's keys, plus
-# "domain_kernel", the launches of the domain_pop CUDA kernel. The port has
-# no Pallas route, so "domain_pallas" stays 0 as in the reference's default.
+# the launches of the port's CUDA kernels: "domain_kernel" (domain_pop) and
+# "scan_kernel" (light_scan). The port has no Pallas route, so
+# "domain_pallas" stays 0 as in the reference's default.
 PATH_COUNTS = {
     "sort": 0, "micro": 0, "scan": 0, "grouped": 0, "sort_fallback": 0,
     "domain": 0, "domain_fallback": 0, "domain_pallas": 0, "domain_kernel": 0,
+    "scan_kernel": 0,
 }
+KERNEL_COUNTS = ("domain_kernel", "scan_kernel")
 _PATH_LOCK = threading.Lock()  # simulate() may run on two threads at once (the server)
 
 
@@ -148,7 +154,7 @@ def _count_path(route: str, n: int = 1) -> None:
         return      # a mesh run counts its routes once, on its first slot
     with _PATH_LOCK:
         PATH_COUNTS[route] += n
-    if route != "domain_kernel":
+    if route not in KERNEL_COUNTS:
         _metrics.FAST_PATH.inc(n, path=route)
 
 # Channel layout of Trajectory.packed.
@@ -553,7 +559,20 @@ def _step_outputs(vals: list, size: int, pad: int, dev) -> torch.Tensor:
     return out
 
 
-@sanitizable("ops.fast:light_scan")
+def _takes_scan_kernel(x: torch.Tensor, flags: GroupFlags) -> bool:
+    """The light_scan kernel takes a chunk on a card, off a mesh, when no
+    coupled term is on: every score and mask then reads the node's own
+    trajectory row alone, which is what the kernel carries. Groups with a
+    spread or inter-pod affinity term would need the count tables rebuilt
+    every step, and keep the plain loop."""
+    return (
+        x.device.type == "cuda" and nx.current() is None
+        and not (flags.any_hard_spread or flags.any_soft_spread or _any_affinity(flags))
+    )
+
+
+@sanitizable("ops.fast:light_scan",
+             skip=lambda args: _takes_scan_kernel(args["x0"], args["flags"]))
 def light_scan(
     ns: NodeStatic,
     traj: Trajectory,
@@ -574,18 +593,40 @@ def light_scan(
     state x0 (chunks of one group thread x through). Only steps with
     offset + i < valid_count commit. Returns (x, nodes i32[G], jidx i32[G]).
 
-    One step per pod, a Python loop on the device with no host sync. The
-    loop keeps `cur` = packed[n, x_n] for every node, refreshing only the
-    chosen node's row per step. Failure reasons are not computed per step:
-    an infeasible step commits nothing, so every later step of the group
-    fails identically and light_reasons attributes the suffix once.
-    `flags.micro_spread` selects the micro body (_light_scan_micro)."""
+    One step per pod. The scan keeps `cur` = packed[n, x_n] for every node,
+    refreshing only the chosen node's row per step. Failure reasons are not
+    computed per step: an infeasible step commits nothing, so every later
+    step of the group fails identically and light_reasons attributes the
+    suffix once. `flags.micro_spread` selects the micro body
+    (_light_scan_micro); a node-local group on a card (`_takes_scan_kernel`)
+    runs the chunk in one launch of the light_scan CUDA kernel
+    (ops/light_scan.py); every other group takes `light_scan_plain`, a
+    Python loop on the device with no host sync and the kernel's plain
+    version."""
     fo = _filters_on(filter_on, x0.device)
     if flags.micro_spread:
         return _light_scan_micro(
             ns, traj, carry0, pod, static_ok, static_scores, na_ok, weights,
             x0, offset, group_size, valid_count, fo, flags,
         )
+    if _takes_scan_kernel(x0, flags):
+        return _ls.scan_chunk(
+            ns, traj, pod, static_ok, static_scores, weights, fo, x0,
+            _active_steps(offset, group_size, valid_count), group_size, flags,
+        )
+    return light_scan_plain(
+        ns, traj, carry0, pod, static_ok, static_scores, na_ok, weights,
+        x0, offset, group_size, valid_count, fo, flags,
+    )
+
+
+def light_scan_plain(
+    ns, traj, carry0, pod, static_ok, static_scores, na_ok, weights,
+    x0, offset, group_size, valid_count, fo, flags,
+):
+    """light_scan's general body, a Python loop of one step a pod: the
+    light_scan kernel's plain version, and the only version for the groups,
+    devices and meshes the kernel does not take."""
     N, J, _ = traj.packed.shape
     packed_flat = traj.packed.reshape(N * J, N_CH)
     x = x0.clone()
@@ -1388,7 +1429,8 @@ def _fast_group(
 
     route = "micro" if flags.micro_spread else "scan"
     _count_path(route)
-    with phase(f"select.{route}", dyn=_dynamics(flags)):
+    launched = _ls.thread_launches()
+    with phase(f"select.{route}", dyn=_dynamics(flags)) as select_span:
         x = torch.zeros(N, dtype=torch.int32, device=dev)
         chunks, done, steps = [], 0, 0
         while done < length:
@@ -1401,6 +1443,10 @@ def _fast_group(
             steps += _active_steps(done, g, length)
             chunks.append((nodes_d[:n], jidx_d[:n]))
             done += n
+        kernel = _ls.thread_launches() - launched
+        _count_path("scan_kernel", kernel)
+        if select_span is not None and route == "scan":
+            select_span.meta["kernel"] = kernel
     carry_d = finish(
         torch.cat([c[0] for c in chunks]), torch.cat([c[1] for c in chunks]), x,
     )

@@ -28,8 +28,9 @@ a sanitized run is slower, never different.
 A sanitized entry called inside another one runs unchecked under the outer
 entry's mode (a thread-local flag; the reference's `_has_tracer`). A call
 for which `skip` says True (domain_select when it launches the domain_pop
-CUDA kernel, the reference's `skip_kwargs=("use_pallas",)`) runs as it
-would unsanitized: the hand kernel is never swapped for its plain version.
+CUDA kernel, the reference's `skip_kwargs=("use_pallas",)`; light_scan when
+it launches its own) runs as it would unsanitized: the hand kernel is never
+swapped for its plain version.
 
 `donate_argnums` lists the positional arguments the entry writes in place
 (`__osim_donate_argnums__`): the profiler and the warmup copy them afresh

@@ -36,7 +36,9 @@ from ..utils import tracing
 def route_split(root: dict) -> dict:
     """Per route, from one schedule_batch_fast call's span tree: {groups,
     steps, select_s}, and for the light scans `dyn` ({"gpu": 12}: selects
-    per combination of GPU, storage and port dynamics, "none" for none).
+    per combination of GPU, storage and port dynamics, "none" for none)
+    and, on `scan`, `kernel` (the light_scan kernel's launches in its
+    selects).
     Steps and groups come from the `group` spans' meta (route that
     committed), select seconds from the `select.<route>` spans, a replayed
     verdict's select included under its own route."""
@@ -59,6 +61,8 @@ def route_split(root: dict) -> dict:
                     key = "+".join(c["meta"]["dyn"]) or "none"
                     dyn = r.setdefault("dyn", {})
                     dyn[key] = dyn.get(key, 0) + 1
+                if "kernel" in c.get("meta", {}):
+                    r["kernel"] = r.get("kernel", 0) + c["meta"]["kernel"]
             walk(c)
 
     walk(root)
@@ -172,7 +176,9 @@ def main() -> int:
                   f"{p.get('group_device_s', 0.0) * 1e3:.3f} ms in its groups, "
                   f"{p.get('select_kernels', 0)} kernels "
                   f"{p.get('select_device_s', 0.0) * 1e3:.3f} ms in its selects"
-                  + (f"; dyn {s['dyn']}" if "dyn" in s else ""), flush=True)
+                  + (f"; dyn {s['dyn']}" if "dyn" in s else "")
+                  + (f"; light_scan launches {s['kernel']}" if "kernel" in s else ""),
+                  flush=True)
             if steps:
                 row.update(kernels_per_step=p.get("select_kernels", 0) / steps,
                            device_us_per_step=p.get("select_device_s", 0.0) / steps * 1e6,

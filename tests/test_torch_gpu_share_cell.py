@@ -89,7 +89,7 @@ def test_a_cluster_too_small_fails_on_gpu_memory_as_the_reference(seed):
 def test_every_share_group_takes_the_light_scan_with_gpu_dynamics(seed):
     """At a size where every group has 64 pods or more, each of the 12
     groups takes the `scan` route, a step per pod, and its `select.scan`
-    span has `dyn` ["gpu"]."""
+    span has `dyn` ["gpu"] and, on the CPU, `kernel` 0."""
     nodes = gen.cluster(small.config("pai_gpu", 90), seed)
     call_apps = gen.call_apps(_traffic(0.7), seed, 0)
     ttracing._history.clear()
@@ -104,5 +104,5 @@ def test_every_share_group_takes_the_light_scan_with_gpu_dynamics(seed):
     for g in groups:
         (sel,) = [c for c in g["children"] if c["name"].startswith("select.")]
         assert g["meta"]["route"] == "scan" and sel["name"] == "select.scan"
-        assert g["meta"]["steps"] == g["meta"]["pods"] and sel["meta"] == {"dyn": ["gpu"]}
+        assert g["meta"]["steps"] == g["meta"]["pods"] and sel["meta"] == {"dyn": ["gpu"], "kernel": 0}
     assert compare.judge(program.answer(res), sched.schedule(nodes, call_apps)) == ZERO

@@ -718,7 +718,7 @@ def test_scan_select_names_its_gpu_dynamics(gpu_share_call):
     scans = [(g, c) for g in _children(sched, "group") for c in _children(g, "select.scan")]
     (group, select), = scans
     assert group["meta"]["route"] == "scan" and group["meta"]["pods"] == 80
-    assert group["meta"]["steps"] == 80 and select["meta"] == {"dyn": ["gpu"]}
+    assert group["meta"]["steps"] == 80 and select["meta"] == {"dyn": ["gpu"], "kernel": 0}
     # the grouped select carries no scan counters
     assert all("meta" not in c for g in _children(sched, "group")
                for c in _children(g, "select.grouped"))
@@ -773,7 +773,7 @@ def test_chunked_scan_is_one_select(chunk):
     (root,) = ttracing.recent_timings()
     (group,) = _children(root, "group")
     (select,) = _children(group, "select.scan")
-    assert select["meta"] == {"dyn": ["gpu"]} and group["meta"]["steps"] == 100
+    assert select["meta"] == {"dyn": ["gpu"], "kernel": 0} and group["meta"]["steps"] == 100
     assert int((out[1][:100] >= 0).sum()) == 48
 
 
