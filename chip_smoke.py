@@ -161,6 +161,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -179,28 +180,23 @@ def smi(query: str, fmt: str = "csv,noheader") -> str:
     return out[0]
 
 
-# light_scan launches of the main path's counted passes (item 15): banked
-# in the same windows as the domain_pop launches each phase adds up, child
-# phases' included, and never the kernel test's or its timing's
-SCAN_LAUNCHES = [0]
+class Launches:
+    """A window on the hand kernels' launch counters (ops/kernel_lib.py),
+    which only go up: open it before a pass, read `win["domain_pop"]` or
+    `win.counts()` (every registered kernel's) after it. A phase sums its
+    counted windows' counts and returns them (item 15)."""
 
+    def __init__(self):
+        from open_simulator_tpu_torch.ops import kernel_lib
 
-def zero_launches(dp):
-    """Set both hand kernels' launch counters to 0 before a pass."""
-    from open_simulator_tpu_torch.ops import light_scan as ls
+        self.launches = kernel_lib.launches
+        self.mark = {name: kernel_lib.launches(name) for name in kernel_lib.KERNELS}
 
-    dp.launches = 0
-    ls.launches = 0
+    def __getitem__(self, name: str) -> int:
+        return self.launches(name) - self.mark[name]
 
-
-def bank_scan() -> int:
-    """Add the light_scan launches since zero_launches() to SCAN_LAUNCHES
-    and return them (a second call banks nothing)."""
-    from open_simulator_tpu_torch.ops import light_scan as ls
-
-    n, ls.launches = ls.launches, 0
-    SCAN_LAUNCHES[0] += n
-    return n
+    def counts(self) -> Counter:
+        return Counter({name: self[name] for name in self.mark})
 
 
 def pop_inputs(seed, dc, lanes, c, d, g, hard, n=12288, cap=None):
@@ -346,13 +342,14 @@ def check_pop(name, args, dp, torch, reps, plain_on="cuda"):
     return ms, plain_ms, float(err), placed
 
 
-def scan_kernel_phase(torch, reps=20):
+def scan_kernel_phase(torch, launches, reps=20):
     """The light_scan kernel against its plain loop on the card: every
     seeded chunk of tools/scan_cases.py bit-equal (nodes, lanes, exit x),
     then the `pai` chunk (pai_gpu.share's widest group, 240 steps over
     1,800 nodes) timed: the kernel by CUDA events over `reps` launches, the
     plain loop once on the card, and the chain probe's floor at the same
-    nodes and steps. Returns (the kernel's row, failures)."""
+    nodes and steps. `launches`: the main path's counted light_scan
+    launches. Returns (the kernel's row, failures)."""
     from open_simulator_tpu_torch.tools import scan_cases as sc
 
     failures = []
@@ -379,7 +376,7 @@ def scan_kernel_phase(torch, reps=20):
         "route": "cuda",
         "source": "open_simulator_tpu_torch/csrc/light_scan.cu",
         "replaces": None,
-        "launches": SCAN_LAUNCHES[0],
+        "launches": launches,
         "max_abs_err": 0 if not failures else None,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -589,7 +586,7 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
 
         for k in fast.PATH_COUNTS:
             fast.PATH_COUNTS[k] = 0
-        zero_launches(dp)
+        win = Launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with tracing.span("routes-pass"):
@@ -598,8 +595,8 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
         run_s = time.perf_counter() - t0
         root = tracing.recent_timings()[-1]
         paths = {k: v for k, v in fast.PATH_COUNTS.items() if v and k not in fast.KERNEL_COUNTS}
-        kernel_groups, launches = fast.PATH_COUNTS["domain_kernel"], dp.launches
-        scan_groups, scan_launches = fast.PATH_COUNTS["scan_kernel"], bank_scan()
+        kernel_groups, launches = fast.PATH_COUNTS["domain_kernel"], win["domain_pop"]
+        scan_groups, scan_launches = fast.PATH_COUNTS["scan_kernel"], win["light_scan"]
 
         digest = placement_digest(*result)
         scheduled = int((result[1][:total] >= 0).sum())
@@ -652,10 +649,11 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
 
 def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
     """One simulate() on the card of freshly built inputs after
-    reset_name_rng(), with the route counts and kernel launches set to 0
-    just before it; with `keep`, the first domain_pop call's inputs are
-    cloned into it; with `mesh`, the node axis split over its slots. Returns (result, wall s, span seconds, routes,
-    domain_pop launches, probe calls, probe lanes)."""
+    reset_name_rng(), with the route counts set to 0 just before it; with
+    `keep`, the first domain_pop call's inputs are cloned into it; with
+    `mesh`, the node axis split over its slots. Returns (result, wall s,
+    span seconds, routes, kernel launches by kernel, probe calls, probe
+    lanes)."""
     from open_simulator_tpu_torch.core.workloads import reset_name_rng
     from open_simulator_tpu_torch.engine.simulator import PROBE_LANES, simulate
     from open_simulator_tpu_torch.utils import tracing
@@ -664,7 +662,7 @@ def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
     cluster, apps = build()
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
-    zero_launches(dp)
+    win = Launches()
     calls0, lanes0 = PROBE_LANES["calls"], PROBE_LANES["lanes"]
     undo = capture_pops(dp, torch, keep) if keep is not None else None
     torch.cuda.synchronize()
@@ -675,8 +673,8 @@ def simulate_once(torch, dp, fast, build, keep=None, mesh=None):
     if undo is not None:
         undo()
     routes = {k: v for k, v in fast.PATH_COUNTS.items() if v}
-    return (result, wall, tracing.span_seconds(tracing.recent_timings()[-1]), routes, dp.launches,
-            PROBE_LANES["calls"] - calls0, PROBE_LANES["lanes"] - lanes0)
+    return (result, wall, tracing.span_seconds(tracing.recent_timings()[-1]), routes,
+            win.counts(), PROBE_LANES["calls"] - calls0, PROBE_LANES["lanes"] - lanes0)
 
 
 def simulator_phase(torch, dp, fast):
@@ -684,9 +682,9 @@ def simulator_phase(torch, dp, fast):
     call, timed call) and config_preempt (cold call, warm call), each held
     against the JAX package's result digest; then the two example configs
     through run_apply(auto_plan=False), held against the JAX report and
-    placement digests. Returns (results, failures, domain_pop launches of
-    the timed plan call, the warm preempt call and the apply runs, the
-    inputs of the warm plan call's domain_pop launch)."""
+    placement digests. Returns (results, failures, kernel launches of the
+    timed plan call, the warm preempt call and the apply runs, the inputs
+    of the warm plan call's domain_pop launch)."""
     import io
 
     from open_simulator_tpu_torch import sim_configs as sc
@@ -694,14 +692,15 @@ def simulator_phase(torch, dp, fast):
     from open_simulator_tpu_torch.core.workloads import reset_name_rng
     from open_simulator_tpu_torch.engine.apply import placement_digest, run_apply
 
-    results, failures, launches, captured = {}, [], 0, []
+    results, failures, launches, captured = {}, [], Counter(), []
     shown = ("expand-workloads", "encode-cluster", "encode", "schedule", "bind", "preempt",
              "probe", "decode-result")
     for name, build, labels in (("plan", sc.plan, ("warm", "timed")),
                                 ("preempt", sc.preempt, ("cold", "warm"))):
         for label in labels:
-            result, wall, spans, routes, n_pop, calls, lanes = simulate_once(
+            result, wall, spans, routes, pops, calls, lanes = simulate_once(
                 torch, dp, fast, build, captured if (name, label) == ("plan", "warm") else None)
+            n_pop = pops["domain_pop"]
             digest, counts = sc.result_digest(result), sc.result_counts(result)
             pods = counts[0] + counts[1]
             other = spans["simulate"] - sum(v for k, v in spans.items()
@@ -731,25 +730,23 @@ def simulator_phase(torch, dp, fast):
                 "launches": n_pop, "probe_calls": calls, "probe_lanes": lanes, "digest": digest,
             }
             if label in ("timed", "warm"):
-                launches += n_pop
-                bank_scan()
+                launches.update(pops)
     for path, (report_d, placement_d, unscheduled) in sc.APPLY_DIGESTS.items():
         reset_name_rng()
-        zero_launches(dp)
+        win = Launches()
         out = io.StringIO()
         t0 = time.perf_counter()
         outcome = run_apply(SimonConfig.load(path), auto_plan=False, out=out, device="cuda")
         wall = time.perf_counter() - t0
-        launches += dp.launches
-        bank_scan()
+        launches.update(win.counts())
         got = (sc.report_digest(out.getvalue()), sc.report_digest(outcome.report),
                placement_digest(outcome.result), len(outcome.result.unscheduled))
         print(f"apply[{path}] {wall:.3f} s, {out.getvalue().splitlines()[-1]}, report "
               f"{got[0]}, placement {got[2]}, unscheduled {got[3]}, domain_pop launches "
-              f"{dp.launches}", flush=True)
+              f"{win['domain_pop']}", flush=True)
         if got != (report_d, report_d, placement_d, unscheduled):
             failures.append(f"apply {path}: {got} != {(report_d, report_d, placement_d, unscheduled)}")
-        results[f"apply/{path}"] = {"wall_s": wall, "launches": dp.launches}
+        results[f"apply/{path}"] = {"wall_s": wall, "launches": win["domain_pop"]}
     if not captured:
         failures.append("plan made no domain_pop call")
     return results, failures, launches, captured[0] if captured else None
@@ -855,11 +852,11 @@ class RoundClock:
                 f"per step")
 
 
-def plan_once(torch, dp, fast, spec, mode, label):
+def plan_once(torch, fast, spec, mode, label):
     """One plan_capacity on the card of freshly built inputs after
     reset_name_rng(), counts set to 0 just before it. Prints wall, attempts,
     batched sweeps, the wave counters and each probe's wall and spans;
-    returns (key tuple, wall, domain_pop launches, stats)."""
+    returns (key tuple, wall, kernel launches by kernel, stats)."""
     from open_simulator_tpu_torch import sim_configs as sc
     from open_simulator_tpu_torch.core.objects import Node
     from open_simulator_tpu_torch.core.workloads import reset_name_rng
@@ -872,7 +869,7 @@ def plan_once(torch, dp, fast, spec, mode, label):
     template = Node.from_dict(sc.template_spec())
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
-    zero_launches(dp)
+    win = Launches()
     before, roots0 = _wave_counters(metrics), tracing.recent_timings()
     clock = RoundClock(fast, wave, torch)
     torch.cuda.synchronize()
@@ -885,12 +882,12 @@ def plan_once(torch, dp, fast, spec, mode, label):
     d = {k: after[k] - before[k] for k in after}
     key = (plan.nodes_added, plan.attempts, plan.batched_calls, sc.result_digest(plan.result))
     roots = _new_roots(tracing, roots0)
-    stats = {"wall_s": wall, "key": list(key), "launches": dp.launches,
+    stats = {"wall_s": wall, "key": list(key), "launches": win["domain_pop"],
              "sims": sum(r["name"] == "capacity-probe" for r in roots),
              "sweeps": sum(r["name"] == "capacity-sweep" for r in roots), **d}
     print(f"capacity[{label}] {mode}: wall {wall:.3f} s, nodes_added {key[0]}, attempts "
           f"{key[1]}, batched_calls {key[2]}, digest {key[3]}, simulate() calls "
-          f"{stats['sims']}, sweeps {stats['sweeps']}, domain_pop launches {dp.launches}",
+          f"{stats['sims']}, sweeps {stats['sweeps']}, domain_pop launches {stats['launches']}",
           flush=True)
     shown = ("expand-workloads", "encode-cluster", "encode", "schedule", "bind",
              "schedule-scenarios", "decode-result")
@@ -904,7 +901,7 @@ def plan_once(torch, dp, fast, spec, mode, label):
         stats.update(clock.summary())
         print(f"capacity[{label}] wave engine: {clock.line()}; {int(d['conflicts'])} "
               f"conflicts, {int(d['fallbacks'])} max-rounds fallbacks", flush=True)
-    return key, wall, dp.launches, stats
+    return key, wall, win.counts(), stats
 
 
 _FULL_WIDTH: dict = {}
@@ -1048,7 +1045,7 @@ def capacity_phase(torch, dp, fast):
     first ladder width, capacity_sweep in every mode, multi_scenario's 64
     lanes through simulate_batch, and the quickstart through
     run_apply(auto_plan=True); every result held against the JAX package's
-    constants. Returns (results, failures, domain_pop launches)."""
+    constants. Returns (results, failures, kernel launches)."""
     import io
 
     from open_simulator_tpu_torch import sim_configs as sc
@@ -1060,7 +1057,7 @@ def capacity_phase(torch, dp, fast):
         AppResource, ClusterResource, Scenario, simulate_batch,
     )
 
-    results, failures, launches = {}, [], 0
+    results, failures, launches = {}, [], Counter()
     for label, spec, mode, want in (
         ("plan_full", sc.plan_spec(), "serial", "plan_full/serial"),
         ("plan_small", sc.plan_spec(*sc.PLAN_SMALL), "auto", "plan_small/auto"),
@@ -1069,9 +1066,9 @@ def capacity_phase(torch, dp, fast):
         ("capacity_sweep", sc.capacity_sweep_spec(), "batched", "capacity_sweep/batched"),
         ("capacity_sweep", sc.capacity_sweep_spec(), "auto", "capacity_sweep/auto"),
     ):
-        key, wall, n_pop, stats = plan_once(torch, dp, fast, spec, mode, label)
-        launches += n_pop
-        bank_scan()
+        key, wall, pops, stats = plan_once(torch, fast, spec, mode, label)
+        launches.update(pops)
+        n_pop = pops["domain_pop"]
         results[want] = stats
         if key != sc.CAPACITY_DIGESTS[want]:
             failures.append(f"{want}: {key} != {sc.CAPACITY_DIGESTS[want]}")
@@ -1108,26 +1105,25 @@ def capacity_phase(torch, dp, fast):
         failures.append(f"multi_scenario: lanes {bad} differ")
 
     reset_name_rng()
-    zero_launches(dp)
+    win = Launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     outcome = run_apply(SimonConfig.load("example/simon-config.yaml"), out=out, device="cuda")
     wall = time.perf_counter() - t0
-    launches += dp.launches
-    bank_scan()
+    launches.update(win.counts())
     text = out.getvalue()
     got = (sc.report_digest(text), placement_digest(outcome.result),
            outcome.plan.nodes_added if outcome.plan else -1,
            outcome.plan.attempts if outcome.plan else -1)
     print(f"quickstart {wall:.3f} s: {text.splitlines()[1]!r}; report {got[0]}, placement "
-          f"{got[1]}, domain_pop launches {dp.launches}", flush=True)
-    results["quickstart"] = {"wall_s": wall, "launches": dp.launches}
+          f"{got[1]}, domain_pop launches {win['domain_pop']}", flush=True)
+    results["quickstart"] = {"wall_s": wall, "launches": win["domain_pop"]}
     if got != sc.QUICKSTART_DIGEST:
         failures.append(f"quickstart: {got} != {sc.QUICKSTART_DIGEST}")
     return results, failures, launches
 
 
-def prove_phase(torch, dp):
+def prove_phase(torch):
     """`simon prove` on the card: the whole corpus (151,875 universes)
     through the serial universe scan and through the wave engine, each with
     0 divergences against the port's oracle and verifying the unchanged
@@ -1135,12 +1131,12 @@ def prove_phase(torch, dp):
     reference's PINNED universes, which must be caught (tiebreak's
     counterexample minimized, no larger than the universe that diverged).
     Each engine runs as the CLI runs it, with its own oracle pass. Returns
-    (results, failures, domain_pop launches)."""
+    (results, failures, kernel launches)."""
     from open_simulator_tpu_torch.analysis import semantics
     from open_simulator_tpu_torch.utils import metrics
 
     results, failures = {}, []
-    zero_launches(dp)
+    win = Launches()
     for engine in ("serial", "wave"):
         rounds0 = metrics.COMMIT_ROUNDS.child_state()
         falls0 = metrics.WAVE_FALLBACKS.value(reason="universes_max_rounds")
@@ -1198,11 +1194,10 @@ def prove_phase(torch, dp):
                                      "wall_s": wall}
         if not caught:
             failures.append(f"prove mutation {mode} was not caught")
-    bank_scan()
-    return results, failures, dp.launches
+    return results, failures, win.counts()
 
 
-def extender_phase(torch, dp):
+def extender_phase(torch):
     """Scheduler extenders, their retries and kubeConfig snapshots on the
     card, against local stub servers on 127.0.0.1 (tools/stubs.py):
     simulate() of sim_configs.extender_spec() behind a filter + prioritize +
@@ -1226,7 +1221,7 @@ def extender_phase(torch, dp):
     from open_simulator_tpu_torch.utils import httppool, metrics
 
     results, failures = {}, []
-    zero_launches(dp)
+    win = Launches()
     stub = stubs.StubExtender(sc.EXTENDER_BEHAVIOR)
     cstub = stubs.StubExtender(sc.EXTENDER_CAPACITY_BEHAVIOR)
     api = stubs.StubApiServer(stubs.KUBE_APIS)
@@ -1296,8 +1291,7 @@ def extender_phase(torch, dp):
         for srv in (stub, cstub, api):
             srv.close()
         httppool.reset_pools()
-    bank_scan()
-    return results, failures, dp.launches
+    return results, failures, win.counts()
 
 
 class _Env:
@@ -1373,7 +1367,7 @@ def _cli_quiet(argv):
     return rc, buf.getvalue()
 
 
-def durable_phase(torch, dp, fast):
+def durable_phase(torch, fast):
     """Durable runs on the card.
     1. The chunked scan at full width: plan_full's first ladder sweep (6
        lanes padded to 8 x 20,480 node rows) over its first CHUNK_SCAN_PODS
@@ -1408,7 +1402,7 @@ def durable_phase(torch, dp, fast):
     from open_simulator_tpu_torch.resilience import faults
     from open_simulator_tpu_torch.utils import metrics
 
-    results, failures, launches = {}, [], 0
+    results, failures, launches = {}, [], Counter()
     t_setup = time.perf_counter()
     lanes = full_width_lanes(torch)
     sim, s, s_pad = lanes["sim"], lanes["s"], lanes["s_pad"]
@@ -1564,7 +1558,7 @@ def durable_phase(torch, dp, fast):
             plan_path = os.path.join(tmp, f"{name}-plan.yaml")
             with open(plan_path, "w") as fh:
                 fh.write(kill_plan)
-            zero_launches(dp)
+            win = Launches()
             with _Env(**knobs):
                 t0 = time.perf_counter()
                 rc_clean, _ = _cli_quiet(argv + ["--run-dir", clean, "--device", "cuda"])
@@ -1581,8 +1575,7 @@ def durable_phase(torch, dp, fast):
                 t0 = time.perf_counter()
                 rc_resume, _ = _cli_quiet(["runs", "resume", killed, "--device", "cuda"])
                 resume_s = time.perf_counter() - t0
-            launches += dp.launches
-            bank_scan()
+            launches.update(win.counts())
             digests = []
             for d in (clean, killed):
                 try:
@@ -1594,10 +1587,10 @@ def durable_phase(torch, dp, fast):
                   f"subprocess {killed_s:.3f} s (rc {child.returncode}, {records} {record} "
                   f"records journaled); runs resume {resume_s:.3f} s (rc {rc_resume}); "
                   f"placement digests {digests} vs JAX {sc.RUN_DIR_DIGESTS[name]}; domain_pop "
-                  f"launches {dp.launches}", flush=True)
+                  f"launches {win['domain_pop']}", flush=True)
             results[f"kill_{name}"] = {"clean_s": clean_s, "killed_s": killed_s,
                                        "resume_s": resume_s, "records": records,
-                                       "launches": dp.launches}
+                                       "launches": win["domain_pop"]}
             if child.returncode not in (-9, 137):
                 failures.append(f"kill {name}: rc {child.returncode}, expected SIGKILL; "
                                 f"stderr tail {child.stderr[-400:]!r}")
@@ -1662,7 +1655,7 @@ def _planes_equal(res, encode_nodes):
                for n in DEVICE_PLANES)
 
 
-def resident_phase(torch, dp, fast):
+def resident_phase(torch, fast):
     """Resident cluster state on the card: a ResidentCluster over
     sim_configs.plan's 10,000 nodes through RESIDENT_ROUNDS seeded delta
     rounds of RESIDENT_CHANGES node changes (labels, taints, allocatable,
@@ -1685,7 +1678,7 @@ def resident_phase(torch, dp, fast):
     from open_simulator_tpu_torch.resilience import faults
     from open_simulator_tpu_torch.utils import metrics
 
-    results, failures, launches = {}, [], 0
+    results, failures, launches = {}, [], Counter()
     nodes, apps = sc.plan_spec()
     tmp = tempfile.mkdtemp(prefix="chip-smoke-resident-")
     walk = sc.ResidentWalk(Node, Pod, nodes)
@@ -1755,22 +1748,22 @@ def resident_phase(torch, dp, fast):
         reset_name_rng()
         cluster = ClusterResource(nodes=list(n), pods=list(p))
         app_objs = [AppResource(name=a, objects=copy.deepcopy(o)) for a, o in apps]
-        zero_launches(dp)
+        win = Launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = simulate(cluster, app_objs, device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches += dp.launches
-        bank_scan()
+        launches.update(win.counts())
+        n_pop = win["domain_pop"]
         got = sc.result_digest(result)
         print(f"resident[simulate {label}] {wall:.3f} s, placed/unscheduled/preempted "
-              f"{sc.result_counts(result)}, digest {got}, domain_pop launches {dp.launches}",
+              f"{sc.result_counts(result)}, digest {got}, domain_pop launches {n_pop}",
               flush=True)
-        results[f"simulate_{label.replace(' ', '_')}"] = {"wall_s": wall, "launches": dp.launches}
-        if got != sc.RESIDENT_SIM_DIGEST or dp.launches != 1:
+        results[f"simulate_{label.replace(' ', '_')}"] = {"wall_s": wall, "launches": n_pop}
+        if got != sc.RESIDENT_SIM_DIGEST or n_pop != 1:
             failures.append(f"resident simulate {label}: digest {got} (JAX "
-                            f"{sc.RESIDENT_SIM_DIGEST}), {dp.launches} domain_pop launches")
+                            f"{sc.RESIDENT_SIM_DIGEST}), {n_pop} domain_pop launches")
     if metrics.RESIDENT_FALLBACKS.value(reason="not_covering") != not_covering:
         failures.append("simulate(resident=) fell back to a full encode")
     return results, failures, launches
@@ -1970,15 +1963,15 @@ def serve_phase(torch, dp, fast):
     shed0 = {r: metrics.REQUESTS_SHED.value(reason=r) for r in ("queue_full", "deadline", "draining")}
     dropped0, fallbacks0 = metrics.REQUESTS_DROPPED.value(), metrics.LOOP_FALLBACKS.value()
     stale0 = metrics.SNAPSHOT_STALE.value()
-    zero_launches(dp)
+    win = Launches()
     launch_mark = [0]
 
     def leg(name, t0, extra=""):
         lat = client.lat
         wall = time.perf_counter() - t0
         sheds = {r: int(metrics.REQUESTS_SHED.value(reason=r) - shed0[r]) for r in shed0}
-        n_launch = dp.launches - launch_mark[0]
-        launch_mark[0] = dp.launches
+        n_launch = win["domain_pop"] - launch_mark[0]
+        launch_mark[0] = win["domain_pop"]
         print(f"serve[{name}] wall {wall:.3f} s, {len(lat)} requests, p50 "
               f"{_pct(lat, 0.5) * 1e3:.0f} ms, p99 {_pct(lat, 0.99) * 1e3:.0f} ms, "
               f"{len(lat) / wall:.2f} req/s, packs {list(packs)}, sheds so far {sheds}, "
@@ -2037,9 +2030,9 @@ def serve_phase(torch, dp, fast):
         serve_pops = []
         undo = capture_pops(dp, torch, serve_pops)
         reset_name_rng()
-        l0 = dp.launches
+        warm_win = Launches()
         warm = client.request(port, "/api/deploy-apps", full)
-        warm_launches = dp.launches - l0
+        warm_launches = warm_win["domain_pop"]
         undo()
         warm_s = client.lat[-1]
         census = sc.response_census(json.loads(warm[2])) if warm[0] == 200 else None
@@ -2388,7 +2381,7 @@ def serve_phase(torch, dp, fast):
     wall = time.perf_counter() - t_phase
     print(f"serve phase: {wall:.1f} s; dropped {int(dropped)}, loop fallbacks "
           f"{int(fallbacks)}, stale snapshots {int(stale)}, degradations logged {degraded}, "
-          f"domain_pop launches {dp.launches}, peak host RSS "
+          f"domain_pop launches {win['domain_pop']}, peak host RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f} MB", flush=True)
     results["wall_s"] = wall
     if dropped or fallbacks or stale or degraded:
@@ -2400,8 +2393,7 @@ def serve_phase(torch, dp, fast):
         else:
             os.environ[k] = v
     shutil.rmtree(tmp, ignore_errors=True)
-    bank_scan()
-    return results, failures, dp.launches, (serve_pops[0] if serve_pops else None)
+    return results, failures, win.counts(), (serve_pops[0] if serve_pops else None)
 
 
 def _one_card_mesh(torch, shape, axes):
@@ -2475,15 +2467,17 @@ def mesh_phase(torch, dp, fast, ref, legs, pop_path=None, oracle_budget_s=20.0,
         failures += _mesh_cli(results)
     results["phase_s"] = time.perf_counter() - t_phase
     print(f"mesh phase ({', '.join(legs)}) {results['phase_s']:.1f} s", flush=True)
-    return results, failures, results.get("plan", {}).get("launches", 0)
+    # the light_scan kernel runs off a mesh only: no window of this phase counts it
+    return results, failures, Counter(domain_pop=results.get("plan", {}).get("launches", 0))
 
 
 def _mesh_plan(torch, dp, fast, ref, nodes4, pop_path, results):
     from open_simulator_tpu_torch import sim_configs as sc
 
     captured = []
-    result, wall, spans, routes, n_pop, _, _ = simulate_once(
+    result, wall, spans, routes, pops, _, _ = simulate_once(
         torch, dp, fast, sc.plan, captured, mesh=nodes4)
+    n_pop = pops["domain_pop"]
     digest = sc.result_digest(result)
     print(f"mesh[plan, 4 node slots] wall {wall:.3f} s (unsharded timed call "
           f"{ref['wall_s']:.3f} s); spans (s): " + ", ".join(
@@ -2679,7 +2673,7 @@ def _mesh_cli(results):
     return []
 
 
-def tooling_phase(torch, dp, device="cuda"):
+def tooling_phase(torch, device="cuda"):
     """The runtime tooling on the card, in its own process (a child beside
     the capacity phase):
     1. `warmup --format json` with OSIM_COMPILE_CACHE a fresh directory:
@@ -2725,7 +2719,7 @@ def tooling_phase(torch, dp, device="cuda"):
     cuda = device == "cuda"
     dev_args = [] if cuda else ["--device", device]
     results, failures = {}, []
-    zero_launches(dp)
+    win = Launches()
     tmp = tempfile.mkdtemp(prefix="chip-smoke-tooling-")
     cache = os.path.join(tmp, "cache")
     os.environ["OSIM_COMPILE_CACHE"] = cache
@@ -2906,8 +2900,7 @@ def tooling_phase(torch, dp, device="cuda"):
     finally:
         os.environ.pop("OSIM_COMPILE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
-    bank_scan()
-    return results, failures, dp.launches
+    return results, failures, win.counts()
 
 
 def analysers_phase(torch, device, cli_json, results, failures):
@@ -3141,8 +3134,7 @@ def start_phase_child(phase, tmp, *args):
 
 def join_phase_child(child, timeout_s):
     """Wait for a phase child, print its output here and return its
-    (results, failures, domain_pop launches); its light_scan launches go
-    to SCAN_LAUNCHES."""
+    (results, failures, kernel launches)."""
     proc, out, log = child
     try:
         proc.wait(timeout=timeout_s)
@@ -3153,11 +3145,10 @@ def join_phase_child(child, timeout_s):
         sys.stdout.write(fh.read())
     sys.stdout.flush()
     if proc.returncode != 0:
-        return {}, [f"the phase's child process exited {proc.returncode}"], 0
+        return {}, [f"the phase's child process exited {proc.returncode}"], Counter()
     with open(out) as fh:
         got = json.load(fh)
-    SCAN_LAUNCHES[0] += got["scan_launches"]
-    return got["results"], got["failures"], got["launches"]
+    return got["results"], got["failures"], Counter(got["launches"])
 
 
 def main() -> int:
@@ -3165,7 +3156,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the results as JSON to this file")
     ap.add_argument("--phase", choices=("prove", "tooling") + tuple(MESH_LEGS),
                     help="run only this phase and write its results, failures and "
-                         "domain_pop launches as JSON to --out")
+                         "kernel launches as JSON to --out")
     ap.add_argument("--ref", help="a mesh phase's unsharded plan call (JSON: wall_s, routes, "
                                   "launches)")
     ap.add_argument("--pop", help="where a mesh phase saves its domain_pop inputs")
@@ -3186,17 +3177,17 @@ def main() -> int:
         from open_simulator_tpu_torch.ops import fast
 
         if opts.phase == "prove":
-            results, failures, launches = prove_phase(torch, dp)
+            results, failures, launches = prove_phase(torch)
         elif opts.phase == "tooling":
-            results, failures, launches = tooling_phase(torch, dp)
+            results, failures, launches = tooling_phase(torch)
         else:
             with open(opts.ref) as fh:
                 ref = json.load(fh)
             results, failures, launches = mesh_phase(torch, dp, fast, ref,
                                                      MESH_LEGS[opts.phase], opts.pop)
         with open(opts.out, "w") as f:
-            json.dump({"results": results, "failures": failures, "launches": launches,
-                       "scan_launches": SCAN_LAUNCHES[0]}, f, default=str)
+            json.dump({"results": results, "failures": failures, "launches": launches},
+                      f, default=str)
         return 0
     import shutil
     import tempfile
@@ -3225,26 +3216,25 @@ def run_all(opts, torch, tmp, children) -> int:
         HEADLINE_DIGEST_100K_10K, build_state, placement_digest,
     )
     from open_simulator_tpu_torch.ops import domain_pop as dp
-    from open_simulator_tpu_torch.ops import fast, kernels
-    from open_simulator_tpu_torch.ops import light_scan as ls
+    from open_simulator_tpu_torch.ops import fast, kernel_lib, kernels
     from open_simulator_tpu_torch.ops.kernels import weights_array
     from open_simulator_tpu_torch.tools import pop_chain, scan_cases
-    from open_simulator_tpu_torch.utils import tracing
+    from open_simulator_tpu_torch.utils import platform, tracing
 
     card = smi("name,power.limit")
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    # one nvcc per source, together
-    dp.build_libraries(dp.SOURCE, ls.SOURCE, pop_chain.SOURCE, scan_cases.CHAIN_SOURCE)
-    dp._library()
-    ls._library()
-    pop_chain._library()
-    scan_cases._chain_library()
+    # one nvcc per source, together: the registry's kernels and the probes
+    platform.build_kernels(*kernel_lib.SOURCES, pop_chain.SOURCE, scan_cases.CHAIN_SOURCE)
+    for name in kernel_lib.KERNELS:
+        kernel_lib.library(name)
+    pop_chain.library()
+    scan_cases.chain_library()
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s", flush=True)
-    for line in dp.build_log.splitlines():
+    for line in platform.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  nvcc: {line.strip()}", flush=True)
     # the native host runtime: g++ at first use, into the same build directory
@@ -3277,8 +3267,7 @@ def run_all(opts, torch, tmp, children) -> int:
 
     for k in fast.PATH_COUNTS:
         fast.PATH_COUNTS[k] = 0
-    zero_launches(dp)
-    native.calls = 0
+    win, calls0 = Launches(), native.calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # the phase split comes from the timed pass's spans, which synchronise
@@ -3289,9 +3278,8 @@ def run_all(opts, torch, tmp, children) -> int:
     run_s = time.perf_counter() - t0
     phases = tracing.span_seconds(tracing.recent_timings()[-1])
     paths = dict(fast.PATH_COUNTS)
-    launches = dp.launches
-    scan_launches = bank_scan()
-    hash_calls = native.calls
+    launches = win.counts()     # summed over every counted pass below (item 15)
+    hash_calls = native.calls - calls0
 
     carry_out, nodes = result[0], result[1]
     scheduled = int((nodes[:n_pods] >= 0).sum())
@@ -3303,19 +3291,20 @@ def run_all(opts, torch, tmp, children) -> int:
     for name, ph in (("warm", warm_phases), ("timed", phases)):
         print(f"{name}-pass spans (s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in ph.items()), flush=True)
-    print(f"paths {paths} domain_pop launches {launches}, light_scan launches {scan_launches}, "
-          f"native hash_rows calls {hash_calls}", flush=True)
+    print(f"paths {paths} domain_pop launches {launches['domain_pop']}, light_scan launches "
+          f"{launches['light_scan']}, native hash_rows calls {hash_calls}", flush=True)
     print(f"digest {digest}", flush=True)
     failures = []
     if scheduled != n_pods:
         failures.append(f"scheduled {scheduled} of {n_pods} pods")
     if not (paths["sort"] > 0 and paths["domain"] > 0):
         failures.append(f"expected sort and domain groups, got {paths}")
-    if not paths["domain_kernel"] == paths["domain"] == launches:
-        failures.append(f"domain groups {paths['domain']} but kernel launches {launches}")
-    if not paths["scan_kernel"] == scan_launches == 0:
-        failures.append(f"light_scan launches {scan_launches} / counted {paths['scan_kernel']}, "
-                        "expected none (no node-local scan group)")
+    if not paths["domain_kernel"] == paths["domain"] == launches["domain_pop"]:
+        failures.append(f"domain groups {paths['domain']} but kernel launches "
+                        f"{launches['domain_pop']}")
+    if not paths["scan_kernel"] == launches["light_scan"] == 0:
+        failures.append(f"light_scan launches {launches['light_scan']} / counted "
+                        f"{paths['scan_kernel']}, expected none (no node-local scan group)")
     if digest != HEADLINE_DIGEST_100K_10K:
         failures.append(f"digest {digest} != reference {HEADLINE_DIGEST_100K_10K}")
     if not finite:
@@ -3351,7 +3340,8 @@ def run_all(opts, torch, tmp, children) -> int:
     if failures:
         print("chip_smoke: routes FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += sum(r["launches"] for r in routes.values())
+    for r in routes.values():
+        launches.update(domain_pop=r["launches"], light_scan=r["scan_launches"])
 
     # -- the runtime tooling starts in a child process here: most of it is
     # host Python, and it must end before the serve phase
@@ -3363,7 +3353,7 @@ def run_all(opts, torch, tmp, children) -> int:
     if failures:
         print("chip_smoke: simulator FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += sim_launches
+    launches.update(sim_launches)
 
     # -- simon prove and the mesh phase's legs start in child processes:
     # their host work runs beside the capacity, extender and durable phases
@@ -3381,36 +3371,36 @@ def run_all(opts, torch, tmp, children) -> int:
     if failures:
         print("chip_smoke: capacity FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += cap_launches
+    launches.update(cap_launches)
 
     # -- simon prove: universe engines, oracle, commit-order contract ------
     prove_results, failures, prove_launches = join_phase_child(children[1], 420)
     if failures:
         print("chip_smoke: prove FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += prove_launches
+    launches.update(prove_launches)
 
     # -- scheduler extenders, retries and kubeConfig snapshots -------------
-    ext_results, failures, ext_launches = extender_phase(torch, dp)
+    ext_results, failures, ext_launches = extender_phase(torch)
     if failures:
         print("chip_smoke: extenders FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += ext_launches
+    launches.update(ext_launches)
 
     # -- durable runs: chunk checkpoints, device loss, process kills -------
-    durable_results, failures, durable_launches = durable_phase(torch, dp, fast)
+    durable_results, failures, durable_launches = durable_phase(torch, fast)
     if failures:
         print("chip_smoke: durable FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += durable_launches
+    launches.update(durable_launches)
 
     # -- device meshes: node and lane splits, 2-D, elastic resume, bytes ----
-    mesh_results, failures, mesh_launches = {}, [], 0
+    mesh_results, failures, mesh_launches = {}, [], Counter()
     for phase, child in zip(MESH_LEGS, children[2:]):
         got = join_phase_child(child, 600)
         mesh_results[phase] = got[0]
         failures += got[1]
-        mesh_launches += got[2]
+        mesh_launches.update(got[2])
     mesh_pops = torch.load(pop_path, map_location="cuda") if os.path.exists(pop_path) else None
     if mesh_pops is None or not _same_inputs(mesh_pops, sim_pops, torch):
         failures.append("mesh: plan's domain_pop inputs on 4 slots differ from the unsharded "
@@ -3418,21 +3408,21 @@ def run_all(opts, torch, tmp, children) -> int:
     if failures:
         print("chip_smoke: mesh FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += mesh_launches
+    launches.update(mesh_launches)
 
     # -- resident cluster state with row-delta sync -------------------------
-    resident_results, failures, resident_launches = resident_phase(torch, dp, fast)
+    resident_results, failures, resident_launches = resident_phase(torch, fast)
     if failures:
         print("chip_smoke: resident FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += resident_launches
+    launches.update(resident_launches)
 
     # -- the runtime tooling: warmup, warm start, profile, sanitizer, trace --
     tooling_results, failures, tooling_launches = join_phase_child(tooling_child, 420)
     if failures:
         print("chip_smoke: tooling FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += tooling_launches
+    launches.update(tooling_launches)
 
     # -- serving: simon server with admission control and the batching loop --
     serve_results, failures, serve_launches, serve_pops = serve_phase(torch, dp, fast)
@@ -3441,7 +3431,7 @@ def run_all(opts, torch, tmp, children) -> int:
     if failures:
         print("chip_smoke: serve FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches += serve_launches
+    launches.update(serve_launches)
 
     # -- kernels vs plain versions on the card -----------------------------
     main_args = captured[0]
@@ -3488,7 +3478,7 @@ def run_all(opts, torch, tmp, children) -> int:
     print(f"domain_pop main path: {kernel_cycles:.1f} cycles/pop (kernel) vs "
           f"{probe_cycles:.1f} cycles/pop (probe); latency bound {g_main} pops x "
           f"{probe_cycles:.1f} cycles at {sm_mhz:.0f} MHz = {latency_ms:.3f} ms", flush=True)
-    scan_row, failures = scan_kernel_phase(torch)
+    scan_row, failures = scan_kernel_phase(torch, launches["light_scan"])
     if failures:
         print("chip_smoke: light_scan FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -3497,7 +3487,7 @@ def run_all(opts, torch, tmp, children) -> int:
         "route": "cuda",
         "source": "open_simulator_tpu_torch/csrc/domain_pop.cu",
         "replaces": "open_simulator_tpu/ops/fast.py:1281",
-        "launches": launches,
+        "launches": launches["domain_pop"],
         "max_abs_err": max(errs),
         "ms": ms,
         "plain_ms": plain_ms,

@@ -517,7 +517,7 @@ def warm_start_check(device=DEFAULT_DEVICE) -> WarmStartResult:
     counting kernel builds and cache hits. ok demands zero builds and equal
     serial and batched answers."""
     from .. import native
-    from ..ops import domain_pop, light_scan
+    from ..engine.warmup import build_libraries
     from ..utils.platform import CompileCounter, enable_compilation_cache, install_compile_listener
 
     dev = resolve_device(device)
@@ -525,9 +525,7 @@ def warm_start_check(device=DEFAULT_DEVICE) -> WarmStartResult:
     install_compile_listener()
     native_builds0 = native.builds
     with CompileCounter() as counter:
-        if dev.type == "cuda":
-            domain_pop.build_libraries(domain_pop.SOURCE, light_scan.SOURCE)
-        native.load()
+        build_libraries(dev)
         plan, plan_b = _run_sweeps(dev)
     return WarmStartResult(
         backend_compiles=counter.backend_compiles,

@@ -34,9 +34,10 @@ stream it issues:
   `untyped_storage().data_ptr()`, because two views of one storage alias
   too; the pointers are taken from the arguments as the dispatcher passed
   them, before the capture copies them.
-* **custom kernels**: the hand kernel is a ctypes call the dispatcher never
-  sees, so the census reads its launch counter around the call and lists
-  it as `custom:domain_pop` (or `custom:light_scan`).
+* **custom kernels**: a hand kernel is a ctypes call the dispatcher never
+  sees, so the census reads the calling thread's launches of every kernel
+  of ops/kernel_lib.py's registry around the call and lists each as
+  `custom:<name>` (`custom:domain_pop`, `custom:light_scan`).
 
 `TargetReport` keeps the reference's fields, with `n_eqns` renamed `n_ops`
 (aten ops seen). The per-op work is one dictionary count keyed by the op
@@ -59,7 +60,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
 import json
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
@@ -69,6 +69,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..ops import kernel_lib
 from . import entry_audit
 
 #: The reference's forbidden primitives, kept for the tripwire against
@@ -130,13 +131,6 @@ LISTED_WIDE: Dict[str, Dict[str, str]] = {
         "int64": "the u32 checksum is computed and returned in int64: PyTorch has "
         "no uint32 arithmetic (ops/delta.py)",
     },
-}
-
-#: hand kernels the dispatcher cannot see: census name -> (module, launch
-#: counter of the calling thread)
-CUSTOM_KERNELS: Dict[str, Tuple[str, str]] = {
-    "custom:domain_pop": ("open_simulator_tpu_torch.ops.domain_pop", "thread_launches"),
-    "custom:light_scan": ("open_simulator_tpu_torch.ops.light_scan", "thread_launches"),
 }
 
 #: aten ops taking int64 indices -> positions of their index arguments
@@ -376,10 +370,8 @@ def donation_aliasing(fn, args: tuple, kwargs: dict, storages=None) -> Tuple[Lis
 
 
 def _custom_counts() -> Dict[str, int]:
-    out = {}
-    for name, (module, attr) in CUSTOM_KERNELS.items():
-        out[name] = int(getattr(importlib.import_module(module), attr)())
-    return out
+    """The calling thread's launches of each hand kernel, by census name."""
+    return {f"custom:{name}": kernel_lib.thread_launches(name) for name in kernel_lib.KERNELS}
 
 
 class CensusRun:

@@ -5,9 +5,9 @@ jit entry compiled and banked in the persistent compilation cache. The
 port compiles nothing at run time but its hand kernels, so warm means
 every one-time cost paid in this phase:
 
-  - the nvcc builds of the hand kernels (ops/domain_pop.py and
-    ops/light_scan.py, in one build_libraries call), into the
-    compile cache (utils/platform.py: OSIM_COMPILE_CACHE, else build/);
+  - the nvcc builds of the hand kernels (every source of ops/kernel_lib.py's
+    registry, in one build: `build_libraries`), into the compile cache
+    (utils/platform.py: OSIM_COMPILE_CACHE, else build/);
   - the g++ build of the native host runtime (native/), into the same
     directory, on every device: quantity parsing and group_runs' row hash
     run on the host. It is reported as `native_builds`, not as a compile
@@ -175,13 +175,26 @@ def registry_captures(names: Any = None, device=DEFAULT_DEVICE) -> List[Any]:
     return got
 
 
+def build_libraries(dev) -> bool:
+    """The one-time builds into the compile cache: on a card the registry's
+    kernels (ops/kernel_lib.py: SOURCES, one nvcc each, together), on every
+    device the native host runtime. Returns whether the native runtime
+    loaded."""
+    from .. import native
+    from ..ops import kernel_lib
+    from ..utils import platform
+
+    if dev.type == "cuda":
+        platform.build_kernels(*kernel_lib.SOURCES)
+    return native.available()
+
+
 def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupReport:
     """Pay the one-time costs on `device`, in order: the kernel builds into
     the compile cache, the registry capture (every entry's first call,
     timed), and with `include_sweep` the canonical capacity sweep."""
     from .. import native
     from ..analysis.entry_audit import REQUIRED_COVERAGE, _run_sweeps
-    from ..ops import domain_pop, light_scan
     from ..ops.fast import reset_scenario_programs, scenario_programs
     from ..utils.platform import CompileCounter, enable_compilation_cache, install_compile_listener
 
@@ -192,9 +205,7 @@ def run_warmup(include_sweep: bool = True, device=DEFAULT_DEVICE) -> WarmupRepor
     t_start = time.perf_counter()
     native_builds0 = native.builds
     with CompileCounter() as counter:
-        if dev.type == "cuda":
-            domain_pop.build_libraries(domain_pop.SOURCE, light_scan.SOURCE)
-        loaded = native.available()
+        loaded = build_libraries(dev)
         build_s = time.perf_counter() - t_start
         entries = [
             EntryWarmup(

@@ -6,27 +6,22 @@ function returns None when the library is unavailable or when the value
 needs the exact Python path, and callers keep their pure-Python paths.
 
 The library is built at first use, never at import: `g++ -O2 -fPIC -shared
--std=c++17` (`$CXX` when set) into the compile cache,
-ops/domain_pop.py:build_dir(), which is read at the build and honours
-OSIM_COMPILE_CACHE. Its file name carries a tag of the source and the
-flags, and g++ writes a temporary file that is renamed onto that name under
-the directory's build lock, so a stale or half-written library never loads.
-A g++ run is host code, not a kernel build: it is counted here (`builds`,
-`build_seconds`), not as a compile-cache event of utils/platform.py.
+-std=c++17` (`$CXX` when set) through utils/platform.py:build(), the build
+step of the kernels too, into the compile cache (`build_dir()`, read at the
+build, honouring OSIM_COMPILE_CACHE), under a name tagged by the source and
+the flags, so a stale or half-written library never loads. A g++ run is
+host code, not a kernel build: it is counted here (`builds`,
+`build_seconds`), not as a compile-cache event.
 
-`calls` counts the hash_rows calls that ran the library in this process
-(reset by callers), as ops/domain_pop.py's `launches` counts its kernel's,
-so that a caller can show that a path went through it.
+`calls` counts the hash_rows calls that ran the library in this process; a
+caller showing that a path went through it reads the difference.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 import time
 from pathlib import Path
@@ -34,12 +29,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils import platform as _platform
 from ..utils.concurrency import guarded_by
 
 SOURCE = Path(__file__).resolve().with_name("osim_native.cpp")
 CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
 
-calls = 0                   # hash_rows calls that ran the library (reset by callers)
+calls = 0                   # hash_rows calls that ran the library
 builds = 0                  # g++ runs of this process
 build_seconds = 0.0         # their seconds
 _lock = threading.Lock()    # the load and its build
@@ -50,8 +46,7 @@ _tried = False
 
 def library_path(out_dir: Path) -> Path:
     """The library built from this source with these flags, in `out_dir`."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return out_dir / f"libosim_native-{tag}.so"
+    return _platform.library_path(SOURCE, CXX_FLAGS, out_dir)
 
 
 def _compiler() -> Optional[str]:
@@ -60,36 +55,19 @@ def _compiler() -> Optional[str]:
 
 
 @guarded_by("_lock")
-def _build(so: Path) -> bool:
-    """Build the library onto `so` unless it is there; False when it cannot
-    be built. Callers hold _lock; this takes the directory's build lock,
-    shared with the nvcc builds of ops/domain_pop.py, so another process
-    never loads a partial file."""
+def _build() -> Optional[Path]:
+    """The library, built unless it is there; None when it cannot be built.
+    Callers hold _lock."""
     global builds, build_seconds
     cxx = _compiler()
     if cxx is None:
-        return False
-    with open(so.parent / ".build.lock", "w") as lock_fh:
-        fcntl.flock(lock_fh, fcntl.LOCK_EX)
-        if so.is_file():
-            return True
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                capture_output=True, timeout=120,
-            )
-        except (OSError, subprocess.SubprocessError):
-            return False
-        finally:
-            builds += 1
-            build_seconds += time.perf_counter() - t0
-        if proc.returncode != 0 or not tmp.is_file():
-            tmp.unlink(missing_ok=True)
-            return False
-        os.replace(tmp, so)
-    return True
+        return None
+    t0 = time.perf_counter()
+    (built,) = _platform.build(lambda: cxx, CXX_FLAGS, [SOURCE])
+    if built.ran:
+        builds += 1
+        build_seconds += time.perf_counter() - t0
+    return built.path if built.ok else None
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -104,13 +82,9 @@ def load() -> Optional[ctypes.CDLL]:
         # with these writes, but both writes happen under _lock and a stale
         # fast-path read only costs a harmless second trip into the lock
         _tried = True  # osim: audit-ok[race]
-        from ..ops.domain_pop import build_dir
-
         try:
-            out_dir = build_dir()
-            out_dir.mkdir(parents=True, exist_ok=True)
-            so = library_path(out_dir)
-            if not _build(so):
+            so = _build()
+            if so is None:
                 return None
             lib = ctypes.CDLL(str(so))
         except OSError:

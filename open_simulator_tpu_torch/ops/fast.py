@@ -72,6 +72,7 @@ from ..utils import metrics as _metrics
 from ..utils.tracing import child_span
 from . import delta as _delta
 from . import domain_pop as _dp
+from . import kernel_lib
 from . import light_scan as _ls
 from . import wave as _wave
 from .domain_pop import _hard_spread_ok, _spread_norm
@@ -869,8 +870,9 @@ def _domain_plan(
 
 def _takes_kernel(args: dict) -> bool:
     """Whether a domain_select call launches the domain_pop CUDA kernel (a
-    spread-only group on a card): the sanitizer lets it run unchecked."""
-    return args["traj"].packed.device.type == "cuda" and not _any_affinity(args["flags"])
+    spread-only group where domain_pop.takes_kernel says): the sanitizer
+    lets it run unchecked."""
+    return _dp.takes_kernel(args["traj"].packed.device) and not _any_affinity(args["flags"])
 
 
 @sanitizable("ops.fast:domain_select", skip=_takes_kernel)
@@ -1412,12 +1414,12 @@ def _fast_group(
             if plan is not None:
                 g = _bucket_light(length)
                 l_cap = _bucket_light(min(int(plan.counts.max()), length))
-                launched = _dp.thread_launches()
+                launched = kernel_lib.thread_launches("domain_pop")
                 mono, nodes_d, jidx_d, x = domain_select(
                     ns, traj, carry, row, static_ok, static_scores, na_ok, weights,
                     plan, g, l_cap, length, filter_on, flags,
                 )
-                _count_path("domain_kernel", _dp.thread_launches() - launched)
+                _count_path("domain_kernel", kernel_lib.thread_launches("domain_pop") - launched)
         if plan is not None:
             carry_d = finish(nodes_d[:length], jidx_d[:length], x, mono)
             if carry_d is not None:
@@ -1429,7 +1431,7 @@ def _fast_group(
 
     route = "micro" if flags.micro_spread else "scan"
     _count_path(route)
-    launched = _ls.thread_launches()
+    launched = kernel_lib.thread_launches("light_scan")
     with phase(f"select.{route}", dyn=_dynamics(flags)) as select_span:
         x = torch.zeros(N, dtype=torch.int32, device=dev)
         chunks, done, steps = [], 0, 0
@@ -1443,7 +1445,7 @@ def _fast_group(
             steps += _active_steps(done, g, length)
             chunks.append((nodes_d[:n], jidx_d[:n]))
             done += n
-        kernel = _ls.thread_launches() - launched
+        kernel = kernel_lib.thread_launches("light_scan") - launched
         _count_path("scan_kernel", kernel)
         if select_span is not None and route == "scan":
             select_span.meta["kernel"] = kernel

@@ -1,8 +1,8 @@
 """The light scan's steps of one chunk: the CUDA kernel's wrapper.
 
-`scan_chunk` launches the hand-written kernel in csrc/light_scan.cu (built
-with nvcc by domain_pop.build_libraries at first use, loaded with ctypes)
-for a node-local group: one launch runs every step of a chunk. Its plain
+`scan_chunk` launches the hand-written kernel in csrc/light_scan.cu
+(registered in ops/kernel_lib.py, which builds, loads, launches and counts
+it) for a node-local group: one launch runs every step of a chunk. Its plain
 version is the Python step loop of ops/fast.py:light_scan, which keeps
 every case this kernel does not take (tensors on the CPU, a mesh, groups
 with a spread or inter-pod affinity term); ops/fast.py chooses between the
@@ -21,32 +21,17 @@ counts the calling thread's launches.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import torch
 
-from . import domain_pop as _dp
-from . import scanmark
+from . import kernel_lib, scanmark
 from .kernels import F_NODE_PORTS, F_RESOURCES, NUM_FILTERS, WEIGHT_ORDER
-
-SOURCE = _dp._PKG / "csrc" / "light_scan.cu"
 
 # term codes of the fold (csrc/light_scan.cu); static row k is TERM_STATIC0 + k
 TERM_BALANCED, TERM_LEAST, TERM_GPU, TERM_LOCAL, TERM_ZERO, TERM_HUNDRED, TERM_STATIC0 = range(7)
 N_CHANNELS = 8              # Trajectory.packed's channels (ops/fast.py:N_CH)
 I32_MAX = 2**31 - 1
-
-launches = 0                # kernel launches since import (reset by callers)
-_lib = None
-_count_lock = threading.Lock()      # launches
-_local = threading.local()          # this thread's launches
-
-
-def thread_launches() -> int:
-    """Kernel launches made by the calling thread since it started."""
-    return getattr(_local, "launches", 0)
-
 
 def pack_terms(static_scores: dict, flags) -> Tuple[Tuple[int, ...], torch.Tensor]:
     """(term code per WEIGHT_ORDER position, static rows f32[S,N]) of a
@@ -81,45 +66,13 @@ def output_ranges(n: int, j: int) -> Tuple[Tuple[int, int], ...]:
     return (-1, n - 1), (0, I32_MAX), (0, I32_MAX)
 
 
-def _library():
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _dp._build_lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(_dp.build_libraries(SOURCE)[0]))
-        fn = lib.light_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        # a double-checked publish, as ops/domain_pop.py's
-        _lib = lib  # osim: audit-ok[race]
-        return _lib
-
-
-def _check(name, t, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f"light_scan: {name} is on {t.device}, expected {dev}")
-    if t.dtype != dtype:
-        raise ValueError(f"light_scan: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"light_scan: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"light_scan: {name} must be contiguous")
-
-
 def scan_chunk(ns, traj, pod, static_ok, static_scores, weights, fo, x0, steps: int,
                group_size: int, flags):
     """The first `steps` steps of a chunk of `group_size` from commit state
     x0, in one launch: (x i32[N], nodes i32[G], jidx i32[G]), the steps
     past `steps` or past the first infeasible one (-1, 0). CUDA tensors
     only; the caller takes the plain loop for anything else."""
-    global launches
     dev = x0.device
-    if dev.type != "cuda":
-        raise ValueError(f"light_scan: tensors on {dev}; the kernel needs CUDA")
     packed = traj.packed
     N, J, C = packed.shape
     R = ns.alloc.shape[1]
@@ -129,38 +82,29 @@ def scan_chunk(ns, traj, pod, static_ok, static_scores, weights, fo, x0, steps: 
         raise ValueError(f"light_scan: {steps} steps in a chunk of {group_size}")
     codes, statics = pack_terms(static_scores, flags)
     f32, i32, b = torch.float32, torch.int32, torch.bool
-    for name, t, dtype, shape in (
+    kernel_lib.check_tensors("light_scan", dev, (
         ("packed", packed, f32, (N, J, C)), ("x0", x0, i32, (N,)),
         ("static_ok", static_ok, b, (N,)), ("valid", ns.valid, b, (N,)),
         ("statics", statics, f32, (len(statics), N)), ("alloc", ns.alloc, f32, (N, R)),
         ("req", pod.req, f32, (R,)), ("weights", weights, f32, (len(WEIGHT_ORDER),)),
         ("filter_on", fo, b, (NUM_FILTERS,)), ("has_local", pod.has_local, b, ()),
-    ):
-        _check(name, t, dtype, shape, dev)
-    lib = _library()
+    ))
     x = torch.empty(N, dtype=i32, device=dev)
     nodes = torch.empty(group_size, dtype=i32, device=dev)
     jidx = torch.empty(group_size, dtype=i32, device=dev)
     work = torch.empty((4, N), dtype=f32, device=dev)
     feas = torch.empty(N, dtype=torch.uint8, device=dev)
     code_arr = (ctypes.c_int * len(codes))(*codes)
-    # a named host range around the ctypes launch, so a profiler trace ties
-    # the kernel to its caller
-    with torch.profiler.record_function("light_scan"):
-        err = lib.light_scan_launch(
-            packed.data_ptr(), x0.data_ptr(), static_ok.data_ptr(), ns.valid.data_ptr(),
-            statics.data_ptr(), ns.alloc.data_ptr(), pod.req.data_ptr(), weights.data_ptr(),
-            fo.data_ptr(), pod.has_local.data_ptr(), x.data_ptr(), nodes.data_ptr(),
-            jidx.data_ptr(), work.data_ptr(), feas.data_ptr(),
-            N, J, R, steps, group_size, flags.dyn_ports, flags.dyn_storage, flags.dyn_gpu,
-            F_NODE_PORTS, F_RESOURCES, code_arr,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"light_scan kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        launches += 1
-    _local.launches = thread_launches() + 1
+    kernel_lib.launch(
+        "light_scan", "light_scan_launch",
+        packed.data_ptr(), x0.data_ptr(), static_ok.data_ptr(), ns.valid.data_ptr(),
+        statics.data_ptr(), ns.alloc.data_ptr(), pod.req.data_ptr(), weights.data_ptr(),
+        fo.data_ptr(), pod.has_local.data_ptr(), x.data_ptr(), nodes.data_ptr(),
+        jidx.data_ptr(), work.data_ptr(), feas.data_ptr(),
+        N, J, R, steps, group_size, flags.dyn_ports, flags.dyn_storage, flags.dyn_gpu,
+        F_NODE_PORTS, F_RESOURCES, code_arr,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     # what the launch wrote, for an analysis that cannot see inside it
     scanmark.custom_outputs("light_scan", [
         (t, lo, hi) for t, (lo, hi) in zip((nodes, jidx, x), output_ranges(N, J))])

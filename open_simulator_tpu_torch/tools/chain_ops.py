@@ -18,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-from ..ops import domain_pop as dp
+from ..ops import kernel_lib
 
 SOURCE = Path(__file__).with_name("chain_ops.cu")
 MODES = (
@@ -35,10 +35,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chain_ops: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    lib = ctypes.CDLL(str(dp.build_libraries(SOURCE)[0]))
-    fn = lib.chain_ops_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    fn = kernel_lib.open_library(SOURCE, {"chain_ops_launch": (
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3, ctypes.c_int)}).chain_ops_launch
     stream = torch.cuda.current_stream().cuda_stream
     result = {"card": torch.cuda.get_device_name(0), "cycles": {}}
     for mode, name in enumerate(MODES):

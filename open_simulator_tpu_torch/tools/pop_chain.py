@@ -16,34 +16,27 @@ than G * cycles / g SM cycles.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 
-from ..ops import domain_pop as dp
+from ..ops import kernel_lib
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pop_chain_probe.cu"
+SOURCE = kernel_lib.CSRC / "pop_chain_probe.cu"
+SYMBOLS = {"pop_chain_probe_launch": (
+    [ctypes.c_int, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3, ctypes.c_int)}
 MAX_POPS = (1 << 24) - 1    # the probe's raw counts stay exact below 2^24
 
-_lib = None
 
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(dp.build_libraries(SOURCE)[0]))
-        fn = lib.pop_chain_probe_launch
-        fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def library():
+    """The probe's library (built and loaded at the first call)."""
+    return kernel_lib.open_library(SOURCE, SYMBOLS)
 
 
 def run(g: int, during=None, w_sp: float = 2.0, big_n: int = 12288, device="cuda"):
     """(loop SM cycles, loop ns, during()) of one probe launch of g pops."""
     if not 0 < g <= MAX_POPS:
         raise ValueError(f"pop_chain: g={g}; the probe takes 1..{MAX_POPS} pops")
-    lib = _library()
+    lib = library()
     dev = torch.device(device)
     out = torch.zeros(2, dtype=torch.int64, device=dev)
     sink = torch.empty(32, dtype=torch.float32, device=dev)

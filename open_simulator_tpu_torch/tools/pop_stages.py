@@ -1,18 +1,13 @@
-"""Stage split of the domain_pop kernels on the card, in SM cycles per pop.
+"""Stage split of the domain_pop kernel on the card, in SM cycles per pop.
 
     python3 -m open_simulator_tpu_torch.tools.pop_stages [--out stages.json]
 
 Captures the inputs of the first domain_pop call of one headline pass on the
-card and runs two stamped kernels on them:
-  * v1: tools/domain_pop_v1_stages.cu, the first version of the kernel with
-    clock64() stamps around its stages (counts, raw max, divide, total max,
-    argmin, head advance, count update);
-  * current: a copy of csrc/domain_pop.cu, written into build/, with a
-    clock64() stamp (after a __syncwarp()) in place of each "// stage:"
-    comment of its loop.
-Each stamped kernel's output must equal the package kernel's on the same
-inputs. Stamps serialize the warp at each stage end, so a stamped loop runs
-slower than the kernel itself; both totals are printed.
+card and runs on them a stamped copy of csrc/domain_pop.cu, written into
+the build directory, with a clock64() stamp (after a __syncwarp()) in
+place of each "// stage:" comment of its loop. Its output must equal the
+package kernel's on the same inputs. Stamps serialize the warp at each
+stage end, so the stamped loop runs slower than the kernel itself.
 
     python3 -m open_simulator_tpu_torch.tools.pop_stages --variant other.cu ...
 
@@ -35,11 +30,11 @@ import torch
 
 from ..headline import build_state
 from ..ops import domain_pop as dp
-from ..ops import fast
+from ..ops import fast, kernel_lib
 from ..ops.kernels import weights_array
+from ..utils import platform
 
-SOURCE = Path(__file__).with_name("domain_pop_v1_stages.cu")
-STAGES = ("counts", "raw max", "divide", "total max", "argmin", "head advance", "count update")
+SOURCE = kernel_lib.KERNELS["domain_pop"].source
 
 
 def main_path_pop_args(n_nodes: int = 10_000, n_pods: int = 100_000) -> list:
@@ -61,40 +56,10 @@ def main_path_pop_args(n_nodes: int = 10_000, n_pods: int = 100_000) -> list:
     return captured[0]
 
 
-def run_stamped(args):
-    """(nodes, jidx, stamps) of one launch of the stamped kernel; stamps are
-    the summed cycles of each stage, the loop's cycles and the loop's ns."""
-    lib = ctypes.CDLL(str(dp.build_libraries(SOURCE)[0]))
-    fn = lib.domain_pop_stages_launch
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    tensors = args[:14]
-    w_sp, fo_spread, valid_count, g, any_hard, big_n = args[14:]
-    dc, lanes = tensors[0].shape
-    c, d = tensors[6].shape
-    dev = tensors[0].device
-    nodes = torch.empty(g, dtype=torch.int32, device=dev)
-    jidx = torch.empty(g, dtype=torch.int32, device=dev)
-    stamps = torch.zeros(len(STAGES) + 2, dtype=torch.int64, device=dev)
-    smem = 4 * (2 * c * d + c * d * dc + c * dc + 4 * c + dc + 8)  # that kernel's layout
-    err = fn(
-        *(t.data_ptr() for t in tensors), nodes.data_ptr(), jidx.data_ptr(),
-        stamps.data_ptr(), dc, lanes, c, d, g, int(valid_count), int(bool(any_hard)),
-        int(bool(fo_spread)), int(big_n), float(w_sp), smem,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"stamped kernel launch failed: CUDA error {err}")
-    torch.cuda.synchronize()
-    return nodes, jidx, stamps.tolist()
-
-
 def stamped_source() -> tuple[Path, list[str]]:
     """csrc/domain_pop.cu with a stamp at each "// stage:" comment, written
     into build/; returns its path and the stage names in loop order."""
-    src = dp.SOURCE.read_text()
+    src = SOURCE.read_text()
     marks = re.findall(r"^[ \t]*// stage: (.+)$", src, re.M)
     names = [m for m in marks if m not in ("start", "end")]
     n = len(names)
@@ -122,7 +87,7 @@ def stamped_source() -> tuple[Path, list[str]]:
         "\nextern \"C\" int domain_pop_stages_read(void* out) {\n"
         f"  return static_cast<int>(cudaMemcpyFromSymbol(out, g_stage, {n + 1} * 8));\n}}\n"
     )
-    out_dir = dp.build_dir()
+    out_dir = platform.build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / "domain_pop_stamped.cu"
     path.write_text(prelude + body + tail)
@@ -132,12 +97,8 @@ def stamped_source() -> tuple[Path, list[str]]:
 def launcher(source: Path):
     """(run, lib): run(args) launches domain_pop_launch of a build of
     `source` on the wrapper's arguments and returns (nodes, jidx)."""
-    lib = ctypes.CDLL(str(dp.build_libraries(source)[0]))
+    lib = kernel_lib.open_library(source, kernel_lib.KERNELS["domain_pop"].symbols)
     fn = lib.domain_pop_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
 
     def run(args):
         tensors = args[:14]
@@ -179,7 +140,7 @@ def compare_variants(args, variants: list[str], reps: int = 5) -> dict:
     """Event-timed ms per launch of the package kernel and each variant, in
     turns, on the same inputs; each variant's output must equal the
     package's."""
-    runs = {"package": launcher(dp.SOURCE)[0]}
+    runs = {"package": launcher(SOURCE)[0]}
     runs.update({v: launcher(Path(v))[0] for v in variants})
     want = runs["package"](args)
     for name, run in runs.items():
@@ -218,24 +179,7 @@ def main() -> int:
     args = main_path_pop_args()
     g = args[-3]
     nodes_k, jidx_k = dp.domain_pop(*args)
-    run_stamped(args)  # warm
-    nodes_s, jidx_s, stamps = run_stamped(args)
-    if not (torch.equal(nodes_k, nodes_s) and torch.equal(jidx_k, jidx_s)):
-        print("pop_stages: stamped v1 kernel disagrees with the package kernel", file=sys.stderr)
-        return 1
-    per_pop = {name: stamps[k] / g for k, name in enumerate(STAGES)}
-    loop_cycles, loop_ns = stamps[len(STAGES)], stamps[len(STAGES) + 1]
-    result = {
-        "card": card, "pops": g, "shape": [list(args[0].shape), list(args[6].shape)],
-        "cycles_per_pop": per_pop, "loop_cycles_per_pop": loop_cycles / g,
-        "loop_ms": loop_ns / 1e6, "sm_mhz_from_timers": loop_cycles / loop_ns * 1e3,
-    }
-    print("v1 kernel (the first version):", flush=True)
-    for name, cyc in per_pop.items():
-        print(f"  {name:13s} {cyc:8.1f} cycles/pop", flush=True)
-    print(f"stamped loop: {loop_cycles / g:.1f} cycles/pop, {loop_ns / 1e6:.3f} ms, "
-          f"SM clock from clock64/globaltimer {result['sm_mhz_from_timers']:.0f} MHz", flush=True)
-
+    result = {"card": card, "pops": g, "shape": [list(args[0].shape), list(args[6].shape)]}
     run_current_stamped(args)  # warm
     nodes_c, jidx_c, cur, cur_loop = run_current_stamped(args)
     if not (torch.equal(nodes_k, nodes_c) and torch.equal(jidx_k, jidx_c)):

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,7 +25,7 @@ import torch
 
 from ..core.objects import Node, Pod
 from ..device import resolve_device
-from ..ops import domain_pop, encode, fast, light_scan, state
+from ..ops import encode, fast, kernel_lib, light_scan, state
 from ..ops.kernels import (
     DEFAULT_WEIGHTS, F_NODE_PORTS, F_RESOURCES, NUM_FILTERS, PodRow, weights_array,
 )
@@ -34,9 +33,9 @@ from ..ops.kernels import (
 GIB = 1 << 30
 PORT = {"containerPort": 80, "hostPort": 8080}
 STATIC_TERMS = ("node_affinity", "prefer_avoid_pods", "simon", "taint_toleration")
-CHAIN_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "scan_chain_probe.cu"
-
-_chain_lib = None
+CHAIN_SOURCE = kernel_lib.CSRC / "scan_chain_probe.cu"
+CHAIN_SYMBOLS = {"scan_chain_probe_launch": (
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int)}
 
 
 class Case(NamedTuple):
@@ -217,15 +216,9 @@ def compare(name: str, device="cuda") -> dict:
             "j_steps": int(args["traj"].packed.shape[1]), "nodes": int(args["ns"].valid.sum())}
 
 
-def _chain_library():
-    global _chain_lib
-    if _chain_lib is None:
-        lib = ctypes.CDLL(str(domain_pop.build_libraries(CHAIN_SOURCE)[0]))
-        fn = lib.scan_chain_probe_launch
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _chain_lib = lib
-    return _chain_lib
+def chain_library():
+    """The chain probe's library (built and loaded at the first call)."""
+    return kernel_lib.open_library(CHAIN_SOURCE, CHAIN_SYMBOLS)
 
 
 def chain_probe_ms(n: int, steps: int, reps: int = 5) -> float:
@@ -233,7 +226,7 @@ def chain_probe_ms(n: int, steps: int, reps: int = 5) -> float:
     csrc/scan_chain_probe.cu at `n` nodes (CUDA events, mean of `reps`
     launches after one warm launch): the floor of the kernel's per-step
     chain."""
-    fn = _chain_library().scan_chain_probe_launch
+    fn = chain_library().scan_chain_probe_launch
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
 

@@ -15,7 +15,9 @@ import torch
 import open_simulator_tpu_torch  # noqa: F401  (sets the TF32 switches)
 from open_simulator_tpu_torch import headline, sim_configs
 from open_simulator_tpu_torch.ops import domain_pop as dp
-from open_simulator_tpu_torch.ops import encode, fast, kernels, state
+from open_simulator_tpu_torch.ops import encode, fast, kernel_lib, kernels, state
+from open_simulator_tpu_torch.tools import scan_cases
+from open_simulator_tpu_torch.utils import platform
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -85,22 +87,73 @@ def _no_plain(*_args, **_kw):
     raise AssertionError("the plain version ran for a non-CPU tensor")
 
 
-def test_kernel_wrapper_raises_without_library(monkeypatch, tmp_path):
-    monkeypatch.setattr(dp, "_lib", None)
-    monkeypatch.setattr(dp, "BUILD_DIR", tmp_path)
+def _cpu_pop_args():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    arrays, scalars = chip_smoke.pop_inputs(3, 4, 16, 2, 4, 24, True, n=64)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays] + scalars
+
+
+KERNEL_NAMES = list(kernel_lib.KERNELS)
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_kernel_wrapper_raises_without_library(name, monkeypatch, tmp_path):
+    """With no library built and no nvcc, a launch raises and counts
+    nothing."""
+    monkeypatch.setattr(kernel_lib, "_libs", {})
+    monkeypatch.setattr(platform, "BUILD_DIR", tmp_path)
+    monkeypatch.delenv("OSIM_COMPILE_CACHE", raising=False)
     monkeypatch.setenv("NVCC", str(tmp_path / "no-nvcc"))
-    monkeypatch.setattr(dp, "domain_pop_reference", _no_plain)
-    before = dp.launches
+    before = kernel_lib.launches(name), kernel_lib.thread_launches(name)
+    symbol = next(iter(kernel_lib.KERNELS[name].symbols))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        dp.domain_pop(*_meta_args())
-    assert dp.launches == before
+        kernel_lib.launch(name, symbol)
+    assert (kernel_lib.launches(name), kernel_lib.thread_launches(name)) == before
+    assert not list(tmp_path.glob("*.so"))
 
 
-def test_kernel_wrapper_rejects_non_cuda_tensors(monkeypatch):
-    monkeypatch.setattr(dp, "_library", lambda: object())
+def _off_card_call(name):
+    """A call of kernel `name`'s launching half on tensors off a card."""
+    if name == "domain_pop":
+        return lambda: dp.domain_pop(*_meta_args())
+    args = scan_cases.build("gpu", "cpu")
+    return lambda: scan_cases.kernel(args)
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_kernel_wrapper_rejects_non_cuda_tensors(name, monkeypatch):
+    """The kernel half of a wrapper (domain_pop on any device but the CPU,
+    light_scan's scan_chunk) raises on tensors off a card, never falls back
+    to the plain version, and counts no launch."""
     monkeypatch.setattr(dp, "domain_pop_reference", _no_plain)
+    call = _off_card_call(name)
+    before = kernel_lib.launches(name)
     with pytest.raises(ValueError, match="needs CUDA"):
-        dp.domain_pop(*_meta_args())
+        call()
+    assert kernel_lib.launches(name) == before
+
+
+@pytest.mark.parametrize("name,case", [("domain_pop", None), ("light_scan", "gpu"),
+                                       ("light_scan", "ports")])
+def test_cpu_tensors_take_the_plain_loop(name, case, monkeypatch):
+    """CPU tensors take each kernel's plain version, never the launch, and
+    count no launch."""
+    def no_launch(*_a, **_k):
+        raise AssertionError("a kernel launched for CPU tensors")
+
+    monkeypatch.setattr(kernel_lib, "launch", no_launch)
+    before = kernel_lib.launches(name)
+    if name == "domain_pop":
+        args = _cpu_pop_args()
+        got, want = dp.domain_pop(*args), dp.domain_pop_reference(*args)
+    else:
+        args = scan_cases.build(case, "cpu")
+        got, want = fast.light_scan(**args), scan_cases.plain(args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kernel_lib.launches(name) == before
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|open_simulator_tpu)\b", re.M)
@@ -157,9 +210,9 @@ def test_kernel_matches_plain_on_card(card, variant, hard):
     seed, dc, lanes, d, g, cap = _CARD_VARIANTS[variant]
     arrays, scalars = chip_smoke.pop_inputs(seed, dc, lanes, 2, d, g, hard, cap=cap)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in arrays] + scalars
-    before = dp.launches
+    before = kernel_lib.launches("domain_pop")
     nodes, jidx = dp.domain_pop(*args)
-    assert dp.launches == before + 1
+    assert kernel_lib.launches("domain_pop") == before + 1
     ref_nodes, ref_jidx = dp.domain_pop_reference(*args)
     assert torch.equal(nodes, ref_nodes) and torch.equal(jidx, ref_jidx)
     if variant == "all-exhausted":
@@ -186,7 +239,7 @@ def test_chain_probe_rejects_bad_pop_counts():
 
 
 def test_kernel_wrapper_checks_exactness_limits(monkeypatch):
-    monkeypatch.setattr(dp, "_library", lambda: object())
+    monkeypatch.setattr(kernel_lib, "library", _no_plain)   # checked before any load
     args = _meta_args()
     args[-3] = dp.EXACT  # group_size: C * G counts past 2^24
     with pytest.raises(ValueError, match="2\\^24"):

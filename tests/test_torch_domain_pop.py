@@ -13,6 +13,7 @@ import torch
 
 from open_simulator_tpu.ops import fast as jfast
 from open_simulator_tpu_torch.ops import domain_pop as dp
+from open_simulator_tpu_torch.ops import kernel_lib
 
 
 def make_inputs(seed, dc, lanes, c, d, g, hard):
@@ -168,11 +169,11 @@ def check_all(a):
     """Pallas kernel (interpret mode), the port's CPU path (the plain
     version) and the kernel's emulation: all three bit-equal."""
     want_nodes, want_jidx = run_jax(a)
-    before = dp.launches
+    before = kernel_lib.launches("domain_pop")
     nodes, jidx = dp.domain_pop(*port_args(a))
     np.testing.assert_array_equal(nodes.numpy(), want_nodes)
     np.testing.assert_array_equal(jidx.numpy(), want_jidx)
-    assert dp.launches == before  # the CPU takes the plain version
+    assert kernel_lib.launches("domain_pop") == before  # the CPU takes the plain version
     em_nodes, em_jidx = emulate_kernel(a)
     np.testing.assert_array_equal(em_nodes, want_nodes)
     np.testing.assert_array_equal(em_jidx, want_jidx)

@@ -19,10 +19,11 @@ import pytest
 import torch
 
 from open_simulator_tpu_torch import bench_configs
-from open_simulator_tpu_torch.ops import domain_pop, fast, light_scan
+from open_simulator_tpu_torch.ops import fast, kernel_lib, light_scan
 from open_simulator_tpu_torch.ops.kernels import F_NODE_PORTS, F_RESOURCES, weights_array
 from open_simulator_tpu_torch.parallel import slots as nx
 from open_simulator_tpu_torch.tools import scan_cases
+from open_simulator_tpu_torch.utils import platform
 
 torch.set_num_threads(1)
 
@@ -222,21 +223,6 @@ def test_engagement_rule_reads_device_mesh_and_flags(flag, monkeypatch):
     assert not fast._takes_scan_kernel(_cuda_like(), flags)
 
 
-@pytest.mark.parametrize("name", ["gpu", "ports"])
-def test_cpu_tensors_take_the_plain_loop(name, monkeypatch):
-    """light_scan on CPU tensors runs the plain loop, never the wrapper."""
-    def no_kernel(*_a, **_k):
-        raise AssertionError("the kernel wrapper ran for CPU tensors")
-
-    monkeypatch.setattr(light_scan, "scan_chunk", no_kernel)
-    args = scan_cases.build(name, "cpu")
-    before = light_scan.launches
-    got = fast.light_scan(**args)
-    for g, w in zip(got, scan_cases.plain(args)):
-        assert torch.equal(g, w)
-    assert light_scan.launches == before
-
-
 def test_cpu_simulate_counts_no_scan_kernel():
     """A GPU-share group through schedule_batch_fast on the CPU takes the
     scan route and counts no scan_kernel launch, in PATH_COUNTS and in its
@@ -268,14 +254,6 @@ def test_cpu_simulate_counts_no_scan_kernel():
     (group,) = [c for c in root["children"] if c["name"] == "group"]
     (select,) = [c for c in group["children"] if c["name"] == "select.scan"]
     assert select["meta"] == {"dyn": ["gpu"], "kernel": 0}
-
-
-def test_wrapper_rejects_cpu_tensors():
-    args = scan_cases.build("gpu", "cpu")
-    before = light_scan.launches
-    with pytest.raises(ValueError, match="needs CUDA"):
-        scan_cases.kernel(args)
-    assert light_scan.launches == before
 
 
 @pytest.mark.parametrize("name", CPU_CASES)
@@ -333,30 +311,31 @@ def test_route_split_sums_the_kernel_meta():
 def test_each_loader_builds_only_its_own_source(monkeypatch):
     """domain_pop, light_scan and the scan chain probe each build only
     their own CUDA source when they load: a process that only pops never
-    compiles the scan kernel, and the probe is no part of the scheduler's
-    libraries."""
+    compiles the scan kernel, and the probe is no part of the registry
+    that warmup builds."""
     built = []
 
     def fake_build(*sources):
         built.append(tuple(sources))
         return [Path(f"/nonexistent/lib{src.stem}.so") for src in sources]
 
-    monkeypatch.setattr(domain_pop, "build_libraries", fake_build)
+    monkeypatch.setattr(platform, "build_kernels", fake_build)
     monkeypatch.setattr(ctypes, "CDLL", lambda path: types.SimpleNamespace(
         domain_pop_launch=types.SimpleNamespace(),
         domain_pop_divide_check=types.SimpleNamespace(),
         light_scan_launch=types.SimpleNamespace(),
         scan_chain_probe_launch=types.SimpleNamespace()))
-    for mod, attr in ((domain_pop, "_lib"), (light_scan, "_lib"), (scan_cases, "_chain_lib")):
-        monkeypatch.setattr(mod, attr, None)
-    domain_pop._library()
-    light_scan._library()
-    scan_cases._chain_library()
-    assert built == [(domain_pop.SOURCE,), (light_scan.SOURCE,), (scan_cases.CHAIN_SOURCE,)]
+    monkeypatch.setattr(kernel_lib, "_libs", {})
+    kernel_lib.library("domain_pop")
+    kernel_lib.library("light_scan")
+    scan_cases.chain_library()
+    kernel_lib.library("light_scan")     # loaded once
     assert [src.name for (src,) in built] == [
         "domain_pop.cu", "light_scan.cu", "scan_chain_probe.cu"]
+    assert [src for (src,) in built[:2]] == list(kernel_lib.SOURCES)
+    assert scan_cases.CHAIN_SOURCE not in kernel_lib.SOURCES
     assert "__global__ void __launch_bounds__(kThreads, 1) chain_probe_kernel" not in \
-        light_scan.SOURCE.read_text()
+        kernel_lib.KERNELS["light_scan"].source.read_text()
 
 
 # -- on the card -------------------------------------------------------------
@@ -367,10 +346,10 @@ def test_kernel_matches_plain_loop_on_card(card, name):
     """The kernel and the plain step loop, bit-equal on the card: nodes,
     lanes and exit x; one launch a chunk."""
     args = scan_cases.build(name, card)
-    before = light_scan.launches
+    before = kernel_lib.launches("light_scan")
     got = scan_cases.kernel(args)
     torch.cuda.synchronize()
-    assert light_scan.launches == before + 1
+    assert kernel_lib.launches("light_scan") == before + 1
     want = scan_cases.plain(args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

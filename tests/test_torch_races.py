@@ -823,10 +823,12 @@ def test_package_roots_cover_the_ports_threads():
 
 
 def test_kernel_build_declares_its_lock():
-    from open_simulator_tpu_torch.ops import domain_pop
+    from open_simulator_tpu_torch.ops import kernel_lib
+    from open_simulator_tpu_torch.utils import platform
     from open_simulator_tpu_torch.utils.concurrency import GUARDED_BY_ATTR
 
-    assert getattr(domain_pop._build_missing, GUARDED_BY_ATTR) == "_build_lock"
+    assert getattr(platform._build_missing, GUARDED_BY_ATTR) == "_build_lock"
+    assert getattr(kernel_lib._load, GUARDED_BY_ATTR) == "_lock"
 
 
 def test_profiler_prime_is_serialized(monkeypatch):
@@ -904,3 +906,40 @@ def _untraced_allocations():
     yield
     if tracing:
         tracemalloc.start()
+
+
+def test_kernel_launch_counts_are_exact_across_threads(monkeypatch):
+    """ops/kernel_lib.py's launch counters under contention: more threads
+    than cores launching a stand-in library, with a short switch interval;
+    the process count rises by every launch, each thread's by its own."""
+    import sys
+    import types
+
+    from open_simulator_tpu_torch.ops import kernel_lib
+
+    source = kernel_lib.KERNELS["domain_pop"].source
+    monkeypatch.setattr(kernel_lib, "_libs", {
+        source: types.SimpleNamespace(domain_pop_launch=lambda *args: 0)})
+    n_threads, per_thread = 16, 500
+    before = kernel_lib.launches("domain_pop")
+    seen = []
+
+    def work():
+        mine = kernel_lib.thread_launches("domain_pop")
+        for _ in range(per_thread):
+            kernel_lib.launch("domain_pop", "domain_pop_launch")
+        seen.append(kernel_lib.thread_launches("domain_pop") - mine)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert seen == [per_thread] * n_threads
+    assert kernel_lib.launches("domain_pop") == before + n_threads * per_thread

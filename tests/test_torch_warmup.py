@@ -23,6 +23,7 @@ Both captures pin the scenario driver to its one-scan route
 `schedule_scenarios` is captured on an 8-core host too. Tolerance: exact.
 """
 
+import ast
 import inspect
 import os
 import stat
@@ -35,11 +36,12 @@ import torch
 
 from open_simulator_tpu.analysis import jaxpr_audit as jaudit
 from open_simulator_tpu.ops import grouped as jgrouped
+from open_simulator_tpu_torch import native as tnative
 from open_simulator_tpu_torch import sim_configs
 from open_simulator_tpu_torch.analysis import entry_audit as taudit
 from open_simulator_tpu_torch.engine import warmup as twarmup
-from open_simulator_tpu_torch.ops import domain_pop as dp
 from open_simulator_tpu_torch.ops import grouped as tgrouped
+from open_simulator_tpu_torch.ops import kernel_lib
 from open_simulator_tpu_torch.utils import metrics as tmetrics
 from open_simulator_tpu_torch.utils import platform as tplatform
 from open_simulator_tpu_torch.utils.profiling import _fresh_args
@@ -236,13 +238,14 @@ def test_compile_counter_counts_build_and_load(tmp_path, monkeypatch):
     tplatform.install_compile_listener()
     builds0 = tmetrics.COMPILE_CACHE.value(event="backend_compile")
     hits0 = tmetrics.COMPILE_CACHE.value(event="persistent_hit")
+    source = kernel_lib.KERNELS["domain_pop"].source
     with tplatform.CompileCounter() as cold:
-        (so,) = dp.build_libraries(dp.SOURCE)
+        (so,) = tplatform.build_kernels(source)
     assert (cold.backend_compiles, cold.persistent_hits, cold.cold_compiles) == (1, 0, 1)
     assert so.is_file() and so.parent.parent == tmp_path / "cache"
-    assert so.parent == dp.build_dir() == Path(tplatform.enable_compilation_cache())
+    assert so.parent == tplatform.build_dir() == Path(tplatform.enable_compilation_cache())
     with tplatform.CompileCounter() as warm:
-        assert dp.build_libraries(dp.SOURCE) == [so]
+        assert tplatform.build_kernels(source) == [so]
     assert (warm.backend_compiles, warm.persistent_hits, warm.cold_compiles) == (0, 1, 0)
     assert tmetrics.COMPILE_CACHE.value(event="backend_compile") == builds0 + 1
     assert tmetrics.COMPILE_CACHE.value(event="persistent_hit") == hits0 + 1
@@ -250,11 +253,49 @@ def test_compile_counter_counts_build_and_load(tmp_path, monkeypatch):
 
 def test_compile_cache_unset_is_build_dir(monkeypatch, tmp_path):
     monkeypatch.delenv("OSIM_COMPILE_CACHE", raising=False)
-    assert dp.build_dir() == dp.BUILD_DIR
-    monkeypatch.setattr(dp, "BUILD_DIR", tmp_path)
-    assert dp.build_dir() == tmp_path
+    assert tplatform.build_dir() == tplatform.BUILD_DIR
+    monkeypatch.setattr(tplatform, "BUILD_DIR", tmp_path)
+    assert tplatform.build_dir() == tmp_path
     assert tplatform.enable_compilation_cache() == str(tmp_path)
     assert not os.listdir(tmp_path)
+
+
+def test_warmup_builds_exactly_the_registry(monkeypatch):
+    """On a card, warmup and the warm-start check build the sources of
+    ops/kernel_lib.py's registry in one nvcc step, and nothing else; on the
+    CPU they build no kernel."""
+    built = []
+    monkeypatch.setattr(tplatform, "build_kernels", lambda *src: built.append(src) or [])
+    monkeypatch.setattr(tnative, "available", lambda: True)
+    assert twarmup.build_libraries(torch.device("cuda")) is True
+    assert built == [tuple(k.source for k in kernel_lib.KERNELS.values())]
+    assert twarmup.build_libraries(torch.device("cpu")) is True
+    assert len(built) == 1
+
+
+def _imported_modules(path: Path, root: Path):
+    """(line, absolute module name) of every import in `path`, a module of
+    the package at `root`."""
+    package = [root.name, *path.relative_to(root).parent.parts]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            yield from ((node.lineno, f"{mod}.{a.name}") for a in node.names)
+
+
+@pytest.mark.parametrize("package", ["utils", "native"])
+def test_build_layer_imports_nothing_from_ops(package):
+    """The build step (utils/platform.py) and the native runtime sit below
+    ops/: no module of utils/ or native/ imports from it."""
+    root = Path(tplatform.__file__).resolve().parents[1]
+    bad = [f"{path.relative_to(root)}:{line} {name}"
+           for path in sorted((root / package).rglob("*.py"))
+           for line, name in _imported_modules(path, root)
+           if name.startswith(f"{root.name}.ops.")]
+    assert bad == []
 
 
 def test_acquire_backend_runs_the_warm_phase(tmp_path, monkeypatch):
