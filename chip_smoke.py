@@ -23,7 +23,9 @@
    gpushare, mixed) through the same passes, holding its digest, its route
    counts and its domain_pop launches against the JAX package's run, its
    light_scan launches against bench_configs.SCAN_KERNEL_GROUPS and its
-   select.scan spans' `kernel` meta, and
+   select.scan spans' `kernel` meta, its trajectory launches against
+   bench_configs.TRAJ_KERNEL_GROUPS and its trajectory spans' `kernel` meta,
+   and
    printing wall, pods/s, the phase split and the microseconds per step of
    each route's select spans (grouped, scan, micro, domain_affinity). On `mixed` the
    port's sequential oracle `kernels.schedule_batch` runs on the card too
@@ -139,17 +141,21 @@
    pairs). Then holds the light_scan kernel (csrc/light_scan.cu) bit-equal
    to its plain step loop on the seeded node-local chunks of
    tools/scan_cases.py and times it, the plain loop and its chain probe on
-   pai_gpu.share's widest group (scan_kernel_phase).
+   pai_gpu.share's widest group (scan_kernel_phase); then the trajectory
+   kernel (csrc/trajectory.cu) bit-equal to build_trajectory's J-step loop
+   on the trajectory cases of tools/scan_cases.py, and times it and the
+   loop on the `pai` case (traj_kernel_phase).
 14. Times the pop chain probe (csrc/pop_chain_probe.cu) with clock64() while
    nvidia-smi reads the SM clock, and prints the latency bound of the main
    path's pop loop beside the kernel's own cycles per pop.
 15. Prints one JSON line of per-kernel numbers (launches summed over the
    headline's and the workloads' timed passes, the timed plan call, the warm
    preempt call, the apply runs, the capacity, prove, tooling, extender,
-   durable, resident, serve and mesh phases; light_scan's over the same
-   passes, where the headline's and each workload's are held against
-   bench_configs.SCAN_KERNEL_GROUPS, and never the kernel test's) and, last,
-   the result line.
+   durable, resident, serve and mesh phases; light_scan's and trajectory's
+   over the same passes, where the headline's and each workload's are held
+   against their counts, bench_configs.SCAN_KERNEL_GROUPS and
+   TRAJ_KERNEL_GROUPS, and never the kernel tests') and, last, the result
+   line.
 
 Any failure exits non-zero without the result line.
 """
@@ -388,6 +394,47 @@ def scan_kernel_phase(torch, launches, reps=20):
     return row, failures
 
 
+def traj_kernel_phase(torch, launches, reps=20):
+    """The trajectory kernel against build_trajectory's J-step loop on the
+    card: every trajectory case of tools/scan_cases.py bit-equal (every
+    tensor, as int32 views), one launch each, then the `pai` case
+    (pai_gpu.share's widest group, J = 32 over 2,048 rows) timed: the
+    launch alone by CUDA events over `reps` launches, and the whole
+    build_trajectory through the kernel and through the loop. `launches`:
+    the main path's counted trajectory launches. Returns (the kernel's row,
+    failures)."""
+    from open_simulator_tpu_torch.tools import scan_cases as sc
+
+    failures = []
+    for name in sc.TRAJ_CASES:
+        r = sc.compare_trajectory(name)
+        print(f"trajectory[{name}] {'bit-equal to' if not r['differ'] else 'DIFFERS from'} "
+              f"the loop: {r['nodes']} nodes ({r['rows']} rows), J {r['j_steps']}, R "
+              f"{r['resources']}, G {r['gpus']}, GPU dynamics {r['dyn_gpu']}, launches "
+              f"{r['launches']}" + (f", differ {r['differ']}" if r["differ"] else ""), flush=True)
+        if r["differ"] or r["launches"] != 1:
+            failures.append(f"trajectory[{name}]: {r['launches']} launches, differ {r['differ']}")
+    t = sc.trajectory_ms("pai", reps)
+    print(f"trajectory[pai] J {t['j_steps']} over {t['rows']} rows (R {t['resources']}, G "
+          f"{t['gpus']}): kernel {t['kernel_ms']:.4f} ms, build_trajectory {t['build_kernel_ms']:.2f}"
+          f" ms with the kernel, {t['build_plain_ms']:.1f} ms with the loop", flush=True)
+    row = {
+        "name": "trajectory",
+        "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/trajectory.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": 0 if not failures else None,
+        "ms": t["kernel_ms"],
+        "plain_ms": t["build_plain_ms"],
+        "bound_ms": t["rows"] * t["j_steps"] * (t["resources"] + 8 + 2 * t["gpus"]) * 4 / 3.35e9,
+        "bound_by": "bytes written",
+        "library_ms": None,
+        "latency_bound_ms": None,
+    }
+    return row, failures
+
+
 def capture_pops(dp, torch, keep):
     """Wrap dp.domain_pop so the calls' inputs are cloned into `keep` (until
     it holds one); returns the undo function."""
@@ -597,6 +644,7 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
         paths = {k: v for k, v in fast.PATH_COUNTS.items() if v and k not in fast.KERNEL_COUNTS}
         kernel_groups, launches = fast.PATH_COUNTS["domain_kernel"], win["domain_pop"]
         scan_groups, scan_launches = fast.PATH_COUNTS["scan_kernel"], win["light_scan"]
+        traj_groups, traj_launches = fast.PATH_COUNTS["traj_kernel"], win["trajectory"]
 
         digest = placement_digest(*result)
         scheduled = int((result[1][:total] >= 0).sum())
@@ -615,8 +663,9 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
                       f"{sec / n * 1e6:.1f} us/step (select spans incl. per-group set-up; "
                       f"not synchronised)", flush=True)
         scan_spans = split.get("scan", {}).get("kernel", 0)
+        traj_spans = sum(r.get("traj_kernel", 0) for r in split.values())
         print(f"routes[{name}] paths {paths} domain_pop launches {launches} light_scan launches "
-              f"{scan_launches} digest {digest}", flush=True)
+              f"{scan_launches} trajectory launches {traj_launches} digest {digest}", flush=True)
         if digest != bench_configs.DIGESTS[name]:
             failures.append(f"{name}: digest {digest} != {bench_configs.DIGESTS[name]}")
         if paths != bench_configs.PATHS[name]:
@@ -628,10 +677,14 @@ def routes_phase(torch, dp, fast, kernels, w, captured):
             failures.append(f"{name}: light_scan launches {scan_launches} / counted {scan_groups} "
                             f"/ select.scan kernel meta {scan_spans}, expected "
                             f"{bench_configs.SCAN_KERNEL_GROUPS[name]}")
+        if not traj_launches == traj_groups == traj_spans == bench_configs.TRAJ_KERNEL_GROUPS[name]:
+            failures.append(f"{name}: trajectory launches {traj_launches} / counted {traj_groups} "
+                            f"/ trajectory kernel meta {traj_spans}, expected "
+                            f"{bench_configs.TRAJ_KERNEL_GROUPS[name]}")
         res = {"pods": total, "scheduled": scheduled, "encode_s": encode_s, "warm_s": warm_s,
                "run_s": run_s, "pods_per_s": total / run_s,
                "phases": timings, "steps": steps, "paths": paths, "launches": launches,
-               "scan_launches": scan_launches, "digest": digest}
+               "scan_launches": scan_launches, "traj_launches": traj_launches, "digest": digest}
         if name == "mixed":
             done, oracle_s, bad = run_oracle(kernels, ns, carry, batch, w, result, torch)
             print(f"routes[mixed] oracle schedule_batch on the card: {done} of {total} pods "
@@ -2489,7 +2542,9 @@ def _mesh_plan(torch, dp, fast, ref, nodes4, pop_path, results):
     failures = []
     if digest != sc.SIM_DIGESTS["plan"]:
         failures.append(f"plan on 4 slots: digest {digest} != {sc.SIM_DIGESTS['plan']}")
-    if routes != ref["routes"] or n_pop != ref["launches"] or not captured:
+    # a mesh builds its trajectories with the loop: no trajectory launch
+    unsharded = {k: v for k, v in ref["routes"].items() if k != "traj_kernel"}
+    if routes != unsharded or n_pop != ref["launches"] or not captured:
         failures.append(f"plan on 4 slots: routes {routes}, {n_pop} launches; unsharded "
                         f"{ref['routes']}, {ref['launches']}")
     if captured and pop_path:
@@ -3292,7 +3347,8 @@ def run_all(opts, torch, tmp, children) -> int:
         print(f"{name}-pass spans (s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in ph.items()), flush=True)
     print(f"paths {paths} domain_pop launches {launches['domain_pop']}, light_scan launches "
-          f"{launches['light_scan']}, native hash_rows calls {hash_calls}", flush=True)
+          f"{launches['light_scan']}, trajectory launches {launches['trajectory']}, native "
+          f"hash_rows calls {hash_calls}", flush=True)
     print(f"digest {digest}", flush=True)
     failures = []
     if scheduled != n_pods:
@@ -3305,6 +3361,9 @@ def run_all(opts, torch, tmp, children) -> int:
     if not paths["scan_kernel"] == launches["light_scan"] == 0:
         failures.append(f"light_scan launches {launches['light_scan']} / counted "
                         f"{paths['scan_kernel']}, expected none (no node-local scan group)")
+    if not 0 < paths["traj_kernel"] == launches["trajectory"]:
+        failures.append(f"trajectory launches {launches['trajectory']} / counted "
+                        f"{paths['traj_kernel']}, expected one a trajectory")
     if digest != HEADLINE_DIGEST_100K_10K:
         failures.append(f"digest {digest} != reference {HEADLINE_DIGEST_100K_10K}")
     if not finite:
@@ -3341,7 +3400,8 @@ def run_all(opts, torch, tmp, children) -> int:
         print("chip_smoke: routes FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     for r in routes.values():
-        launches.update(domain_pop=r["launches"], light_scan=r["scan_launches"])
+        launches.update(domain_pop=r["launches"], light_scan=r["scan_launches"],
+                        trajectory=r["traj_launches"])
 
     # -- the runtime tooling starts in a child process here: most of it is
     # host Python, and it must end before the serve phase
@@ -3482,6 +3542,10 @@ def run_all(opts, torch, tmp, children) -> int:
     if failures:
         print("chip_smoke: light_scan FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
+    traj_row, failures = traj_kernel_phase(torch, launches["trajectory"])
+    if failures:
+        print("chip_smoke: trajectory FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
     kernel_rows = [{
         "name": "domain_pop",
         "route": "cuda",
@@ -3495,7 +3559,7 @@ def run_all(opts, torch, tmp, children) -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "latency_bound_ms": latency_ms,
-    }, scan_row]
+    }, scan_row, traj_row]
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({

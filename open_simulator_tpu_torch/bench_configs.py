@@ -30,7 +30,9 @@ weights, default chunking); `PATHS` the route counts that run gives, and
 one that falls back included), i.e. launch the domain_pop kernel once each
 on the card; `SCAN_KERNEL_GROUPS` how many take the light scan with no
 coupled term, i.e. launch the light_scan kernel once each on the card (one
-chunk each at the default chunking).
+chunk each at the default chunking); `TRAJ_KERNEL_GROUPS` how many build a
+trajectory with no port or storage dynamics, i.e. launch the trajectory
+kernel once each on the card.
 """
 
 from __future__ import annotations
@@ -73,6 +75,8 @@ PATHS = {
 DOMAIN_POP_GROUPS = {"spread_affinity": 1, "gpushare": 0, "mixed": 6}
 
 SCAN_KERNEL_GROUPS = {"spread_affinity": 0, "gpushare": 2, "mixed": 0}
+
+TRAJ_KERNEL_GROUPS = {"spread_affinity": 2, "gpushare": 2, "mixed": 11}
 
 
 def _bench_node(name, cpu, mem, labels=None, capacity_extra=None):

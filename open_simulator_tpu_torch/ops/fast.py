@@ -74,6 +74,7 @@ from . import delta as _delta
 from . import domain_pop as _dp
 from . import kernel_lib
 from . import light_scan as _ls
+from . import trajectory as _traj
 from . import wave as _wave
 from .domain_pop import _hard_spread_ok, _spread_norm
 from .encode import PodBatch, round_up
@@ -135,15 +136,15 @@ J_CAP = 512
 DM_CAP = 64
 
 # Groups scheduled per strategy since import: the reference's keys, plus
-# the launches of the port's CUDA kernels: "domain_kernel" (domain_pop) and
-# "scan_kernel" (light_scan). The port has no Pallas route, so
-# "domain_pallas" stays 0 as in the reference's default.
+# the launches of the port's CUDA kernels: "domain_kernel" (domain_pop),
+# "scan_kernel" (light_scan) and "traj_kernel" (trajectory). The port has
+# no Pallas route, so "domain_pallas" stays 0 as in the reference's default.
 PATH_COUNTS = {
     "sort": 0, "micro": 0, "scan": 0, "grouped": 0, "sort_fallback": 0,
     "domain": 0, "domain_fallback": 0, "domain_pallas": 0, "domain_kernel": 0,
-    "scan_kernel": 0,
+    "scan_kernel": 0, "traj_kernel": 0,
 }
-KERNEL_COUNTS = ("domain_kernel", "scan_kernel")
+KERNEL_COUNTS = ("domain_kernel", "scan_kernel", "traj_kernel")
 _PATH_LOCK = threading.Lock()  # simulate() may run on two threads at once (the server)
 
 
@@ -250,7 +251,19 @@ def _any_affinity(flags: GroupFlags) -> bool:
     return flags.any_req_aff or flags.any_pref_aff or flags.any_anti_sym
 
 
-@sanitizable("ops.fast:build_trajectory")
+def _takes_traj_kernel(free: torch.Tensor, flags: GroupFlags) -> bool:
+    """The trajectory kernel takes a group on a card, off a mesh, when its
+    host-port and open-local state cannot change: every lane then evolves
+    only the node's resources and GPU memory, which is what the kernel
+    carries. Groups with port or storage dynamics keep the plain loop."""
+    return (
+        free.device.type == "cuda" and nx.current() is None
+        and not (flags.dyn_ports or flags.dyn_storage)
+    )
+
+
+@sanitizable("ops.fast:build_trajectory",
+             skip=lambda args: _takes_traj_kernel(args["carry"].free, args["flags"]))
 def build_trajectory(
     ns: NodeStatic,
     carry: Carry,
@@ -265,11 +278,14 @@ def build_trajectory(
 
     Returns (Trajectory, static_ok, static_ff, static_scores, na_ok).
 
-    The J-step scan is a Python loop. State the pod cannot change (host
-    ports, storage, GPU memory when `flags` says it requests none) stays
-    equal to its entry value at every step — the reference's updates add or
-    subtract exact zeros — so its masks, scores and takes are evaluated once
-    and broadcast over the J lanes."""
+    State the pod cannot change (host ports, storage, GPU memory when
+    `flags` says it requests none) stays equal to its entry value at every
+    step — the reference's updates add or subtract exact zeros — so its
+    masks, scores and takes are evaluated once and broadcast over the J
+    lanes. A group with no port or storage dynamics on a card
+    (`_takes_traj_kernel`) runs the J steps in one launch of the trajectory
+    CUDA kernel (ops/trajectory.py); every other group takes the J-step
+    Python loop, the kernel's plain version."""
     N = carry.free.shape[0]
     J = j_steps
 
@@ -281,15 +297,33 @@ def build_trajectory(
             carry.port_any.shape[0], carry.port_ipc.shape[0], pod
         )
     else:
-        port_ok = bcast(ports_mask(carry, pod))
+        port_row = ports_mask(carry, pod)
     if not flags.dyn_storage:
-        ok, vg_t, dev_t, raw = local_storage_eval(ns, carry, pod)
+        sto_row, vg_t, dev_t, sto_raw_row = local_storage_eval(ns, carry, pod)
         vg_free, dev_free = bcast(carry.vg_free), bcast(carry.dev_free)
-        vg_take, dev_take, sto_ok, sto_raw = bcast(vg_t), bcast(dev_t), bcast(ok), bcast(raw)
+        vg_take, dev_take = bcast(vg_t), bcast(dev_t)
     if not flags.dyn_gpu:
         gpu_free = bcast(carry.gpu_free)
         gpu_take = bcast(gpu_allocate_rowwise(ns, carry.gpu_free, pod))
-        g_ok, g_raw = bcast(gpu_mask(ns, carry, pod)), bcast(gpu_share_raw(ns, carry, pod))
+        g_row, g_raw_row = gpu_mask(ns, carry, pod), gpu_share_raw(ns, carry, pod)
+
+    f32 = torch.float32
+    if _takes_traj_kernel(carry.free, flags):
+        free, dyn_free, dyn_take, packed = _traj.build(
+            ns, carry, pod, J, port_row.to(f32), sto_row.to(f32), sto_raw_row,
+            None if flags.dyn_gpu else (g_row.to(f32), g_raw_row),
+        )
+        if flags.dyn_gpu:
+            gpu_free, gpu_take = dyn_free, dyn_take
+        traj = Trajectory(free, gpu_free, vg_free, dev_free, gpu_take, vg_take, dev_take, packed)
+        return (traj,) + tuple(_static_parts(ns, pod, weights, filter_on))
+
+    if not flags.dyn_ports:
+        port_ok = bcast(port_row)
+    if not flags.dyn_storage:
+        sto_ok, sto_raw = bcast(sto_row), bcast(sto_raw_row)
+    if not flags.dyn_gpu:
+        g_ok, g_raw = bcast(g_row), bcast(g_raw_row)
 
     def step(vc):
         # the node-local rows of lane j, recorded before its virtual commit
@@ -334,7 +368,6 @@ def build_trajectory(
         gpu_free, gpu_take = lanes("gpu_free"), lanes("gpu_take")
         g_ok, g_raw = lanes("g_ok"), lanes("g_raw")
 
-    f32 = torch.float32
     packed = torch.stack(
         [
             free[:, :, 0], free[:, :, 1], res_fail.to(f32), port_ok.to(f32),
@@ -1348,10 +1381,15 @@ def _fast_group(
     N = ns.valid.shape[0]
     j_steps = _bucket_j(j_need)
     info["j_steps"] = j_steps
-    with phase("trajectory"):
+    launched = kernel_lib.thread_launches("trajectory")
+    with phase("trajectory") as traj_span:
         traj, static_ok, static_ff, static_scores, na_ok = build_trajectory(
             ns, carry, row, weights, j_steps, filter_on, flags
         )
+        kernel = kernel_lib.thread_launches("trajectory") - launched
+        _count_path("traj_kernel", kernel)
+        if traj_span is not None:
+            traj_span.meta["kernel"] = kernel
     sl = slice(start, start + length)
 
     def finish(nodes_d, jidx_d, x_d, mono_d=None):

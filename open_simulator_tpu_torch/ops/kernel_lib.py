@@ -59,6 +59,9 @@ KERNELS: Dict[str, Kernel] = {
     "light_scan": Kernel(CSRC / "light_scan.cu", {
         "light_scan_launch": ([_P] * 15 + [_I] * 10 + [ctypes.POINTER(_I), _P], _I),
     }),
+    "trajectory": Kernel(CSRC / "trajectory.cu", {
+        "trajectory_launch": ([_P] * 17 + [_I] * 6 + [_P], _I),
+    }),
 }
 SOURCES = tuple(k.source for k in KERNELS.values())
 

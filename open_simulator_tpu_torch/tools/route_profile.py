@@ -38,7 +38,8 @@ def route_split(root: dict) -> dict:
     steps, select_s}, and for the light scans `dyn` ({"gpu": 12}: selects
     per combination of GPU, storage and port dynamics, "none" for none)
     and, on `scan`, `kernel` (the light_scan kernel's launches in its
-    selects).
+    selects); on every route that builds a trajectory, `traj_kernel` (the
+    trajectory kernel's launches, the `trajectory` spans' `kernel` meta).
     Steps and groups come from the `group` spans' meta (route that
     committed), select seconds from the `select.<route>` spans, a replayed
     verdict's select included under its own route."""
@@ -53,6 +54,9 @@ def route_split(root: dict) -> dict:
                 r = row(c["meta"]["route"])
                 r["groups"] += 1
                 r["steps"] += c["meta"]["steps"]
+                for t in c.get("children", ()):
+                    if t["name"] == "trajectory" and "kernel" in t.get("meta", {}):
+                        r["traj_kernel"] = r.get("traj_kernel", 0) + t["meta"]["kernel"]
             elif c["name"].startswith("select."):
                 r = row(c["name"][len("select."):])
                 r["select_s"] += c["duration_s"]

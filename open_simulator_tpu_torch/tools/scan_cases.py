@@ -1,5 +1,5 @@
-"""Seeded node-local light-scan chunks: the light_scan CUDA kernel against
-its plain version.
+"""Seeded node-local light-scan chunks: the light_scan and trajectory CUDA
+kernels against their plain versions.
 
 `build(name, device)` makes one chunk's `ops.fast.light_scan` arguments
 from the case's seed (a numpy generator): nodes of random shape with GPUs,
@@ -12,12 +12,21 @@ tests/test_torch_light_scan_kernel.py and chip_smoke.py use them on the
 card; `pai` is the benchmark cell pai_gpu.share's widest group at full
 size, for timing. `chain_probe_ms(n, steps)` times the kernel's step
 chain alone (csrc/scan_chain_probe.cu, CHAIN_SOURCE), its floor.
+
+The trajectory kernel (csrc/trajectory.cu) takes the cases with no port or
+storage dynamics (`TRAJ_CASES`): `trajectory_inputs(name, device)` makes a
+case's build_trajectory arguments, `trajectory(inputs, plain)` runs it
+through the kernel (on a card) or the J-step loop, `compare_trajectory(name)`
+holds every tensor of the two bit-equal, and `trajectory_ms(name)` times the
+kernel's launch alone beside the whole build_trajectory, kernel and loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,8 +35,10 @@ import torch
 from ..core.objects import Node, Pod
 from ..device import resolve_device
 from ..ops import encode, fast, kernel_lib, light_scan, state
+from ..ops import trajectory as traj_kernel
 from ..ops.kernels import (
-    DEFAULT_WEIGHTS, F_NODE_PORTS, F_RESOURCES, NUM_FILTERS, PodRow, weights_array,
+    DEFAULT_WEIGHTS, F_NODE_PORTS, F_RESOURCES, NUM_FILTERS, PodRow, gpu_mask, gpu_share_raw,
+    local_storage_eval, ports_mask, weights_array,
 )
 
 GIB = 1 << 30
@@ -53,6 +64,10 @@ class Case(NamedTuple):
     zero_static: bool = False  # the four static score weights set to 0
     filters_off: bool = False  # the ports and resources filters off
     pai: bool = False         # pai_gpu's node shapes (500 of 8 GPUs, 1,300 of 2)
+    gpu_num: int = 1          # GPU shares the pod asks for (the prefix fill when > 1)
+    gpu_mem: str = "4Gi"      # memory of each share
+    gpuless: bool = False     # every third node has no GPU
+    whole: int = 0            # whole GPUs the pod requests as a resource (no share)
 
 
 CASES = {
@@ -69,7 +84,13 @@ CASES = {
     "zero-static-weights": Case(21, 150, 200, gpu=True, storage=True, zero_static=True),
     "filters-off": Case(22, 60, 120, ports=True, filters_off=True),
     "pai": Case(23, 1800, 240, gpu=True, cpu="4", pai=True),
+    "two-gpus": Case(24, 150, 200, gpu=True, gpu_num=2),
+    "gpu-oversize": Case(25, 60, 64, gpu=True, gpu_mem="32Gi"),
+    "gpuless-nodes": Case(26, 120, 200, gpu=True, gpuless=True),
+    "whole-gpus": Case(27, 100, 150, gpu=True, whole=1),
 }
+# the cases the trajectory kernel takes: no port or storage dynamics
+TRAJ_CASES = tuple(name for name, c in CASES.items() if not (c.ports or c.storage))
 
 
 def _node(i: int, rng, case: Case) -> dict:
@@ -83,7 +104,7 @@ def _node(i: int, rng, case: Case) -> dict:
         mem = int(rng.choice([32, 64, 128, 256]))
         gpus = int(rng.choice([1, 2, 4, 8]))
     alloc = {"cpu": str(cpu), "memory": f"{mem}Gi", "pods": "110"}
-    if case.gpu:
+    if case.gpu and not (case.gpuless and i % 3 == 0):
         alloc.update({"alibabacloud.com/gpu-count": str(gpus),
                       "alibabacloud.com/gpu-mem": f"{16 * gpus}Gi"})
     meta = {"name": f"n-{i}", "labels": {"kubernetes.io/hostname": f"n-{i}"}}
@@ -108,11 +129,14 @@ def _node(i: int, rng, case: Case) -> dict:
 
 def _pod(case: Case, name: str = "p", port: bool = False) -> dict:
     c = {"name": "c", "resources": {"requests": {"cpu": case.cpu, "memory": "2Gi"}}}
+    if case.whole:
+        c["resources"]["requests"]["alibabacloud.com/gpu-count"] = str(case.whole)
     if port:
         c["ports"] = [dict(PORT)]
     anno = {}
-    if case.gpu:
-        anno.update({"alibabacloud.com/gpu-mem": "4Gi", "alibabacloud.com/gpu-count": "1"})
+    if case.gpu and not case.whole:
+        anno.update({"alibabacloud.com/gpu-mem": case.gpu_mem,
+                     "alibabacloud.com/gpu-count": str(case.gpu_num)})
     if case.storage:
         anno["simon/pod-local-storage"] = json.dumps({"volumes": [
             {"kind": "LVM", "size": str(5 * GIB), "scName": "open-local-lvm"}]})
@@ -124,8 +148,9 @@ def _pod(case: Case, name: str = "p", port: bool = False) -> dict:
     return {"metadata": {"name": name, "namespace": "scan", "annotations": anno}, "spec": spec}
 
 
-def build(name: str, device=None) -> dict:
-    """One chunk's light_scan arguments (keyword form) for case `name`."""
+def trajectory_inputs(name: str, device=None) -> dict:
+    """Case `name`'s build_trajectory arguments (keyword form), and its
+    `valid` count under that key."""
     case = CASES[name]
     dev = resolve_device(device)
     rng = np.random.default_rng(case.seed)
@@ -171,14 +196,24 @@ def build(name: str, device=None) -> dict:
         fo = np.ones(NUM_FILTERS, bool)
         fo[[F_NODE_PORTS, F_RESOURCES]] = False
         filter_on = torch.as_tensor(fo, device=dev)
+    return dict(ns=ns, carry=carry, pod=pod, weights=weights, j_steps=j_steps,
+                filter_on=filter_on, flags=flags, valid=valid)
+
+
+def build(name: str, device=None) -> dict:
+    """One chunk's light_scan arguments (keyword form) for case `name`."""
+    case = CASES[name]
+    inp = trajectory_inputs(name, device)
+    ns, carry, pod, weights, filter_on, flags = (
+        inp[k] for k in ("ns", "carry", "pod", "weights", "filter_on", "flags"))
     # a case may ask for a trajectory shorter than the fast path's bucket, so
     # that the chunk runs past its last lane (the refresh's clamp)
     traj, static_ok, _, static_scores, na_ok = fast.build_trajectory(
-        ns, carry, pod, weights, j_steps, filter_on, flags)  # osim: lint-ok[unbucketed-jit-shape]
+        ns, carry, pod, weights, inp["j_steps"], filter_on, flags)  # osim: lint-ok[unbucketed-jit-shape]
     args = dict(ns=ns, traj=traj, carry0=carry, pod=pod, static_ok=static_ok,
                 static_scores=static_scores, na_ok=na_ok, weights=weights,
-                x0=torch.zeros(ns.valid.shape[0], dtype=torch.int32, device=dev),
-                offset=0, group_size=case.pods, valid_count=valid, filter_on=filter_on,
+                x0=torch.zeros(ns.valid.shape[0], dtype=torch.int32, device=ns.valid.device),
+                offset=0, group_size=case.pods, valid_count=inp["valid"], filter_on=filter_on,
                 flags=flags)
     if case.offset:
         # an earlier chunk of the same group, through the plain loop
@@ -214,6 +249,108 @@ def compare(name: str, device="cuda") -> dict:
     return {"case": name, "equal": equal, "placed": int((nodes >= 0).sum()),
             "failed": int((nodes < 0).sum()), "max_x": int(want[0].max()),
             "j_steps": int(args["traj"].packed.shape[1]), "nodes": int(args["ns"].valid.sum())}
+
+
+@contextlib.contextmanager
+def loop_route():
+    """build_trajectory takes its J-step loop inside the block, whatever the
+    device: the routing rule patched to refuse the kernel (one thread)."""
+    rule = fast._takes_traj_kernel
+    fast._takes_traj_kernel = lambda free, flags: False
+    try:
+        yield
+    finally:
+        fast._takes_traj_kernel = rule
+
+
+def trajectory(inputs: dict, plain: bool = False) -> tuple:
+    """build_trajectory's outputs on trajectory_inputs(...) `inputs`:
+    through the routing rule (the kernel, on a card), or with `plain`
+    through the J-step loop."""
+    a = {k: v for k, v in inputs.items() if k != "valid"}
+    with loop_route() if plain else contextlib.nullcontext():
+        return fast.build_trajectory(**a)
+
+
+def _bits(t) -> torch.Tensor:
+    """A float tensor's bit patterns (so -0.0 and NaN payloads count)."""
+    return t.contiguous().view(torch.int32) if t.is_floating_point() else t
+
+
+def same_trajectory(got: tuple, want: tuple) -> list:
+    """The names of build_trajectory's outputs that differ bit for bit."""
+    names = [f"traj.{f}" for f in fast.Trajectory._fields] + ["static_ok", "static_ff"]
+    pairs = list(zip(got[0], want[0])) + [(got[1], want[1]), (got[2], want[2])]
+    bad = [n for n, (a, b) in zip(names, pairs)
+           if a.shape != b.shape or not torch.equal(_bits(a), _bits(b))]
+    bad += [f"static_scores.{k}" for k in want[3]
+            if not torch.equal(_bits(got[3][k]), _bits(want[3][k]))]
+    return bad + ([] if torch.equal(got[4], want[4]) else ["na_ok"])
+
+
+def compare_trajectory(name: str, device="cuda") -> dict:
+    """The trajectory kernel against the J-step loop on case `name`: the
+    outputs that differ bit for bit (none when equal) and the launches."""
+    inputs = trajectory_inputs(name, device)
+    before = kernel_lib.launches("trajectory")
+    got = trajectory(inputs)
+    launched = kernel_lib.launches("trajectory") - before
+    want = trajectory(inputs, plain=True)
+    n, j, r = want[0].free.shape
+    return {"case": name, "differ": same_trajectory(got, want), "launches": launched,
+            "nodes": int(inputs["ns"].valid.sum()), "rows": n, "j_steps": j, "resources": r,
+            "gpus": int(want[0].gpu_free.shape[2]), "dyn_gpu": inputs["flags"].dyn_gpu}
+
+
+def entry_rows(inputs: dict) -> tuple:
+    """The trajectory kernel's entry rows f32[N] as build_trajectory makes
+    them: (port_ok, sto_ok, sto_raw, None or (gpu_ok, gpu_raw))."""
+    ns, carry, pod, flags = (inputs[k] for k in ("ns", "carry", "pod", "flags"))
+    f32 = torch.float32
+    ok, _, _, raw = local_storage_eval(ns, carry, pod)
+    gpu = None if flags.dyn_gpu else (
+        gpu_mask(ns, carry, pod).to(f32), gpu_share_raw(ns, carry, pod))
+    return ports_mask(carry, pod).to(f32), ok.to(f32), raw, gpu
+
+
+def trajectory_ms(name: str = "pai", reps: int = 20) -> dict:
+    """Case `name` on the card: the trajectory kernel's launch alone
+    (CUDA events, mean of `reps` launches after one warm launch), and the
+    whole build_trajectory through the kernel and through the J-step loop
+    (host clock, synchronised, the least of three calls after a warm one)."""
+    inputs = trajectory_inputs(name, "cuda")
+    ns, carry, pod = inputs["ns"], inputs["carry"], inputs["pod"]
+    rows = entry_rows(inputs)
+
+    def launch():
+        traj_kernel.build(ns, carry, pod, inputs["j_steps"], *rows)
+
+    launch()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    stop.record()
+    torch.cuda.synchronize()
+
+    def wall_ms(plain):
+        best = None
+        for _ in range(4):
+            # each call timed alone: the card is idle when it starts
+            torch.cuda.synchronize()  # osim: lint-ok[device-sync-in-loop]
+            t0 = time.perf_counter()
+            trajectory(inputs, plain)
+            # ... and when it ends
+            torch.cuda.synchronize()  # osim: lint-ok[device-sync-in-loop]
+            ms = (time.perf_counter() - t0) * 1e3
+            best = ms if best is None else min(best, ms)
+        return best
+
+    n, r = carry.free.shape
+    return {"case": name, "rows": n, "j_steps": inputs["j_steps"], "resources": r,
+            "gpus": int(carry.gpu_free.shape[1]), "kernel_ms": start.elapsed_time(stop) / reps,
+            "build_kernel_ms": wall_ms(False), "build_plain_ms": wall_ms(True)}
 
 
 def chain_library():

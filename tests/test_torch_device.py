@@ -118,6 +118,12 @@ def _off_card_call(name):
     """A call of kernel `name`'s launching half on tensors off a card."""
     if name == "domain_pop":
         return lambda: dp.domain_pop(*_meta_args())
+    if name == "trajectory":
+        from open_simulator_tpu_torch.ops import trajectory
+
+        inputs = scan_cases.trajectory_inputs("gpu", "cpu")
+        return lambda: trajectory.build(inputs["ns"], inputs["carry"], inputs["pod"],
+                                        inputs["j_steps"], *scan_cases.entry_rows(inputs))
     args = scan_cases.build("gpu", "cpu")
     return lambda: scan_cases.kernel(args)
 
@@ -125,8 +131,8 @@ def _off_card_call(name):
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_kernel_wrapper_rejects_non_cuda_tensors(name, monkeypatch):
     """The kernel half of a wrapper (domain_pop on any device but the CPU,
-    light_scan's scan_chunk) raises on tensors off a card, never falls back
-    to the plain version, and counts no launch."""
+    light_scan's scan_chunk, trajectory's build) raises on tensors off a
+    card, never falls back to the plain version, and counts no launch."""
     monkeypatch.setattr(dp, "domain_pop_reference", _no_plain)
     call = _off_card_call(name)
     before = kernel_lib.launches(name)
@@ -136,7 +142,7 @@ def test_kernel_wrapper_rejects_non_cuda_tensors(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name,case", [("domain_pop", None), ("light_scan", "gpu"),
-                                       ("light_scan", "ports")])
+                                       ("light_scan", "ports"), ("trajectory", "gpu")])
 def test_cpu_tensors_take_the_plain_loop(name, case, monkeypatch):
     """CPU tensors take each kernel's plain version, never the launch, and
     count no launch."""
@@ -148,6 +154,12 @@ def test_cpu_tensors_take_the_plain_loop(name, case, monkeypatch):
     if name == "domain_pop":
         args = _cpu_pop_args()
         got, want = dp.domain_pop(*args), dp.domain_pop_reference(*args)
+    elif name == "trajectory":
+        inputs = scan_cases.trajectory_inputs(case, "cpu")
+        got = scan_cases.trajectory(inputs)
+        want = scan_cases.trajectory(inputs, plain=True)
+        assert scan_cases.same_trajectory(got, want) == []
+        got, want = got[1:3], want[1:3]
     else:
         args = scan_cases.build(case, "cpu")
         got, want = fast.light_scan(**args), scan_cases.plain(args)

@@ -309,10 +309,10 @@ def test_route_split_sums_the_kernel_meta():
 
 
 def test_each_loader_builds_only_its_own_source(monkeypatch):
-    """domain_pop, light_scan and the scan chain probe each build only
-    their own CUDA source when they load: a process that only pops never
-    compiles the scan kernel, and the probe is no part of the registry
-    that warmup builds."""
+    """domain_pop, light_scan, trajectory and the scan chain probe each
+    build only their own CUDA source when they load: a process that only
+    pops never compiles the scan kernel, and the probe is no part of the
+    registry that warmup builds."""
     built = []
 
     def fake_build(*sources):
@@ -324,15 +324,17 @@ def test_each_loader_builds_only_its_own_source(monkeypatch):
         domain_pop_launch=types.SimpleNamespace(),
         domain_pop_divide_check=types.SimpleNamespace(),
         light_scan_launch=types.SimpleNamespace(),
+        trajectory_launch=types.SimpleNamespace(),
         scan_chain_probe_launch=types.SimpleNamespace()))
     monkeypatch.setattr(kernel_lib, "_libs", {})
     kernel_lib.library("domain_pop")
     kernel_lib.library("light_scan")
+    kernel_lib.library("trajectory")
     scan_cases.chain_library()
     kernel_lib.library("light_scan")     # loaded once
     assert [src.name for (src,) in built] == [
-        "domain_pop.cu", "light_scan.cu", "scan_chain_probe.cu"]
-    assert [src for (src,) in built[:2]] == list(kernel_lib.SOURCES)
+        "domain_pop.cu", "light_scan.cu", "trajectory.cu", "scan_chain_probe.cu"]
+    assert [src for (src,) in built[:3]] == list(kernel_lib.SOURCES)
     assert scan_cases.CHAIN_SOURCE not in kernel_lib.SOURCES
     assert "__global__ void __launch_bounds__(kThreads, 1) chain_probe_kernel" not in \
         kernel_lib.KERNELS["light_scan"].source.read_text()
